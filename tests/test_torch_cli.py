@@ -1,0 +1,72 @@
+"""``python -m wcgan_tpu_torch`` end to end on the CPU, in subprocesses.
+
+The training run happens in a fresh interpreter that runs the package as
+``-m`` does and then checks it never imported JAX, flax, optax or orbax:
+the port must run where none of them is installed."""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+TINY = ["--dataset", "synthetic", "--synthetic_size", "64", "--arch", "res",
+        "--generator_filters", "16,16", "--discriminator_filters", "16,16",
+        "--batch_size", "8", "--training_ratio", "2", "--z_dim", "16",
+        "--ns_iters", "6", "--number_of_epochs", "2",
+        "--batches_per_epoch", "2", "--name", "tiny"]
+
+RUN_AS_MAIN = """
+import runpy, sys
+sys.argv = ["wcgan_tpu_torch"] + sys.argv[1:]
+try:
+  runpy.run_module("wcgan_tpu_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+  if e.code:
+    raise
+loaded = sorted(m for m in ("jax", "flax", "optax", "orbax")
+                if m in sys.modules)
+assert not loaded, f"the port imported {loaded}"
+print("NO_JAX_IMPORTED")
+"""
+
+
+def _run(args):
+  return subprocess.run([sys.executable, "-c", RUN_AS_MAIN, *args], cwd=REPO,
+                        capture_output=True, text=True, timeout=300)
+
+
+def test_cli_trains_on_cpu_without_jax(tmp_path):
+  proc = _run(["--device", "cpu", "--output_dir", str(tmp_path), *TINY])
+  assert proc.returncode == 0, proc.stdout + proc.stderr
+  assert "NO_JAX_IMPORTED" in proc.stdout
+  assert "allow_tf32=False" in proc.stdout
+  lines = (tmp_path / "tiny" / "log.txt").read_text().splitlines()
+  epochs = [l for l in lines if l.startswith("Epoch ")]
+  assert len(epochs) == 2
+  assert "d_loss = " in epochs[0] and "imgs/sec = " in epochs[0]
+  records = [json.loads(l) for l in
+             (tmp_path / "tiny" / "metrics.jsonl").read_text().splitlines()]
+  assert [r["epoch"] for r in records] == [0, 1]
+  assert all(r["imgs_per_sec"] > 0 and r["device"] == "cpu"
+             for r in records)
+
+
+def test_cli_cuda_without_gpu_fails(tmp_path):
+  if torch.cuda.is_available():
+    pytest.skip("checks the refusal on a machine without a GPU")
+  proc = _run(["--device", "cuda", "--output_dir", str(tmp_path), *TINY])
+  assert proc.returncode != 0
+  assert "no CUDA GPU" in proc.stderr
+  assert not (tmp_path / "tiny").exists()
+
+
+def test_cli_rejects_unported_flags(tmp_path):
+  proc = _run(["--device", "cpu", "--output_dir", str(tmp_path), "--mesh",
+               "2", *TINY])
+  assert proc.returncode != 0
+  assert "--mesh not supported by the PyTorch port" in proc.stderr

@@ -1,0 +1,199 @@
+"""Experiment entry point of the port: ``python -m wcgan_tpu_torch``.
+
+Counterpart of ``wcgan_tpu/cli/run.py`` for the slice ported so far: the
+unconditional ResNet WC-GAN (G with 'd'/'dr' whitening and 'uconv'
+coloring, SN ResNet D), hinge/ns/wgan losses, Adam with the reference's LR
+schedules. Flag names are the JAX CLI's. A flag of the JAX CLI that the
+port does not support yet is rejected with an error, never ignored.
+
+Usage:
+  python -m wcgan_tpu_torch --device cuda --dataset synthetic --arch res \\
+      --bf16 --number_of_epochs 2 --batches_per_epoch 3
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+from typing import List, Optional
+
+import torch
+
+from wcgan_tpu.data import DATASETS, get_dataset
+from wcgan_tpu_torch.device import resolve_device
+from wcgan_tpu_torch.models.discriminator import DiscriminatorConfig
+from wcgan_tpu_torch.models.discriminator import preset_filters as d_presets
+from wcgan_tpu_torch.models.generator import GeneratorConfig
+from wcgan_tpu_torch.models.generator import preset_filters as g_presets
+from wcgan_tpu_torch.train.state import OptimConfig, create_state
+from wcgan_tpu_torch.train.step import GANConfig
+from wcgan_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+# Flags of the JAX CLI (wcgan_tpu/cli/run.py) that this port does not take
+# yet; each is refused by name instead of being silently dropped.
+UNSUPPORTED_FLAGS = (
+    "--checkpoints_dir", "--checkpoint_ratio", "--display_ratio",
+    "--start_epoch", "--generator_checkpoint", "--discriminator_checkpoint",
+    "--checkpoint_key_map", "--checkpoint_missing", "--resume", "--phase",
+    "--gan_type", "--gradient_penalty_weight", "--conditional",
+    "--generator_concat_cls", "--discriminator_norm",
+    "--discriminator_coloring", "--discriminator_spectral",
+    "--spectral_iterations", "--fully_diff_spectral", "--conv_singular",
+    "--filters_emb", "--sn_update_on_g_step", "--generator_ema",
+    "--ema_standing_stats", "--whitening_method", "--wc_residual_action",
+    "--fallback_cooldown", "--residual_probe_every", "--whitening_precision",
+    "--compute_inception_score", "--compute_fid", "--score_every",
+    "--samples_inception", "--samples_fid", "--inception_weights",
+    "--platform", "--mesh", "--remat", "--profile_dir", "--debug_nans",
+    "--synthetic_resolution", "--smoke", "--batched_fake_gen",
+    "--d_fake_stats", "--device_data", "--steps_per_call",
+    "--device_data_limit", "--compilation_cache_dir", "--preset")
+
+
+def build_parser() -> argparse.ArgumentParser:
+  p = argparse.ArgumentParser(
+      prog="python -m wcgan_tpu_torch",
+      description="wcgan_tpu_torch — WC-GAN training in PyTorch/CUDA")
+  p.add_argument("--device", default="cuda",
+                 help="'cuda' (default; an error if there is no GPU) or "
+                      "'cpu'")
+  p.add_argument("--name", default=None,
+                 help="experiment name (default: derived from config)")
+  p.add_argument("--output_dir", default="output")
+  p.add_argument("--seed", type=int, default=0)
+  p.add_argument("--dataset", default="cifar10", choices=sorted(DATASETS))
+  p.add_argument("--data_dir", default="data")
+  p.add_argument("--synthetic_size", type=int, default=4096)
+  p.add_argument("--arch", default="res", choices=["res"])
+  p.add_argument("--loss", default="hinge", choices=["hinge", "ns", "wgan"])
+  p.add_argument("--generator_block_norm", default="d", choices=["d", "dr"])
+  p.add_argument("--generator_block_coloring", default="uconv",
+                 choices=["uconv"])
+  p.add_argument("--generator_last_norm", default="d", choices=["d", "dr"])
+  p.add_argument("--generator_last_coloring", default="uconv",
+                 choices=["uconv"])
+  p.add_argument("--generator_filters", default=None,
+                 help="comma-separated per-block widths (default preset)")
+  p.add_argument("--discriminator_filters", default=None,
+                 help="comma-separated per-block widths (default preset)")
+  p.add_argument("--batch_size", type=int, default=64)
+  p.add_argument("--training_ratio", type=int, default=5)
+  p.add_argument("--generator_batch_multiple", type=int, default=2)
+  p.add_argument("--generator_lr", type=float, default=2e-4)
+  p.add_argument("--discriminator_lr", type=float, default=2e-4)
+  p.add_argument("--beta1", type=float, default=0.0)
+  p.add_argument("--beta2", type=float, default=0.9)
+  p.add_argument("--lr_decay_schedule", default="none",
+                 choices=["none", "linear", "half-linear", "linear-end"])
+  p.add_argument("--number_of_epochs", type=int, default=100)
+  p.add_argument("--batches_per_epoch", type=int, default=None)
+  p.add_argument("--z_dim", type=int, default=128)
+  p.add_argument("--ns_iters", type=int, default=15,
+                 help="Newton-Schulz iterations for whitening (keep >= 15)")
+  p.add_argument("--ns_scaling", default="trace", choices=["trace", "fro"])
+  p.add_argument("--wc_momentum", type=float, default=0.99)
+  p.add_argument("--bf16", action="store_true",
+                 help="bfloat16 compute in G/D (whitening stays float32)")
+  p.add_argument("--random_flip", type=int, default=None,
+                 help="1/0 horizontal flip of real images (default: on for "
+                      "natural-image datasets)")
+  return p
+
+
+def _reject_unsupported(argv: List[str]) -> None:
+  given = sorted({a.split("=", 1)[0] for a in argv
+                  if a.split("=", 1)[0] in UNSUPPORTED_FLAGS})
+  if given:
+    raise SystemExit(
+        f"wcgan_tpu_torch: {', '.join(given)} not supported by the PyTorch "
+        "port yet (the JAX CLI, python run.py, has them)")
+
+
+def _parse_filters(spec: Optional[str]):
+  if spec is None:
+    return None
+  return tuple(int(x) for x in spec.split(",") if x)
+
+
+def set_precision() -> str:
+  """Pin float32 matmuls and convolutions to true float32 (no TF32) and
+  report both switches: Newton-Schulz does not converge under TF32-class
+  passes (measured on the reference, wcgan_tpu/ops/whiten.py)."""
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  return (f"torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32} "
+          f"torch.backends.cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}")
+
+
+def build_experiment(args) -> Trainer:
+  """args -> a Trainer with its state on ``args.device``."""
+  device = resolve_device(args.device)
+  ds = get_dataset(args.dataset, batch_size=args.batch_size,
+                   data_dir=args.data_dir, conditional=False, seed=args.seed,
+                   z_dim=args.z_dim, synthetic_size=args.synthetic_size)
+  res = ds.resolution
+  dtype = "bfloat16" if args.bf16 else "float32"
+  g_filters = _parse_filters(args.generator_filters) or g_presets(res)
+  g_cfg = GeneratorConfig(
+      z_dim=args.z_dim, resolution=res, output_channels=ds.channels,
+      filters=g_filters, base_resolution=res // (2 ** len(g_filters)),
+      block_norm=args.generator_block_norm,
+      block_coloring=args.generator_block_coloring,
+      last_norm=args.generator_last_norm,
+      last_coloring=args.generator_last_coloring, ns_iters=args.ns_iters,
+      ns_scaling=args.ns_scaling, wc_momentum=args.wc_momentum, dtype=dtype)
+  d_filters = _parse_filters(args.discriminator_filters)
+  if d_filters is None:
+    d_filters, d_down = d_presets(res)
+  else:
+    # All blocks but the last downsample; block 0 (the optimized block)
+    # always does.
+    d_down = (True,) + (True,) * (len(d_filters) - 2) + (False,) * (
+        len(d_filters) > 1)
+  d_cfg = DiscriminatorConfig(
+      resolution=res, input_channels=ds.channels, filters=d_filters,
+      downsample=d_down, dtype=dtype)
+  gan_cfg = GANConfig(
+      loss=args.loss, training_ratio=args.training_ratio,
+      generator_batch_multiple=args.generator_batch_multiple,
+      z_dim=args.z_dim,
+      random_flip=(bool(args.random_flip) if args.random_flip is not None
+                   else args.dataset not in ("mnist", "fashion-mnist",
+                                             "digits")))
+  steps_per_epoch = args.batches_per_epoch or max(
+      ds.number_of_batches_per_epoch // args.training_ratio, 1)
+  opt_cfg = OptimConfig(
+      generator_lr=args.generator_lr, discriminator_lr=args.discriminator_lr,
+      beta1=args.beta1, beta2=args.beta2,
+      lr_decay_schedule=args.lr_decay_schedule,
+      total_outer_steps=steps_per_epoch * args.number_of_epochs)
+  state = create_state(g_cfg, d_cfg, opt_cfg, args.training_ratio, device,
+                       seed=args.seed)
+  name = args.name or (f"{args.dataset}_{args.arch}_{args.loss}"
+                       f"_{args.generator_block_norm}-"
+                       f"{args.generator_block_coloring}")
+  tcfg = TrainerConfig(output_dir=os.path.join(args.output_dir, name),
+                       number_of_epochs=args.number_of_epochs,
+                       batches_per_epoch=args.batches_per_epoch or 0)
+  return Trainer(ds, state, gan_cfg, tcfg)
+
+
+def main(argv=None) -> int:
+  argv = list(sys.argv[1:]) if argv is None else list(argv)
+  _reject_unsupported(argv)
+  args = build_parser().parse_args(argv)
+  print(set_precision(), flush=True)
+  trainer = build_experiment(args)
+  device = trainer.state.generator.device
+  trainer.logger.line(f"wcgan_tpu_torch on {device}"
+                      + (f" ({torch.cuda.get_device_name(device)})"
+                         if device.type == "cuda" else ""))
+  trainer.train()
+  return 0
+
+
+if __name__ == "__main__":
+  raise SystemExit(main())

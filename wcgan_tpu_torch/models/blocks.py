@@ -1,0 +1,106 @@
+"""ResNet building blocks of the generator and the SN discriminator.
+
+Counterpart of the res blocks in ``wcgan_tpu/models/blocks.py``: the
+generator's up-block with WC layers, and the discriminator's
+spectral-normalized down-blocks. Submodule names follow the flax ones
+(``nc1``, ``conv1``, ``conv_sc``, ...) so weights map across by path
+(``wcgan_tpu_torch/weights.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from wcgan_tpu_torch.models import layers as L
+
+
+class GenResBlock(nn.Module):
+  """norm->color->ReLU->(up)->conv x2, plus a shortcut that is upsampled
+  and passed through a learned 1x1 conv whenever the block upsamples or
+  changes channels (so every upsampling block has ``conv_sc``)."""
+
+  def __init__(self, in_channels: int, filters: int,
+               generator: torch.Generator, upsample: bool = True,
+               norm: str = "d", coloring: str = "uconv", ns_iters: int = 15,
+               momentum: float = 0.99, ns_scaling: str = "trace",
+               use_kernel: Optional[bool] = None):
+    super().__init__()
+    self.upsample = upsample
+
+    def norm_color(channels):
+      return L.NormColor(channels, norm=norm, coloring=coloring,
+                         momentum=momentum, ns_iters=ns_iters,
+                         ns_scaling=ns_scaling, use_kernel=use_kernel)
+
+    self.nc1 = norm_color(in_channels)
+    self.conv1 = L.Conv(in_channels, filters, 3, generator)
+    self.nc2 = norm_color(filters)
+    self.conv2 = L.Conv(filters, filters, 3, generator)
+    self.conv_sc = (L.Conv(in_channels, filters, 1, generator)
+                    if upsample or in_channels != filters else None)
+
+  def forward(self, x: torch.Tensor, train: bool = True,
+              update_stats: bool = True) -> torch.Tensor:
+    h = F.relu(self.nc1(x, train, update_stats))
+    if self.upsample:
+      h = L.upsample_nearest(h)
+    h = self.conv1(h)
+    h = F.relu(self.nc2(h, train, update_stats))
+    h = self.conv2(h)
+    sc = L.upsample_nearest(x) if self.upsample else x
+    if self.conv_sc is not None:
+      sc = self.conv_sc(sc)
+    return h + sc
+
+
+class DiscResBlock(nn.Module):
+  """ReLU->SNconv->ReLU->SNconv->(down), plus a shortcut through a 1x1
+  SN conv (then down) when the block downsamples or changes channels.
+  Norm layers inside D are not ported."""
+
+  def __init__(self, in_channels: int, filters: int,
+               generator: torch.Generator, downsample: bool = True,
+               sn_iters: int = 1, fully_diff: bool = False):
+    super().__init__()
+    self.downsample = downsample
+    sn = dict(generator=generator, sn_iters=sn_iters, fully_diff=fully_diff)
+    self.conv1 = L.SNConv(in_channels, filters, 3, **sn)
+    self.conv2 = L.SNConv(filters, filters, 3, **sn)
+    self.conv_sc = (L.SNConv(in_channels, filters, 1, **sn)
+                    if downsample or in_channels != filters else None)
+
+  def forward(self, x: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
+    h = self.conv1(F.relu(x), update_sn)
+    h = self.conv2(F.relu(h), update_sn)
+    if self.downsample:
+      h = L.downsample_avg(h)
+    sc = x
+    if self.conv_sc is not None:
+      sc = self.conv_sc(sc, update_sn)
+      if self.downsample:
+        sc = L.downsample_avg(sc)
+    return h + sc
+
+
+class DiscOptimizedBlock(nn.Module):
+  """First D block on raw pixels: conv->ReLU->conv->down, shortcut
+  down->1x1 conv (SN-GAN's optimized block, no pre-activation)."""
+
+  def __init__(self, in_channels: int, filters: int,
+               generator: torch.Generator, sn_iters: int = 1,
+               fully_diff: bool = False):
+    super().__init__()
+    sn = dict(generator=generator, sn_iters=sn_iters, fully_diff=fully_diff)
+    self.conv1 = L.SNConv(in_channels, filters, 3, **sn)
+    self.conv2 = L.SNConv(filters, filters, 3, **sn)
+    self.conv_sc = L.SNConv(in_channels, filters, 1, **sn)
+
+  def forward(self, x: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
+    h = F.relu(self.conv1(x, update_sn))
+    h = L.downsample_avg(self.conv2(h, update_sn))
+    sc = self.conv_sc(L.downsample_avg(x), update_sn)
+    return h + sc

@@ -1,0 +1,99 @@
+"""The ResNet WC generator.
+
+Counterpart of ``wcgan_tpu/models/generator.py`` for ``arch='res'``:
+z -> Dense -> base x base x C -> up-blocks -> final WC layer -> ReLU ->
+3x3 conv -> tanh. Conditional generation and the DCGAN arch are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from wcgan_tpu_torch.models import blocks as B
+from wcgan_tpu_torch.models import layers as L
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class GeneratorConfig:
+  """Static generator hyperparameters (the subset the port supports)."""
+
+  arch: str = "res"
+  z_dim: int = 128
+  resolution: int = 32
+  output_channels: int = 3
+  filters: Tuple[int, ...] = (256, 256, 256)
+  base_resolution: int = 4
+  block_norm: str = "d"
+  block_coloring: str = "uconv"
+  last_norm: str = "d"
+  last_coloring: str = "uconv"
+  ns_iters: int = 15
+  ns_scaling: str = "trace"
+  wc_momentum: float = 0.99
+  dtype: str = "float32"               # compute dtype: 'float32'|'bfloat16'
+  use_kernel: Optional[bool] = None    # K1 for the moments: None = on CUDA
+
+  def __post_init__(self):
+    if self.arch != "res":
+      raise NotImplementedError(f"generator arch {self.arch!r}: only 'res' "
+                                "is ported")
+    if self.dtype not in DTYPES:
+      raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got "
+                       f"{self.dtype!r}")
+    expected = self.base_resolution * 2 ** len(self.filters)
+    if expected != self.resolution:
+      raise ValueError(
+          f"base_resolution {self.base_resolution} x 2^{len(self.filters)} "
+          f"blocks = {expected}, but resolution is {self.resolution}")
+
+
+class Generator(nn.Module):
+  """Images (N, C, H, W), channels_last, float32 in [-1, 1] from z (N, z).
+
+  ``train`` whitens with batch statistics; ``update_stats`` advances the
+  running statistics (only meaningful in train mode)."""
+
+  def __init__(self, cfg: GeneratorConfig, generator: torch.Generator):
+    super().__init__()
+    self.cfg = cfg
+    f0 = cfg.filters[0]
+    br = cfg.base_resolution
+    self.fc_in = L.Dense(cfg.z_dim, br * br * f0, generator)
+    wc = dict(ns_iters=cfg.ns_iters, momentum=cfg.wc_momentum,
+              ns_scaling=cfg.ns_scaling, use_kernel=cfg.use_kernel)
+    in_ch = f0
+    for i, f in enumerate(cfg.filters):
+      self.add_module(f"block{i}", B.GenResBlock(
+          in_ch, f, generator, upsample=True, norm=cfg.block_norm,
+          coloring=cfg.block_coloring, **wc))
+      in_ch = f
+    self.nc_out = L.NormColor(in_ch, norm=cfg.last_norm,
+                              coloring=cfg.last_coloring, **wc)
+    self.conv_out = L.Conv(in_ch, cfg.output_channels, 3, generator)
+
+  def forward(self, z: torch.Tensor, train: bool = True,
+              update_stats: bool = True) -> torch.Tensor:
+    cfg = self.cfg
+    h = self.fc_in(z.to(DTYPES[cfg.dtype]))
+    br = cfg.base_resolution
+    # The reference lays fc_in's output out as (N, br, br, C); keep that
+    # order, then view it as NCHW, which is channels_last in memory.
+    h = h.view(h.shape[0], br, br, cfg.filters[0]).permute(0, 3, 1, 2)
+    for i in range(len(cfg.filters)):
+      h = getattr(self, f"block{i}")(h, train, update_stats)
+    h = F.relu(self.nc_out(h, train, update_stats))
+    h = self.conv_out(h)
+    return torch.tanh(h.float())
+
+
+def preset_filters(resolution: int) -> Tuple[int, ...]:
+  """Per-dataset default G widths of the ResNet (paper section 5)."""
+  return {16: (128, 128), 32: (256, 256, 256), 48: (512, 256, 128),
+          64: (512, 256, 128, 64)}[resolution]

@@ -1,0 +1,86 @@
+"""Build the package's CUDA sources into shared libraries and load them.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface, so ``nvcc`` compiles it
+in seconds (no PyTorch headers) into ``build/kernels/`` at the repository
+root, on first use, and ``ctypes`` loads it. The library's file name carries
+a hash of the source and the flags, so an edited source is rebuilt and an
+unchanged one is reused across processes. A missing ``nvcc`` or a failed
+compile raises with the compiler's output; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Tuple
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
+
+# sm_90a: Hopper with its architecture-specific features (wgmma, setmaxnreg).
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+  """The CUDA compiler: ``nvcc`` on PATH, else under CUDA_HOME."""
+  found = shutil.which("nvcc")
+  if found:
+    return found
+  home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+      or "/usr/local/cuda"
+  candidate = Path(home) / "bin" / "nvcc"
+  if candidate.is_file():
+    return str(candidate)
+  raise RuntimeError(
+      "nvcc not found on PATH or under CUDA_HOME; the CUDA toolkit is "
+      "needed to build the package's kernels")
+
+
+def compile_library(name: str) -> Tuple[Path, str, float]:
+  """Compile ``csrc/<name>.cu`` unless an identical build exists.
+
+  Returns (library path, compiler output, seconds spent compiling; 0.0
+  when the library was already built)."""
+  src = CSRC_DIR / f"{name}.cu"
+  digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+                          ).hexdigest()[:16]
+  out = BUILD_DIR / f"lib{name}_{digest}.so"
+  if out.is_file():
+    return out, "", 0.0
+  BUILD_DIR.mkdir(parents=True, exist_ok=True)
+  tmp = out.with_suffix(f".{os.getpid()}.tmp")
+  cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+  t0 = time.perf_counter()
+  proc = subprocess.run(cmd, capture_output=True, text=True)
+  seconds = time.perf_counter() - t0
+  if proc.returncode != 0:
+    tmp.unlink(missing_ok=True)
+    raise RuntimeError(f"nvcc failed to build {src} (exit "
+                       f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+  os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+  return out, proc.stdout + proc.stderr, seconds
+
+
+def load_moments() -> ctypes.CDLL:
+  """The K1 library with its C signatures declared (built on first use)."""
+  lib = _LOADED.get("moments")
+  if lib is None:
+    path, _, _ = compile_library("moments")
+    lib = ctypes.CDLL(str(path))
+    lib.wcgan_moments.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.wcgan_moments.restype = ctypes.c_int
+    lib.wcgan_moments_workspace_floats.argtypes = [ctypes.c_int64,
+                                                   ctypes.c_int]
+    lib.wcgan_moments_workspace_floats.restype = ctypes.c_int64
+    _LOADED["moments"] = lib
+  return lib

@@ -1,0 +1,73 @@
+"""Train state: everything one GAN experiment mutates, in one object.
+
+Counterpart of ``wcgan_tpu/train/state.py``. The reference threads an
+immutable pytree through a jitted step; here the step updates this object
+in place: G and D (parameters plus their ``wc_stats``/``u`` buffers), the
+two Adams with their LR schedulers, the outer-step count and the
+``torch.Generator`` that draws z and the flips.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from wcgan_tpu_torch.device import place
+from wcgan_tpu_torch.models.discriminator import (Discriminator,
+                                                  DiscriminatorConfig)
+from wcgan_tpu_torch.models.generator import Generator, GeneratorConfig
+from wcgan_tpu_torch.train import schedules
+
+
+@dataclasses.dataclass
+class OptimConfig:
+  """Adam and LR-schedule settings for G and D (the CLI's flags)."""
+
+  generator_lr: float = 2e-4
+  discriminator_lr: float = 2e-4
+  beta1: float = 0.0
+  beta2: float = 0.9
+  lr_decay_schedule: str = "none"
+  total_outer_steps: int = 1      # G updates over the run; D has ratio x
+
+
+@dataclasses.dataclass
+class GANTrainState:
+  """All mutable training state for one GAN experiment."""
+
+  g: Generator
+  d: Discriminator
+  g_opt: torch.optim.Adam
+  d_opt: torch.optim.Adam
+  g_sched: torch.optim.lr_scheduler.LambdaLR
+  d_sched: torch.optim.lr_scheduler.LambdaLR
+  generator: torch.Generator
+  step: int = 0                   # counts OUTER steps
+
+
+def state_from_modules(g: Generator, d: Discriminator, opt_cfg: OptimConfig,
+                       training_ratio: int, device: torch.device,
+                       seed: int) -> GANTrainState:
+  """Optimizers and the noise generator around modules already on
+  ``device``."""
+  g_opt, g_sched = schedules.adam(
+      g.parameters(), opt_cfg.generator_lr, opt_cfg.beta1, opt_cfg.beta2,
+      opt_cfg.lr_decay_schedule, opt_cfg.total_outer_steps)
+  d_opt, d_sched = schedules.adam(
+      d.parameters(), opt_cfg.discriminator_lr, opt_cfg.beta1, opt_cfg.beta2,
+      opt_cfg.lr_decay_schedule, opt_cfg.total_outer_steps * training_ratio)
+  noise = torch.Generator(device=device).manual_seed(seed)
+  return GANTrainState(g=g, d=d, g_opt=g_opt, d_opt=d_opt, g_sched=g_sched,
+                       d_sched=d_sched, generator=noise)
+
+
+def create_state(g_cfg: GeneratorConfig, d_cfg: DiscriminatorConfig,
+                 opt_cfg: OptimConfig, training_ratio: int,
+                 device: torch.device, seed: int = 0) -> GANTrainState:
+  """Random G and D from ``seed`` (initialized on the CPU, so the same seed
+  gives the same weights on any device), placed on ``device``."""
+  init = torch.Generator().manual_seed(seed)
+  g = place(Generator(g_cfg, init), device)
+  d = place(Discriminator(d_cfg, init), device)
+  return state_from_modules(g, d, opt_cfg, training_ratio, device, seed + 1)

@@ -1,0 +1,146 @@
+"""The outer step: K discriminator updates, then one generator update.
+
+Counterpart of ``wcgan_tpu/train/step.py::make_outer_step`` for the
+unconditional GAN with a norm-free D. The reference compiles the outer step
+into one XLA program; here it runs eagerly and updates the state in place.
+Semantics kept from the reference:
+
+- During the K D updates G is frozen and runs in train mode (batch-stat
+  whitening), but its running statistics do not advance.
+- Real and fake images are scored in one concatenated D forward per D
+  update, which advances every SN ``u`` once.
+- The G update runs at ``generator_batch_multiple`` x B; it is the only
+  place G's running statistics advance, and D's ``u`` does not.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from wcgan_tpu_torch.ops import losses as loss_ops
+from wcgan_tpu_torch.train.state import GANTrainState
+
+
+@dataclasses.dataclass(frozen=True)
+class GANConfig:
+  """Objective and update schedule (the subset the port supports)."""
+
+  loss: str = "hinge"                 # hinge | ns | wgan
+  training_ratio: int = 5
+  generator_batch_multiple: int = 2
+  z_dim: int = 128
+  random_flip: bool = False
+
+
+def prepare_real(real: torch.Tensor, flip: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+  """uint8 (..., B, H, W, C) -> float32 in [-1, 1], each image flipped
+  along W where ``flip`` (..., B) is True, returned as (..., B, C, H, W)
+  in channels_last memory (the NHWC bytes, permuted)."""
+  if real.dtype == torch.uint8:
+    real = real.float() / 127.5 - 1.0
+  if flip is not None:
+    real = torch.where(flip[..., None, None, None], real.flip(-2), real)
+  return real.movedim(-1, -3)
+
+
+def _as_tensor(a, device: torch.device) -> torch.Tensor:
+  if torch.is_tensor(a):
+    return a.to(device)
+  # np.array copies: arrays handed over from other frameworks are often
+  # read-only, which torch.from_numpy does not support.
+  return torch.from_numpy(np.array(a)).to(device)
+
+
+def _global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+  return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+
+
+def _apply(params, grads, opt, sched) -> None:
+  for p, g in zip(params, grads):
+    p.grad = g
+  opt.step()
+  sched.step()
+  opt.zero_grad(set_to_none=True)
+
+
+def make_outer_step(cfg: GANConfig) -> Callable[..., Dict[str, torch.Tensor]]:
+  """The outer-step function for ``cfg``.
+
+  ``outer_step(state, real_u8, labels, noise=None)`` takes ``real_u8``
+  (K, B, H, W, C) uint8 (numpy or tensor) with K = ``training_ratio``, and
+  ``labels`` (K, B), unused by the unconditional GAN. ``noise`` optionally
+  injects every random draw: ``{"z_d": (K, B, z), "z_g": (gB, z),
+  "flip": (K, B) bool}``; without it all are drawn from
+  ``state.generator``. Updates ``state`` in place and returns the metrics
+  d_loss and d_grad_norm (means over the K D updates), g_loss and
+  g_grad_norm as 0-d tensors on the state's device, without
+  synchronising."""
+  d_loss_fn, g_loss_fn = loss_ops.get_losses(cfg.loss)
+  ratio = cfg.training_ratio
+
+  def draw_noise(state: GANTrainState, b: int, device) -> Dict:
+    gen = state.generator
+    g_batch = b * cfg.generator_batch_multiple
+    noise = {
+        "z_d": torch.randn((ratio, b, cfg.z_dim), generator=gen,
+                           device=device),
+        "z_g": torch.randn((g_batch, cfg.z_dim), generator=gen,
+                           device=device),
+    }
+    if cfg.random_flip:
+      noise["flip"] = torch.rand((ratio, b), generator=gen,
+                                 device=device) < 0.5
+    return noise
+
+  def d_update(state: GANTrainState, x: torch.Tensor, z: torch.Tensor):
+    b = x.shape[0]
+    with torch.no_grad():
+      fake = state.g(z, train=True, update_stats=False)
+    scores = state.d(torch.cat([x, fake]), update_sn=True)
+    loss = d_loss_fn(scores[:b], scores[b:])
+    params = list(state.d.parameters())
+    grads = torch.autograd.grad(loss, params)
+    gnorm = _global_norm(grads)
+    _apply(params, grads, state.d_opt, state.d_sched)
+    return loss.detach(), gnorm
+
+  def g_update(state: GANTrainState, z: torch.Tensor):
+    fake = state.g(z, train=True, update_stats=True)
+    loss = g_loss_fn(state.d(fake, update_sn=False))
+    params = list(state.g.parameters())
+    grads = torch.autograd.grad(loss, params)
+    gnorm = _global_norm(grads)
+    _apply(params, grads, state.g_opt, state.g_sched)
+    return loss.detach(), gnorm
+
+  def outer_step(state: GANTrainState, real_u8, labels,
+                 noise: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+    del labels  # unconditional
+    device = state.generator.device
+    real = _as_tensor(real_u8, device)
+    if real.shape[0] != ratio:
+      raise ValueError(f"got {real.shape[0]} D batches, expected "
+                       f"training_ratio={ratio}")
+    b = real.shape[1]
+    if noise is None:
+      noise = draw_noise(state, b, device)
+    noise = {k: _as_tensor(v, device) for k, v in noise.items()}
+    real = prepare_real(real, noise.get("flip") if cfg.random_flip else None)
+
+    d_losses, d_gnorms = [], []
+    for k in range(ratio):
+      loss, gnorm = d_update(state, real[k], noise["z_d"][k])
+      d_losses.append(loss)
+      d_gnorms.append(gnorm)
+    g_loss, g_gnorm = g_update(state, noise["z_g"])
+    state.step += 1
+    return {"d_loss": torch.stack(d_losses).mean(), "g_loss": g_loss,
+            "d_grad_norm": torch.stack(d_gnorms).mean(),
+            "g_grad_norm": g_gnorm}
+
+  return outer_step
