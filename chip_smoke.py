@@ -3,19 +3,32 @@
   python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU, nvcc
-and PyTorch built for CUDA. It builds K1 (wcgan_tpu_torch/csrc/moments.cu),
-holds it against its plain PyTorch version, times both, checks one outer
-step with and without the kernel at small width in float32, then drives the
-training slice at full width (G 256x3 + D 128x4, bf16, batch 64, 5 D
-updates + 1 G update at batch 128) and the CLI. Every phase that fails
+and PyTorch built for CUDA. It builds K1 (wcgan_tpu_torch/csrc/moments.cu)
+and K2 (csrc/wc_apply.cu) side by side, holds each against its plain
+PyTorch version and times both, checks one outer step with and without K1
+at small width in float32, then drives the two ported paths at full width:
+
+- training (slice 1): G 256x3 + D 128x4, bf16, 10 outer steps of 5 D
+  updates at batch 64 + 1 G update at batch 128; K1 runs 42 times a step;
+- sampling (slice 2): ``Trainer.generate(1024, batch=256)`` from that G
+  in eval mode on its running statistics, with K2 forced on every WC layer
+  (7 launches a forward) and then on the split path; the images of the
+  two must agree;
+
+and the CLI: a training run that writes sample grids, then ``--phase test``
+on the npz that ``Trainer.export_weights`` wrote. Every phase that fails
 stops the script with a non-zero exit. The last line is
 {"ok": true, "device": {...}}; the line before it lists each kernel with
-its launches on the main path, error and times. Without a GPU it exits
-non-zero and prints no result. It imports no JAX.
+its launches on its path, error and times. Without a GPU it exits
+non-zero and prints no result. It imports no JAX, and of the JAX package
+only its numpy modules (data, utils, tools), as the port does.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
+import glob
 import json
 import os
 import shutil
@@ -23,13 +36,17 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
+from wcgan_tpu.data import get_dataset
+from wcgan_tpu_torch.device import place
 from wcgan_tpu_torch.models.discriminator import DiscriminatorConfig
-from wcgan_tpu_torch.models.generator import GeneratorConfig
+from wcgan_tpu_torch.models.generator import Generator, GeneratorConfig
 from wcgan_tpu_torch.ops import _build, cuda_wc
 from wcgan_tpu_torch.train.state import OptimConfig, create_state
 from wcgan_tpu_torch.train.step import GANConfig, make_outer_step
+from wcgan_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 C = 256
 # R = N*H*W of the 7 WC layers of G 256x3 (4x4 -> 32x32) at the D-phase
@@ -40,6 +57,26 @@ CHECK_R = (1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072, 1000, 130)
 TOL = 1e-4          # K1 against the plain float32 moments (reference gate)
 STEP_RTOL = 1e-3    # one outer step, K1 against plain moments, float32
 STATS_ATOL = 1e-4
+# R of the 7 WC layers of G 256x3 in eval mode: a batch-64 sample grid and
+# a batch-256 generate() forward.
+GRID_R = (1024, 4096, 4096, 16384, 16384, 65536, 65536)
+GENERATE_R = (4096, 16384, 16384, 65536, 65536, 262144, 262144)
+K2_F32_TOL = 5e-4   # K2 against its plain version, float32 rows: the JAX
+                    # package's gate between its fused kernel and the
+                    # composition (tests/test_pallas_wc.py)
+K2_CASES_C = (256, 512, 64, 16)
+K2_CASES_R = (1024, 65536, 262144, 130, 1000)
+# The two sampling paths round at other places (K2 applies the rows in
+# float32 and rounds once; the split path rounds M to bf16 first), and
+# the differences pass through 7 layers: uint8 images of the same z must
+# agree to within these levels (of 255; one level is about one bf16 ulp
+# at 1.0): mean, 99.9th percentile and largest |diff|.
+SAMPLE_MEAN_TOL = 1.0
+SAMPLE_P999_TOL = 4.0
+SAMPLE_MAX_TOL = 16
+# Modules of the JAX package the port may import: numpy only.
+NUMPY_ONLY = ("wcgan_tpu", "wcgan_tpu.data", "wcgan_tpu.utils",
+              "wcgan_tpu.tools")
 
 
 def check(ok: bool, what) -> None:
@@ -78,12 +115,20 @@ def phase_device() -> torch.device:
 
 
 def phase_build() -> None:
+  """Both kernels at once, one nvcc each; ptxas's register, shared-memory
+  and spill lines of every kernel function."""
   t0 = time.perf_counter()
-  path, out, compile_s = _build.compile_library("moments")
+  with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    builds = dict(zip(("moments", "wc_apply"), pool.map(
+        _build.compile_library, ("moments", "wc_apply"))))
   _build.load_moments()
-  regs = [l.strip() for l in out.splitlines() if "registers" in l]
-  log("build", f"K1 {path.name} built in {compile_s:.2f} s (load total "
-      f"{time.perf_counter() - t0:.2f} s); " + " | ".join(regs))
+  _build.load_wc_apply()
+  for name, (path, out, compile_s) in builds.items():
+    lines = [l.strip() for l in out.splitlines()
+             if "registers" in l or "spill" in l]
+    log("build", f"{name}: {path.name} built in {compile_s:.2f} s; "
+        + " | ".join(lines))
+  log("build", f"both loaded in {time.perf_counter() - t0:.2f} s")
 
 
 def phase_parity(dev: torch.device) -> float:
@@ -133,12 +178,12 @@ def phase_parity(dev: torch.device) -> float:
   return worst
 
 
-def _time_ms(fn, x, iters: int = 20) -> float:
+def _time_ms(fn, *args, iters: int = 20) -> float:
   start = torch.cuda.Event(enable_timing=True)
   end = torch.cuda.Event(enable_timing=True)
   start.record()
   for _ in range(iters):
-    fn(x)
+    fn(*args)
   end.record()
   torch.cuda.synchronize()
   return start.elapsed_time(end) / iters
@@ -167,6 +212,118 @@ def phase_timing(dev: torch.device):
   log("timing", f"the 42 calls of one outer step: K1 {step_k:.4f} ms, "
       f"plain {step_p:.4f} ms")
   return step_k, step_p
+
+
+def _k2_inputs(rows, cols, gen, dev, cond=1e3):
+  """Running statistics with a correlated covariance of condition
+  ``cond`` (live WC layers reach ~1e3), rows drawn from them (so that the
+  whitened rows are O(1), as in G), Gamma near 1/sqrt(C) scale."""
+  q, _ = torch.linalg.qr(torch.randn((cols, cols), generator=gen, device=dev))
+  eig = torch.logspace(0.0, -float(np.log10(cond)), cols, device=dev)
+  cov = (q * eig) @ q.T
+  mean = torch.randn((cols,), generator=gen, device=dev)
+  x = mean + (torch.randn((rows, cols), generator=gen, device=dev)
+              * eig.sqrt()) @ q.T
+  gamma = torch.randn((cols, cols), generator=gen, device=dev) / cols ** 0.5
+  beta = torch.randn((cols,), generator=gen, device=dev)
+  return x, mean, cov, gamma, beta
+
+
+def _bf16_gate(ref: torch.Tensor) -> float:
+  """2 bf16 ulps of the output's largest magnitude."""
+  return 2.0 * 2.0 ** (np.floor(np.log2(float(ref.float().abs().max()))) - 7)
+
+
+def phase_k2_parity(dev: torch.device) -> float:
+  """K2 against its plain version: every C x R, f32 and bf16 rows, both
+  scalings, Gamma random or (Gamma = I, beta = 0); then the negative
+  diagonal of tests/test_pallas_wc.py. Returns the worst float32 |diff|."""
+  gen = torch.Generator(device=dev).manual_seed(5)
+  worst_f32 = 0.0
+  case = 0
+  for cols in K2_CASES_C:
+    errs = []
+    for i, rows in enumerate(K2_CASES_R):
+      x, mean, cov, gamma, beta = _k2_inputs(rows, cols, gen, dev)
+      for j, dtype in enumerate((torch.float32, torch.bfloat16)):
+        scaling = ("trace", "fro")[(i + j) % 2]
+        if case % 3 == 2:         # DecorrelationNorm's call
+          gamma_c, beta_c = torch.eye(cols, device=dev), 0 * beta
+        else:
+          gamma_c, beta_c = gamma, beta
+        case += 1
+        xd = x.to(dtype)
+        got = cuda_wc.whiten_color_apply_cuda(xd, mean, cov, gamma_c, beta_c,
+                                              scaling=scaling)
+        torch.cuda.synchronize()
+        ref = cuda_wc.whiten_color_apply_reference(xd, mean, cov, gamma_c,
+                                                   beta_c, scaling=scaling)
+        check(got.dtype == dtype and got.shape == xd.shape, (got.dtype,
+                                                            got.shape))
+        err = float((got.float() - ref.float()).abs().max())
+        gate = K2_F32_TOL if dtype == torch.float32 else _bf16_gate(ref)
+        check(err <= gate, (cols, rows, dtype, scaling, err, gate))
+        if dtype == torch.float32:
+          worst_f32 = max(worst_f32, err)
+        errs.append(f"{rows}/{'f32' if dtype == torch.float32 else 'bf16'}"
+                    f"/{scaling}{'/I' if gamma_c is not gamma else ''}:"
+                    f"{err:.2e}(<={gate:.1e})")
+    log("k2-parity", f"C={cols} (cond 1e3 stats), R/dtype/scaling: "
+        + " ".join(errs))
+  for cols in (16, 256):
+    x, mean, cov, _, _ = _k2_inputs(1000, cols, gen, dev, cond=10.0)
+    # Feature 0 near-constant: its variance rounded negative, junk
+    # covariances of the same magnitude.
+    cov[0, :] = cov[:, 0] = 1e-8 * torch.randn((cols,), generator=gen,
+                                               device=dev)
+    cov[0, 0] = -3e-8
+    x[:, 0] = mean[0] + 1e-4 * torch.randn((1000,), generator=gen,
+                                           device=dev)
+    args = (mean, cov, torch.eye(cols, device=dev),
+            torch.zeros(cols, device=dev))
+    got = cuda_wc.whiten_color_apply_cuda(x, *args)
+    ref = cuda_wc.whiten_color_apply_reference(x, *args)
+    err = float((got - ref).abs().max())
+    check(bool(torch.isfinite(got).all()) and err <= K2_F32_TOL, (cols, err))
+    worst_f32 = max(worst_f32, err)
+    log("k2-parity", f"negative diagonal, C={cols}, R=1000, f32: max|d| "
+        f"{err:.2e}")
+  return worst_f32
+
+
+def phase_k2_timing(dev: torch.device):
+  """ms per call, K2 against plain, bf16 rows, C=256, in turns
+  plain/K2/K2/plain; the sums over one forward's 7 layers; the setup
+  alone. Returns (K2, plain) ms of one batch-256 generate forward."""
+  gen = torch.Generator(device=dev).manual_seed(6)
+  per_r = {}
+  for r in sorted(set(GRID_R + GENERATE_R)):
+    x, mean, cov, gamma, beta = _k2_inputs(r, C, gen, dev)
+    args = (x.to(torch.bfloat16), mean, cov, gamma, beta)
+    fns = (cuda_wc.whiten_color_apply_reference,
+           cuda_wc.whiten_color_apply_cuda)
+    for fn in fns:
+      for _ in range(3):
+        fn(*args)
+    p1, k1, k2, p2 = (_time_ms(fns[i], *args) for i in (0, 1, 1, 0))
+    per_r[r] = ((k1 + k2) / 2, (p1 + p2) / 2)
+  log("k2-timing", "bf16 rows, C=256, ns 15, ms per call (K2 / plain): "
+      + " ".join(f"R={r}:{k:.4f}/{p:.4f}" for r, (k, p) in per_r.items()))
+  sums = {}
+  for name, rs in (("grid b64", GRID_R), ("generate b256", GENERATE_R)):
+    sums[name] = (sum(per_r[r][0] for r in rs), sum(per_r[r][1] for r in rs))
+    log("k2-timing", f"the 7 calls of one {name} forward: K2 "
+        f"{sums[name][0]:.4f} ms, plain {sums[name][1]:.4f} ms")
+  _, mean, cov, gamma, beta = _k2_inputs(8, C, gen, dev)
+  args = (mean, cov, gamma, beta)
+  fns = (cuda_wc.whiten_color_fold_reference, cuda_wc.whiten_color_fold_cuda)
+  for fn in fns:
+    for _ in range(3):
+      fn(*args)
+  p1, k1, k2, p2 = (_time_ms(fns[i], *args) for i in (0, 1, 1, 0))
+  log("k2-timing", f"setup alone (jitter, 15 NS steps, fold, bias), C=256: "
+      f"K2 {(k1 + k2) / 2:.4f} ms, plain NS + fold {(p1 + p2) / 2:.4f} ms")
+  return sums["generate b256"]
 
 
 def phase_step_parity(dev: torch.device) -> None:
@@ -237,26 +394,116 @@ def phase_slice(dev: torch.device):
       f"{launches} (42/step); peak memory "
       f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; last "
       + ", ".join(f"{k} {v[-1]:.4f}" for k, v in values.items()))
-  return launches
+  return launches, state, gan
 
 
-def phase_cli() -> None:
-  out_dir = os.path.join("build", "chip_smoke_cli")
+def _generate(trainer: Trainer, n: int):
+  """(uint8 images, seconds, peak MiB, K1 and K2 launches) of one
+  ``generate(n, batch=256)`` with every count set to 0 just before."""
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  cuda_wc.MOMENTS_LAUNCHES = 0
+  cuda_wc.WC_APPLY_LAUNCHES = 0
+  t0 = time.perf_counter()
+  imgs = trainer.generate(n, batch=256)
+  dt = time.perf_counter() - t0
+  return (imgs, dt, torch.cuda.max_memory_allocated() / 2**20,
+          cuda_wc.MOMENTS_LAUNCHES, cuda_wc.WC_APPLY_LAUNCHES)
+
+
+def phase_sampling(dev: torch.device, state, gan):
+  """The sampling slice at full width: the trained G 256x3 (running
+  statistics advanced by the slice's 12 G updates) through
+  ``Trainer.generate(1024, batch=256)``, K2 forced on, then the split
+  path. Returns (K2 launches, the exported generator npz)."""
+  ds = get_dataset("synthetic", batch_size=64, seed=0, z_dim=gan.z_dim,
+                   synthetic_size=256)
+  out_dir = os.path.join("build", "chip_smoke_sampling")
   shutil.rmtree(out_dir, ignore_errors=True)
+  cfg = TrainerConfig(name="smoke", output_dir=out_dir,
+                      checkpoints_dir=os.path.join(out_dir, "ckpt"))
+  split = Trainer(ds, state, gan, cfg)
+  g_k = place(Generator(dataclasses.replace(state.g.cfg, kernel_eval=True),
+                        torch.Generator().manual_seed(0)), dev)
+  g_k.load_state_dict(state.g.state_dict())
+  fused = Trainer(ds, dataclasses.replace(state, g=g_k), gan, cfg)
+  cov = state.g.nc_out.cov
+  check(float((cov - torch.eye(cov.shape[0], device=dev)).abs().max())
+        > 1e-3, "running statistics still at their init")
+  n = 1024
+  for trainer in (fused, split):                     # warm-up
+    trainer.generate(256, batch=256)
+  runs = {}
+  for name, trainer in (("K2", fused), ("split", split), ("K2 again", fused),
+                        ("split again", split)):
+    runs[name] = _generate(trainer, n)
+  imgs_k, _, mem_k, k1_k, k2_k = runs["K2"]
+  imgs_s, _, mem_s, k1_s, k2_s = runs["split"]
+  forwards = n // 256
+  check(k2_k == 7 * forwards and k1_k == 0, (k2_k, k1_k))
+  check(k2_s == 0 and k1_s == 0, (k2_s, k1_s))
+  check(imgs_k.dtype == np.uint8 and imgs_k.shape == (n, 32, 32, 3)
+        and imgs_s.shape == imgs_k.shape, (imgs_k.dtype, imgs_k.shape))
+  check(np.array_equal(imgs_k, runs["K2 again"][0]), "K2 not repeatable")
+  diff = np.abs(imgs_k.astype(np.int16) - imgs_s.astype(np.int16))
+  p999 = float(np.quantile(diff, 0.999))
+  check(diff.mean() <= SAMPLE_MEAN_TOL and p999 <= SAMPLE_P999_TOL
+        and diff.max() <= SAMPLE_MAX_TOL,
+        (float(diff.mean()), p999, int(diff.max())))
+  rate = {k: n / v[1] for k, v in runs.items()}
+  log("sampling", f"G 256x3 bf16, generate({n}, batch=256) on "
+      f"{nvidia_smi()}: K2 {rate['K2']:.1f} / {rate['K2 again']:.1f} imgs/s "
+      f"({k2_k} K2 launches, 7/forward; peak {mem_k:.0f} MiB), split "
+      f"{rate['split']:.1f} / {rate['split again']:.1f} imgs/s ({k2_s} K2 "
+      f"launches; peak {mem_s:.0f} MiB); uint8 |K2 - split| mean "
+      f"{diff.mean():.4f}, p99.9 {p999:.0f}, max {int(diff.max())}")
+  path = split.save_sample_grid(0)
+  check(os.path.getsize(path) > 0, path)
+  split.export_weights(0)
+  npz = os.path.join(cfg.checkpoints_dir, "smoke", "epoch_0_generator.npz")
+  with np.load(npz) as data:
+    arrays = len(data.files)
+  check(arrays > 0, npz)
+  log("sampling", f"save_sample_grid wrote {path}; export_weights wrote "
+      f"{npz} ({arrays} arrays)")
+  return k2_k, npz
+
+
+def _run_cli(args, out_dir: str):
   cmd = [sys.executable, "-m", "wcgan_tpu_torch", "--device", "cuda",
          "--dataset", "synthetic", "--arch", "res", "--bf16",
-         "--number_of_epochs", "2", "--batches_per_epoch", "3",
-         "--output_dir", out_dir, "--name", "smoke"]
+         "--output_dir", out_dir, "--name", "smoke", *args]
   t0 = time.perf_counter()
-  proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+  proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
   if proc.returncode != 0:
     raise RuntimeError(f"CLI failed ({proc.returncode}):\n{proc.stdout}\n"
                        f"{proc.stderr}")
   with open(os.path.join(out_dir, "smoke", "log.txt")) as f:
-    epochs = [l.strip() for l in f if l.startswith("Epoch ")]
-  check(len(epochs) == 2, epochs)
-  log("cli", f"{' '.join(cmd[1:])}: rc 0 in "
-      f"{time.perf_counter() - t0:.1f} s; {epochs[-1]}")
+    lines = [l.strip() for l in f]
+  return cmd, time.perf_counter() - t0, lines
+
+
+def phase_cli(npz: str) -> None:
+  out_dir = os.path.join("build", "chip_smoke_cli")
+  shutil.rmtree(out_dir, ignore_errors=True)
+  cmd, dt, lines = _run_cli(["--number_of_epochs", "2",
+                             "--batches_per_epoch", "3", "--display_ratio",
+                             "1"], out_dir)
+  epochs = [l for l in lines if l.startswith("Epoch ")]
+  grids = sorted(os.path.basename(p) for p in
+                 glob.glob(os.path.join(out_dir, "smoke", "*.png")))
+  check(len(epochs) == 2 and grids == ["epoch_00000.png",
+                                       "epoch_00001.png"], (epochs, grids))
+  log("cli", f"{' '.join(cmd[1:])}: rc 0 in {dt:.1f} s; {epochs[-1]}; "
+      f"grids {grids}")
+  test_dir = os.path.join("build", "chip_smoke_cli_test")
+  shutil.rmtree(test_dir, ignore_errors=True)
+  cmd, dt, lines = _run_cli(["--phase", "test", "--generator_checkpoint",
+                             npz, "--start_epoch", "3"], test_dir)
+  grid = os.path.join(test_dir, "smoke", "epoch_00003.png")
+  check(os.path.isfile(grid) and any("wrote sample grid" in l
+                                     for l in lines), lines)
+  log("cli", f"{' '.join(cmd[1:])}: rc 0 in {dt:.1f} s; wrote {grid}")
 
 
 def main() -> int:
@@ -264,19 +511,33 @@ def main() -> int:
   phase_build()
   err = phase_parity(dev)
   step_k, step_p = phase_timing(dev)
+  k2_err = phase_k2_parity(dev)
+  k2_ms, k2_plain_ms = phase_k2_timing(dev)
   phase_step_parity(dev)
-  launches = phase_slice(dev)
-  phase_cli()
-  loaded = sorted(m for m in ("jax", "flax", "optax", "wcgan_tpu")
-                  if m in sys.modules)
+  launches, state, gan = phase_slice(dev)
+  k2_launches, npz = phase_sampling(dev, state, gan)
+  phase_cli(npz)
+  loaded = sorted(
+      m for m in sys.modules
+      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax")
+      or (m.startswith("wcgan_tpu.") and
+          ".".join(m.split(".")[:2]) not in NUMPY_ONLY))
   check(not loaded, f"chip_smoke imported {loaded}")
   print(nvidia_smi(), flush=True)
+  # ms / plain_ms: K1 over the 42 calls of one outer step, K2 over the 7
+  # calls of one batch-256 generate forward; max_abs_err: K1's worst, K2's
+  # worst with float32 rows (bf16 rows are held to 2 ulps, printed above).
   print(json.dumps({"kernels": [{
       "name": "moments", "route": "cuda",
       "source": "wcgan_tpu_torch/csrc/moments.cu",
       "replaces": "wcgan_tpu/ops/pallas_wc.py:56",
       "launches": launches, "max_abs_err": err,
-      "ms": step_k, "plain_ms": step_p}]}), flush=True)
+      "ms": step_k, "plain_ms": step_p}, {
+      "name": "whiten_color_apply", "route": "cuda",
+      "source": "wcgan_tpu_torch/csrc/wc_apply.cu",
+      "replaces": "wcgan_tpu/ops/pallas_wc.py:195",
+      "launches": k2_launches, "max_abs_err": k2_err,
+      "ms": k2_ms, "plain_ms": k2_plain_ms}]}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}), flush=True)

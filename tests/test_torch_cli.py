@@ -54,6 +54,9 @@ def test_cli_trains_on_cpu_without_jax(tmp_path):
   assert [r["epoch"] for r in records] == [0, 1]
   assert all(r["imgs_per_sec"] > 0 and r["device"] == "cpu"
              for r in records)
+  # --display_ratio defaults to 1: a sample grid after every epoch.
+  assert sorted(p.name for p in (tmp_path / "tiny").glob("*.png")) == [
+      "epoch_00000.png", "epoch_00001.png"]
 
 
 def test_cli_cuda_without_gpu_fails(tmp_path):
@@ -70,3 +73,24 @@ def test_cli_rejects_unported_flags(tmp_path):
                "2", *TINY])
   assert proc.returncode != 0
   assert "--mesh not supported by the PyTorch port" in proc.stderr
+
+
+def test_cli_phase_test_writes_a_grid_without_jax(tmp_path):
+  """--phase test on the port's own export, in a fresh interpreter that
+  never imports JAX."""
+  import numpy as np
+  from wcgan_tpu_torch import weights
+  from wcgan_tpu_torch.models.generator import Generator, GeneratorConfig
+  g = Generator(GeneratorConfig(z_dim=16, filters=(16, 16),
+                                base_resolution=8),
+                torch.Generator().manual_seed(1))
+  npz = tmp_path / "g.npz"
+  np.savez(npz, **weights.export_npz(g))
+  proc = _run(["--device", "cpu", "--output_dir", str(tmp_path), *TINY,
+               "--phase", "test", "--generator_checkpoint", str(npz),
+               "--start_epoch", "5"])
+  assert proc.returncode == 0, proc.stdout + proc.stderr
+  assert "NO_JAX_IMPORTED" in proc.stdout
+  assert (tmp_path / "tiny" / "epoch_00005.png").exists()
+  log = (tmp_path / "tiny" / "log.txt").read_text()
+  assert "wrote sample grid" in log and "Epoch " not in log

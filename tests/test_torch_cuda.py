@@ -1,4 +1,4 @@
-"""K1 on a CUDA card (marker ``cuda``; skipped without one).
+"""K1 and K2 on a CUDA card (marker ``cuda``; skipped without one).
 
 These need a GPU and nvcc, and import no JAX, so they run where the port
 runs. tests/conftest.py imports JAX, so on such a machine skip it:
@@ -7,8 +7,13 @@ runs. tests/conftest.py imports JAX, so on such a machine skip it:
 
 K1 is held against its plain float32 version on the same tensors, to
 1e-4: the reference's own on-chip gate for its moments kernel. bf16 input
-is the same bf16 values on both sides, upcast."""
+is the same bf16 values on both sides, upcast. K2 is held against its
+plain version to 5e-4 in float32 (the JAX package's gate between its
+fused kernel and the composition, tests/test_pallas_wc.py) and, with
+bf16 rows, to 2 bf16 ulps of the output's largest magnitude (both round
+a float32 result once; the float32 results differ by far less)."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -81,3 +86,114 @@ def test_k1_refuses_what_it_does_not_take(dev):
     cuda_wc.moments(torch.zeros((4, 8), device=dev).T)
   assert cuda_wc.MOMENTS_LAUNCHES == before
 
+
+
+# --- K2 whiten_color_apply ---------------------------------------------------
+
+
+def _wc_inputs(rows, cols, gen, dev, cond=1e3):
+  """Running statistics with a correlated covariance of condition
+  ``cond`` (live WC layers reach ~1e3), rows drawn from them (so that the
+  whitened rows are O(1), as in G), Gamma near 1/sqrt(C) scale."""
+  q, _ = torch.linalg.qr(torch.randn((cols, cols), generator=gen, device=dev))
+  eig = torch.logspace(0.0, -float(np.log10(cond)), cols, device=dev)
+  cov = (q * eig) @ q.T
+  mean = torch.randn((cols,), generator=gen, device=dev)
+  x = mean + (torch.randn((rows, cols), generator=gen, device=dev)
+              * eig.sqrt()) @ q.T
+  gamma = torch.randn((cols, cols), generator=gen, device=dev) / cols ** 0.5
+  beta = torch.randn((cols,), generator=gen, device=dev)
+  return x, mean, cov, gamma, beta
+
+
+def _bf16_gate(ref):
+  """2 bf16 ulps of the largest |ref|."""
+  top = float(ref.float().abs().max())
+  return 2.0 * 2.0 ** (torch.floor(torch.log2(torch.tensor(top))).item() - 7)
+
+
+@pytest.mark.parametrize("rows,cols", [(130, 16), (1000, 64), (1024, 256),
+                                       (65536, 256), (1000, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scaling", ["trace", "fro"])
+def test_k2_matches_plain(rows, cols, dtype, scaling, dev):
+  gen = torch.Generator(device=dev).manual_seed(rows + cols)
+  x, mean, cov, gamma, beta = _wc_inputs(rows, cols, gen, dev)
+  x = x.to(dtype)
+  before = cuda_wc.WC_APPLY_LAUNCHES
+  out = cuda_wc.whiten_color_apply(x, mean, cov, gamma, beta,
+                                   scaling=scaling)
+  torch.cuda.synchronize()
+  assert cuda_wc.WC_APPLY_LAUNCHES == before + 1
+  assert out.dtype == dtype and out.shape == x.shape
+  ref = cuda_wc.whiten_color_apply_reference(x, mean, cov, gamma, beta,
+                                             scaling=scaling)
+  err = float((out.float() - ref.float()).abs().max())
+  assert err <= (5e-4 if dtype == torch.float32 else _bf16_gate(ref)), err
+
+
+def test_k2_identity_coloring_and_negative_diagonal(dev):
+  """DecorrelationNorm's call (Gamma = I, beta = 0) on the covariance of
+  tests/test_pallas_wc.py whose diagonal rounded negative."""
+  gen = torch.Generator(device=dev).manual_seed(3)
+  x, mean, cov, _, _ = _wc_inputs(200, 8, gen, dev, cond=10.0)
+  # Feature 0 near-constant: its variance rounded negative, junk
+  # covariances of the same magnitude.
+  cov[0, :] = cov[:, 0] = 1e-8 * torch.randn((8,), generator=gen, device=dev)
+  cov[0, 0] = -3e-8
+  x[:, 0] = mean[0] + 1e-4 * torch.randn((200,), generator=gen, device=dev)
+  args = (mean, cov, torch.eye(8, device=dev), torch.zeros(8, device=dev))
+  out = cuda_wc.whiten_color_apply(x, *args)
+  assert torch.isfinite(out).all()
+  ref = cuda_wc.whiten_color_apply_reference(x, *args)
+  assert float((out - ref).abs().max()) <= 5e-4
+
+
+def test_k2_setup_matches_plain_fold(dev):
+  gen = torch.Generator(device=dev).manual_seed(4)
+  # cond 1e2: W = cov^{-1/2} then stays below 10, and so does M.
+  _, mean, cov, gamma, beta = _wc_inputs(8, 256, gen, dev, cond=1e2)
+  m, bias = cuda_wc.whiten_color_fold_cuda(mean, cov, gamma, beta)
+  m_ref, bias_ref = cuda_wc.whiten_color_fold_reference(mean, cov, gamma,
+                                                        beta)
+  assert _max_err((m, bias), (m_ref, bias_ref)) <= 5e-4
+
+
+def test_k2_refuses_what_it_does_not_take(dev):
+  c = 16
+  args = (torch.zeros(c, device=dev), torch.eye(c, device=dev),
+          torch.eye(c, device=dev), torch.zeros(c, device=dev))
+  before = cuda_wc.WC_APPLY_LAUNCHES
+  with pytest.raises(TypeError, match="float32 or bfloat16"):
+    cuda_wc.whiten_color_apply(
+        torch.zeros((8, c), dtype=torch.float16, device=dev), *args)
+  with pytest.raises(ValueError, match="contiguous"):
+    cuda_wc.whiten_color_apply(torch.zeros((c, 8), device=dev).T, *args)
+  with pytest.raises(ValueError, match="'trace' or 'fro'"):
+    cuda_wc.whiten_color_apply(torch.zeros((8, c), device=dev), *args,
+                               scaling="spectral")
+  with pytest.raises(ValueError, match="C <= 512"):
+    wide = 513
+    cuda_wc.whiten_color_apply(
+        torch.zeros((8, wide), device=dev), torch.zeros(wide, device=dev),
+        torch.eye(wide, device=dev), torch.eye(wide, device=dev),
+        torch.zeros(wide, device=dev))
+  assert cuda_wc.WC_APPLY_LAUNCHES == before
+
+
+def test_k2_eval_layers_launch_once_per_forward(dev):
+  """kernel_eval=True sends every eval-mode WC layer of G through K2: 7
+  launches for the headline G 256x3 (here narrow), none in train mode."""
+  from wcgan_tpu_torch.device import place
+  from wcgan_tpu_torch.models.generator import Generator, GeneratorConfig
+  cfg = GeneratorConfig(z_dim=16, filters=(32, 32, 32), dtype="bfloat16",
+                        kernel_eval=True)
+  g = place(Generator(cfg, torch.Generator().manual_seed(0)), dev)
+  z = torch.randn((4, 16), device=dev)
+  before = cuda_wc.WC_APPLY_LAUNCHES
+  g(z, train=True, update_stats=True)
+  assert cuda_wc.WC_APPLY_LAUNCHES == before
+  img = g(z, train=False)
+  torch.cuda.synchronize()
+  assert cuda_wc.WC_APPLY_LAUNCHES == before + 7
+  assert img.dtype == torch.float32 and torch.isfinite(img).all()

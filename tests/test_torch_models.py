@@ -22,6 +22,7 @@ from wcgan_tpu.models.generator import Generator as JG
 from wcgan_tpu.models.generator import GeneratorConfig as JGCfg
 from wcgan_tpu_torch import weights
 from wcgan_tpu_torch.models import blocks as tblocks
+from wcgan_tpu_torch.models import generator as tgen
 from wcgan_tpu_torch.models import layers as tlayers
 from wcgan_tpu_torch.models.discriminator import DiscriminatorConfig
 from wcgan_tpu_torch.models.generator import GeneratorConfig
@@ -85,7 +86,8 @@ def test_norm_color_matches_jax(norm, rng):
 
 
 def test_norm_color_rejects_unported_codes():
-  for norm, coloring in (("b", "uconv"), ("d", "ucconv"), ("n", "n")):
+  for norm, coloring in (("b", "uconv"), ("d", "ucconv"), ("n", "cconv"),
+                         ("b", "s")):
     with pytest.raises(NotImplementedError):
       tlayers.NormColor(8, norm=norm, coloring=coloring)
 
@@ -223,3 +225,92 @@ def test_bf16_generator_runs_in_bf16(jax_models):
   np.testing.assert_allclose(_nhwc(img16),
                              _nhwc(g32(torch.from_numpy(z))), atol=0.15)
   assert torch.isfinite(d16(_nchw(x))).all()
+
+
+@pytest.mark.parametrize("norm,coloring", [
+    ("n", "n"), ("n", "s"), ("n", "uconv"), ("d", "n"), ("d", "s"),
+    ("dr", "n"), ("dr", "s")])
+def test_general_norm_color_codes_match_jax(norm, coloring, rng):
+  """The general path (NormLayer, then Coloring) in train mode, with the
+  running statistics it advances, then in eval mode on them."""
+  c = 16
+  x = (rng.standard_normal((4, 8, 8, c)) * 1.5 + 0.5).astype(np.float32)
+  jmod = jlayers.NormColor(norm=norm, coloring=coloring)
+  variables = jmod.init(KEY, jnp.asarray(x), train=True)
+  params = _perturb(variables.get("params", {}), rng, 0.1)
+  stats = {}
+  if norm != "n":
+    stats = {"wc_stats": {"norm": {"wc": {
+        "mean": rng.standard_normal(c).astype(np.float32),
+        "cov": _spd(rng, c)}}}}
+  out_j, mut = jmod.apply({"params": params, **stats}, jnp.asarray(x),
+                          train=True, mutable=["wc_stats"])
+  tmod = tlayers.NormColor(c, norm=norm, coloring=coloring)
+  tmod.load_state_dict(weights.state_dict_from_jax(params, stats))
+  out_t = tmod(_nchw(x), train=True, update_stats=True)
+  np.testing.assert_allclose(_nhwc(out_t), np.asarray(out_j), atol=ATOL)
+  _, state_t = weights.to_jax(tmod)
+  _assert_tree_close(state_t, dict(mut), STATE_ATOL)
+  out_je = jmod.apply({"params": params, **mut}, jnp.asarray(x), train=False)
+  out_te = tmod(_nchw(x), train=False)
+  np.testing.assert_allclose(_nhwc(out_te), np.asarray(out_je), atol=ATOL)
+
+
+@pytest.mark.parametrize("codes", [
+    dict(block_norm="dr", block_coloring="s", last_norm="n",
+         last_coloring="uconv"),
+    dict(block_norm="d", block_coloring="n", last_norm="dr",
+         last_coloring="s", ns_method="cholesky")])
+def test_generator_general_codes_match_jax(codes, rng):
+  """G with the general-path codes (and the Cholesky oracle), one train
+  forward that advances the statistics, then an eval forward."""
+  kw = dict(z_dim=16, resolution=16, base_resolution=4, filters=(16, 16),
+            **codes)
+  jg = JG(cfg=JGCfg(**kw))
+  z = rng.standard_normal((4, 16)).astype(np.float32)
+  gv = jg.init(KEY, jnp.asarray(z), train=True)
+  params = _perturb(gv["params"], rng)
+  img_j, mut = jg.apply({"params": params, "wc_stats": gv["wc_stats"]},
+                        jnp.asarray(z), train=True, mutable=["wc_stats"])
+  tg = weights.place(
+      tgen.Generator(GeneratorConfig(**kw), torch.Generator().manual_seed(0)),
+      "cpu")
+  tg.load_state_dict(weights.state_dict_from_jax(
+      params, {"wc_stats": gv["wc_stats"]}))
+  img_t = tg(torch.from_numpy(z), train=True, update_stats=True)
+  np.testing.assert_allclose(_nhwc(img_t), np.asarray(img_j), atol=ATOL)
+  _assert_tree_close(weights.to_jax(tg)[1], mut, STATE_ATOL)
+  img_je = jg.apply({"params": params, **mut}, jnp.asarray(z), train=False)
+  img_te = tg(torch.from_numpy(z), train=False)
+  np.testing.assert_allclose(_nhwc(img_te), np.asarray(img_je), atol=ATOL)
+
+
+def test_bf16_generator_eval_matches_jax(rng):
+  """bf16 G in eval mode on advanced running statistics against the flax
+  G in bf16. Conv and dense layers add their bias after the product, in
+  bf16, as flax does; with the bias fused into the product the images
+  differed by up to 0.037 (ROADMAP queue 3). Now both round at the same
+  places, so almost every pixel agrees to 1e-6 (the float32 tanh of the
+  two libraries differs in its last bits); where a sum of products
+  differs in its last bit, conv_out's bf16 output (|h| < 2) moves by one
+  bf16 ulp, 2^-7, which tanh does not enlarge."""
+  kw = dict(z_dim=16, resolution=32, base_resolution=4, filters=(16, 16, 16),
+            dtype="bfloat16")
+  jg = JG(cfg=JGCfg(**kw))
+  z = rng.standard_normal((4, 16)).astype(np.float32)
+  gv = jg.init(KEY, jnp.asarray(z), train=True)
+  params = _perturb(gv["params"], rng)
+  mut = {"wc_stats": gv["wc_stats"]}
+  for _ in range(3):
+    zs = rng.standard_normal((8, 16)).astype(np.float32)
+    _, mut = jg.apply({"params": params, **mut}, jnp.asarray(zs),
+                      train=True, mutable=["wc_stats"])
+  img_j = np.asarray(jg.apply({"params": params, **mut}, jnp.asarray(z),
+                              train=False))
+  tg = weights.place(
+      tgen.Generator(GeneratorConfig(**kw), torch.Generator().manual_seed(0)),
+      "cpu")
+  tg.load_state_dict(weights.state_dict_from_jax(params, mut))
+  img_t = _nhwc(tg(torch.from_numpy(z), train=False))
+  np.testing.assert_allclose(img_t, img_j, atol=2.0 ** -7)
+  assert np.mean(np.abs(img_t - img_j) <= 1e-6) > 0.99

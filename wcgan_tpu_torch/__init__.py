@@ -5,17 +5,20 @@ reference: same weights and same injected noise give the same outputs
 within stated tolerances (``tests/test_torch_*.py``). The layout mirrors
 ``wcgan_tpu`` module for module:
 
-- ``wcgan_tpu_torch.ops``    — whitening numerics, spectral normalization,
-  GAN losses, and K1 (``cuda_wc``), the moment pass as a CUDA kernel.
+- ``wcgan_tpu_torch.ops``    — whitening numerics, unconditional coloring,
+  spectral normalization, GAN losses, and (``cuda_wc``) the two CUDA
+  kernels: K1, the moment pass, and K2, the whole stats-given WC layer.
 - ``wcgan_tpu_torch.models`` — WC layers, SN conv/dense, the ResNet
   generator and discriminator.
 - ``wcgan_tpu_torch.train``  — train state, the K-D-updates + 1-G-update
-  outer step, LR schedules and a minimal epoch loop.
-- ``wcgan_tpu_torch.weights`` — moves flax weights to the port and back.
+  outer step, LR schedules, the epoch loop and the sampling surfaces.
+- ``wcgan_tpu_torch.weights`` — moves flax weights to the port and back,
+  and reads and writes the JAX package's weights-only npz.
 - ``wcgan_tpu_torch.cli``    — ``python -m wcgan_tpu_torch``.
 
 The port imports ``torch`` and never ``jax``; from the JAX package it
-reuses only the numpy modules ``wcgan_tpu.data`` and ``wcgan_tpu.utils``.
+reuses only the numpy modules ``wcgan_tpu.data``, ``wcgan_tpu.utils`` and
+``wcgan_tpu.tools.h5_convert``.
 """
 
 __version__ = "0.1.0"

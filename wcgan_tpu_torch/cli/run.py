@@ -1,26 +1,34 @@
 """Experiment entry point of the port: ``python -m wcgan_tpu_torch``.
 
-Counterpart of ``wcgan_tpu/cli/run.py`` for the slice ported so far: the
-unconditional ResNet WC-GAN (G with 'd'/'dr' whitening and 'uconv'
-coloring, SN ResNet D), hinge/ns/wgan losses, Adam with the reference's LR
-schedules. Flag names are the JAX CLI's. A flag of the JAX CLI that the
-port does not support yet is rejected with an error, never ignored.
+Counterpart of ``wcgan_tpu/cli/run.py`` for the slices ported so far: the
+unconditional ResNet WC-GAN (G with norm codes n/d/dr and coloring codes
+n/s/uconv, SN ResNet D), hinge/ns/wgan losses, Adam with the reference's
+LR schedules, sample grids, and ``--phase test``, which writes one grid
+from weights-only ``.npz`` (or ``.h5``) files. Flag names are the JAX
+CLI's. A flag of the JAX CLI that the port does not support yet is
+rejected with an error, never ignored.
 
 Usage:
   python -m wcgan_tpu_torch --device cuda --dataset synthetic --arch res \\
       --bf16 --number_of_epochs 2 --batches_per_epoch 3
+  python -m wcgan_tpu_torch --device cpu --phase test \\
+      --generator_checkpoint epoch_9_generator.npz
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from wcgan_tpu.data import DATASETS, get_dataset
+from wcgan_tpu.tools.h5_convert import apply_key_map, h5_flat
+from wcgan_tpu_torch import weights
 from wcgan_tpu_torch.device import resolve_device
 from wcgan_tpu_torch.models.discriminator import DiscriminatorConfig
 from wcgan_tpu_torch.models.discriminator import preset_filters as d_presets
@@ -30,18 +38,20 @@ from wcgan_tpu_torch.train.state import OptimConfig, create_state
 from wcgan_tpu_torch.train.step import GANConfig
 from wcgan_tpu_torch.train.trainer import Trainer, TrainerConfig
 
+# The norm and coloring codes of G that the port takes.
+NORM_CODES = ("n", "d", "dr")
+COLORING_CODES = ("n", "s", "uconv")
+
 # Flags of the JAX CLI (wcgan_tpu/cli/run.py) that this port does not take
 # yet; each is refused by name instead of being silently dropped.
 UNSUPPORTED_FLAGS = (
-    "--checkpoints_dir", "--checkpoint_ratio", "--display_ratio",
-    "--start_epoch", "--generator_checkpoint", "--discriminator_checkpoint",
-    "--checkpoint_key_map", "--checkpoint_missing", "--resume", "--phase",
-    "--gan_type", "--gradient_penalty_weight", "--conditional",
+    "--checkpoints_dir", "--checkpoint_ratio", "--resume", "--gan_type",
+    "--gradient_penalty_weight", "--conditional",
     "--generator_concat_cls", "--discriminator_norm",
     "--discriminator_coloring", "--discriminator_spectral",
     "--spectral_iterations", "--fully_diff_spectral", "--conv_singular",
     "--filters_emb", "--sn_update_on_g_step", "--generator_ema",
-    "--ema_standing_stats", "--whitening_method", "--wc_residual_action",
+    "--ema_standing_stats", "--wc_residual_action",
     "--fallback_cooldown", "--residual_probe_every", "--whitening_precision",
     "--compute_inception_score", "--compute_fid", "--score_every",
     "--samples_inception", "--samples_fid", "--inception_weights",
@@ -61,18 +71,40 @@ def build_parser() -> argparse.ArgumentParser:
   p.add_argument("--name", default=None,
                  help="experiment name (default: derived from config)")
   p.add_argument("--output_dir", default="output")
+  p.add_argument("--display_ratio", type=int, default=1,
+                 help="write a sample grid every N epochs (0 = never)")
+  p.add_argument("--start_epoch", type=int, default=0,
+                 help="first epoch's number; --phase test names its grid "
+                      "after it")
+  p.add_argument("--generator_checkpoint", default=None,
+                 help="weights-only generator .npz (or .h5) to load")
+  p.add_argument("--discriminator_checkpoint", default=None,
+                 help="weights-only discriminator .npz (or .h5) to load")
+  p.add_argument("--checkpoint_key_map", default=None,
+                 help="JSON rename table for the checkpoints' keys: one "
+                      "flat {src: dst} map, or 'generator'/'discriminator' "
+                      "sections; 're:<pattern>' sources are regex rules")
+  p.add_argument("--checkpoint_missing", default="error",
+                 choices=["error", "init"],
+                 help="params absent from a checkpoint: 'error' (default) "
+                      "or 'init' (keep their initialization, listed)")
+  p.add_argument("--phase", default="train", choices=["train", "test"],
+                 help="'test' loads the checkpoints and writes one sample "
+                      "grid")
   p.add_argument("--seed", type=int, default=0)
   p.add_argument("--dataset", default="cifar10", choices=sorted(DATASETS))
   p.add_argument("--data_dir", default="data")
   p.add_argument("--synthetic_size", type=int, default=4096)
   p.add_argument("--arch", default="res", choices=["res"])
   p.add_argument("--loss", default="hinge", choices=["hinge", "ns", "wgan"])
-  p.add_argument("--generator_block_norm", default="d", choices=["d", "dr"])
+  p.add_argument("--generator_block_norm", default="d",
+                 choices=list(NORM_CODES))
   p.add_argument("--generator_block_coloring", default="uconv",
-                 choices=["uconv"])
-  p.add_argument("--generator_last_norm", default="d", choices=["d", "dr"])
+                 choices=list(COLORING_CODES))
+  p.add_argument("--generator_last_norm", default="d",
+                 choices=list(NORM_CODES))
   p.add_argument("--generator_last_coloring", default="uconv",
-                 choices=["uconv"])
+                 choices=list(COLORING_CODES))
   p.add_argument("--generator_filters", default=None,
                  help="comma-separated per-block widths (default preset)")
   p.add_argument("--discriminator_filters", default=None,
@@ -91,6 +123,8 @@ def build_parser() -> argparse.ArgumentParser:
   p.add_argument("--z_dim", type=int, default=128)
   p.add_argument("--ns_iters", type=int, default=15,
                  help="Newton-Schulz iterations for whitening (keep >= 15)")
+  p.add_argument("--whitening_method", default="newton_schulz",
+                 choices=["newton_schulz", "cholesky"])
   p.add_argument("--ns_scaling", default="trace", choices=["trace", "fro"])
   p.add_argument("--wc_momentum", type=float, default=0.99)
   p.add_argument("--bf16", action="store_true",
@@ -144,7 +178,8 @@ def build_experiment(args) -> Trainer:
       block_coloring=args.generator_block_coloring,
       last_norm=args.generator_last_norm,
       last_coloring=args.generator_last_coloring, ns_iters=args.ns_iters,
-      ns_scaling=args.ns_scaling, wc_momentum=args.wc_momentum, dtype=dtype)
+      ns_method=args.whitening_method, ns_scaling=args.ns_scaling,
+      wc_momentum=args.wc_momentum, dtype=dtype)
   d_filters = _parse_filters(args.discriminator_filters)
   if d_filters is None:
     d_filters, d_down = d_presets(res)
@@ -175,10 +210,53 @@ def build_experiment(args) -> Trainer:
   name = args.name or (f"{args.dataset}_{args.arch}_{args.loss}"
                        f"_{args.generator_block_norm}-"
                        f"{args.generator_block_coloring}")
-  tcfg = TrainerConfig(output_dir=os.path.join(args.output_dir, name),
+  tcfg = TrainerConfig(name=name, output_dir=os.path.join(args.output_dir,
+                                                         name),
                        number_of_epochs=args.number_of_epochs,
+                       start_epoch=args.start_epoch,
+                       display_ratio=args.display_ratio,
                        batches_per_epoch=args.batches_per_epoch or 0)
   return Trainer(ds, state, gan_cfg, tcfg)
+
+
+def _load_weights_npz(module, path: str, key_map_path: Optional[str] = None,
+                      model: Optional[str] = None, missing: str = "error",
+                      log=None) -> None:
+  """Load a weights-only ``.npz`` (the JAX package's export format) or a
+  Keras-style ``.h5`` into ``module``'s parameters, as the JAX CLI's
+  ``_load_weights_npz`` does: the optional ``--checkpoint_key_map`` JSON
+  (one flat table, or 'generator'/'discriminator' sections selected by
+  ``model``) renames keys through ``wcgan_tpu.tools.h5_convert``, and
+  ``missing`` is ``--checkpoint_missing``."""
+  emit = log or print
+  key_map = None
+  if key_map_path:
+    with open(key_map_path) as f:
+      key_map = json.load(f)
+    if key_map and all(isinstance(v, dict) for v in key_map.values()):
+      valid = {"generator", "discriminator"}
+      unknown = sorted(set(key_map) - valid)
+      if unknown:
+        raise ValueError(
+            f"--checkpoint_key_map {key_map_path}: unknown section(s) "
+            f"{unknown}; sectioned maps use keys {sorted(valid)}")
+      if model not in key_map:
+        emit(f"checkpoint_key_map: sectioned map {key_map_path} has no "
+             f"'{model}' section — no renames applied to this model")
+      key_map = key_map.get(model, {})
+  if path.endswith((".h5", ".hdf5")):
+    try:
+      loaded = h5_flat(path)
+    except ModuleNotFoundError as e:
+      raise ModuleNotFoundError(
+          f"loading {path} needs h5py, which is not installed ({e}); "
+          "convert it to .npz where h5py is (python -m "
+          "wcgan_tpu.tools.h5_convert to_npz)") from e
+  else:
+    with np.load(path) as data:
+      loaded = dict(data)
+  weights.load_npz(module, apply_key_map(loaded, key_map), missing=missing,
+                   source=path, model=model, log=emit)
 
 
 def main(argv=None) -> int:
@@ -191,6 +269,19 @@ def main(argv=None) -> int:
   trainer.logger.line(f"wcgan_tpu_torch on {device}"
                       + (f" ({torch.cuda.get_device_name(device)})"
                          if device.type == "cuda" else ""))
+  for model, module, path in (
+      ("generator", trainer.state.g, args.generator_checkpoint),
+      ("discriminator", trainer.state.d, args.discriminator_checkpoint)):
+    if path:
+      _load_weights_npz(module, path, args.checkpoint_key_map, model=model,
+                        missing=args.checkpoint_missing,
+                        log=trainer.logger.line)
+  if args.phase == "test":
+    # As in the JAX CLI, only the parameters are replaced: G's running
+    # statistics stay at their initialization (mean 0, cov I).
+    path = trainer.save_sample_grid(args.start_epoch)
+    trainer.logger.line(f"wrote sample grid {path}")
+    return 0
   trainer.train()
   return 0
 

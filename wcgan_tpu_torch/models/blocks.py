@@ -26,15 +26,17 @@ class GenResBlock(nn.Module):
   def __init__(self, in_channels: int, filters: int,
                generator: torch.Generator, upsample: bool = True,
                norm: str = "d", coloring: str = "uconv", ns_iters: int = 15,
-               momentum: float = 0.99, ns_scaling: str = "trace",
-               use_kernel: Optional[bool] = None):
+               ns_method: str = "newton_schulz", momentum: float = 0.99,
+               ns_scaling: str = "trace", use_kernel: Optional[bool] = None,
+               kernel_eval: Optional[bool] = None):
     super().__init__()
     self.upsample = upsample
 
     def norm_color(channels):
       return L.NormColor(channels, norm=norm, coloring=coloring,
                          momentum=momentum, ns_iters=ns_iters,
-                         ns_scaling=ns_scaling, use_kernel=use_kernel)
+                         method=ns_method, ns_scaling=ns_scaling,
+                         use_kernel=use_kernel, kernel_eval=kernel_eval)
 
     self.nc1 = norm_color(in_channels)
     self.conv1 = L.Conv(in_channels, filters, 3, generator)

@@ -2,7 +2,8 @@
 
 Counterpart of ``wcgan_tpu/models/generator.py`` for ``arch='res'``:
 z -> Dense -> base x base x C -> up-blocks -> final WC layer -> ReLU ->
-3x3 conv -> tanh. Conditional generation and the DCGAN arch are not ported.
+3x3 conv -> tanh, with norm codes {n, d, dr} and coloring codes
+{n, s, uconv}. Conditional generation and the DCGAN arch are not ported.
 """
 
 from __future__ import annotations
@@ -35,10 +36,14 @@ class GeneratorConfig:
   last_norm: str = "d"
   last_coloring: str = "uconv"
   ns_iters: int = 15
+  ns_method: str = "newton_schulz"     # or 'cholesky' (the oracle)
   ns_scaling: str = "trace"
   wc_momentum: float = 0.99
   dtype: str = "float32"               # compute dtype: 'float32'|'bfloat16'
   use_kernel: Optional[bool] = None    # K1 for the moments: None = on CUDA
+  kernel_eval: Optional[bool] = None   # K2 for every eval-mode WC layer:
+                                       # None/False = the split path (the
+                                       # default, as in the JAX package)
 
   def __post_init__(self):
     if self.arch != "res":
@@ -67,15 +72,17 @@ class Generator(nn.Module):
     br = cfg.base_resolution
     self.fc_in = L.Dense(cfg.z_dim, br * br * f0, generator)
     wc = dict(ns_iters=cfg.ns_iters, momentum=cfg.wc_momentum,
-              ns_scaling=cfg.ns_scaling, use_kernel=cfg.use_kernel)
+              ns_scaling=cfg.ns_scaling, use_kernel=cfg.use_kernel,
+              kernel_eval=cfg.kernel_eval)
     in_ch = f0
     for i, f in enumerate(cfg.filters):
       self.add_module(f"block{i}", B.GenResBlock(
           in_ch, f, generator, upsample=True, norm=cfg.block_norm,
-          coloring=cfg.block_coloring, **wc))
+          coloring=cfg.block_coloring, ns_method=cfg.ns_method, **wc))
       in_ch = f
     self.nc_out = L.NormColor(in_ch, norm=cfg.last_norm,
-                              coloring=cfg.last_coloring, **wc)
+                              coloring=cfg.last_coloring,
+                              method=cfg.ns_method, **wc)
     self.conv_out = L.Conv(in_ch, cfg.output_channels, 3, generator)
 
   def forward(self, z: torch.Tensor, train: bool = True,

@@ -1,4 +1,4 @@
-"""PyTorch layers: the fused WC layer, SN conv/dense, plain conv/dense.
+"""PyTorch layers: the WC layers, SN conv/dense, plain conv/dense.
 
 Counterpart of ``wcgan_tpu/models/layers.py``. Activations are NCHW tensors
 in channels_last memory format, which is NHWC in memory: a WC layer's
@@ -6,9 +6,10 @@ in channels_last memory format, which is NHWC in memory: a WC layer's
 ``x.reshape(-1, c)`` is on the reference's NHWC arrays.
 
 State the reference keeps in flax collections is kept in buffers here:
-``wc_stats`` mean/cov in ``NormColor``, ``spectral`` ``u`` in the SN
-wrappers. Parameters stay float32; each layer casts them to the activation
-dtype where it uses them, as flax's ``dtype=`` does.
+``wc_stats`` mean/cov in ``NormColor`` or ``DecorrelationNorm``,
+``spectral`` ``u`` in the SN wrappers. Parameters stay float32; each layer
+casts them to the activation dtype where it uses them, as flax's ``dtype=``
+does.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from wcgan_tpu_torch.ops import coloring as coloring_ops
+from wcgan_tpu_torch.ops import cuda_wc
 from wcgan_tpu_torch.ops import sn as sn_ops
 from wcgan_tpu_torch.ops import whiten as whiten_ops
 
@@ -52,35 +55,187 @@ def glorot_uniform_(t: torch.Tensor, fan_in: int, fan_out: int,
   return nn.init.uniform_(t, -limit, limit, generator=generator)
 
 
-class NormColor(nn.Module):
-  """The WC layer for norm 'd'/'dr' with unconditional 1x1 coloring
-  ('uconv'), the reference's ``NormColor._fused_wc_uconv``.
+# Conditional coloring codes of the JAX package; not ported yet.
+_COND_CODES = ("cconv", "ucconv", "ccs", "ucs", "cconv-sa", "ucconv-sa")
 
-  Whitening W and coloring Gamma fold into one C x C matrix M = Gamma W
-  (float32), with bias beta - mu M^T, so the rows see a single matmul in
-  the activation dtype: out = x M^T + bias. Gamma starts at the identity.
-  'd' whitens with the batch statistics, 'dr' with the running ones; the
-  running statistics (buffers ``mean``, ``cov``) advance from the batch in
-  train mode when ``update_stats`` is set."""
 
-  def __init__(self, channels: int, norm: str = "d", coloring: str = "uconv",
-               momentum: float = 0.99, eps: float = 1e-5, ns_iters: int = 15,
-               ns_scaling: str = "trace", use_kernel: Optional[bool] = None):
+def _kernel_eval_ok(kernel_eval: Optional[bool], method: str) -> bool:
+  """Gate of K2 (``cuda_wc.whiten_color_apply``) on the stats-given eval
+  paths; the JAX package's ``_pallas_eval_ok``. None or False picks the
+  split path (W first, then one row pass), the default as in the JAX
+  package; True forces K2. Forced with ``method='cholesky'`` it raises:
+  K2 has no Cholesky solve, and a silent split path would be measured as
+  the kernel."""
+  if kernel_eval:
+    if method != "newton_schulz":
+      raise ValueError(
+          f"kernel_eval=True requires method='newton_schulz' (got "
+          f"{method!r}); the whiten_color_apply kernel has no Cholesky "
+          "phase")
+    return True
+  return False
+
+
+class DecorrelationNorm(nn.Module):
+  """Full-covariance whitening, the W half of the WC transform; the JAX
+  package's ``DecorrelationNorm``. Mode 'd' whitens with the batch
+  statistics, 'dr' with the running ones (buffers ``mean``, ``cov``),
+  which advance from the batch in train mode when ``update_stats`` is set.
+  Eval mode whitens with the running statistics: through K2 with
+  Gamma = I, beta = 0 when ``kernel_eval`` forces it, else the split
+  path."""
+
+  def __init__(self, channels: int, momentum: float = 0.99, eps: float = 1e-5,
+               ns_iters: int = 15, mode: str = "d",
+               method: str = "newton_schulz", ns_scaling: str = "trace",
+               use_kernel: Optional[bool] = None,
+               kernel_eval: Optional[bool] = None):
     super().__init__()
-    if norm not in ("d", "dr") or coloring != "uconv":
-      raise NotImplementedError(
-          f"NormColor(norm={norm!r}, coloring={coloring!r}): only norm "
-          "'d'/'dr' with coloring 'uconv' is ported")
-    self.norm = norm
+    if mode not in ("d", "dr"):
+      raise ValueError(f"unknown whitening mode {mode!r}")
     self.momentum = momentum
     self.eps = eps
     self.ns_iters = ns_iters
+    self.mode = mode
+    self.method = method
     self.ns_scaling = ns_scaling
     self.use_kernel = use_kernel
-    self.gamma = nn.Parameter(torch.eye(channels))
-    self.beta = nn.Parameter(torch.zeros(channels))
+    self.kernel_eval = kernel_eval
     self.register_buffer("mean", torch.zeros(channels))
     self.register_buffer("cov", torch.eye(channels))
+
+  def forward(self, x: torch.Tensor, train: bool = True,
+              update_stats: bool = True) -> torch.Tensor:
+    x2d = _rows(x)
+    wc = dict(eps=self.eps, num_iters=self.ns_iters, method=self.method,
+              scaling=self.ns_scaling)
+    if not train:
+      if _kernel_eval_ok(self.kernel_eval, self.method):
+        c = x2d.shape[1]
+        out = cuda_wc.whiten_color_apply(
+            x2d, self.mean, self.cov,
+            torch.eye(c, dtype=torch.float32, device=x.device),
+            torch.zeros(c, dtype=torch.float32, device=x.device),
+            ns_iters=self.ns_iters, eps=self.eps, scaling=self.ns_scaling)
+      else:
+        out = whiten_ops.whiten_eval(x2d, self.mean, self.cov, **wc)
+      return _unrows(out, x)
+    if self.mode == "d":
+      out, new_mean, new_cov = whiten_ops.whiten_train(
+          x2d, self.mean, self.cov, momentum=self.momentum,
+          use_kernel=self.use_kernel, **wc)
+    else:
+      batch_mean, batch_cov = whiten_ops.batch_moments(x2d, self.use_kernel)
+      mean, stat_src, new_mean, new_cov = whiten_ops.stats_select_and_ema(
+          batch_mean, batch_cov, self.mean, self.cov, use_batch=False,
+          momentum=self.momentum)
+      out = whiten_ops.whiten_eval(x2d, mean, stat_src, **wc)
+    if update_stats:
+      self.mean = new_mean.detach()
+      self.cov = new_cov.detach()
+    return _unrows(out, x)
+
+
+class NormLayer(nn.Module):
+  """Dispatch on the norm code: 'n' (identity) or 'd'/'dr' (whitening, in
+  submodule ``wc``). BatchNorm 'b' is not ported: flax's momentum and
+  variance conventions differ from torch's, so it waits for the DCGAN
+  slice."""
+
+  def __init__(self, channels: int, code: str = "d", **wc):
+    super().__init__()
+    if code == "b":
+      raise NotImplementedError(
+          "norm code 'b' (BatchNorm) is not ported yet")
+    if code not in ("n", "d", "dr"):
+      raise ValueError(f"unknown norm code {code!r}")
+    self.code = code
+    if code != "n":
+      self.wc = DecorrelationNorm(channels, mode=code, **wc)
+
+  def forward(self, x: torch.Tensor, train: bool = True,
+              update_stats: bool = True) -> torch.Tensor:
+    if self.code == "n":
+      return x
+    return self.wc(x, train, update_stats)
+
+
+class Coloring(nn.Module):
+  """Unconditional coloring behind its code: 'n' (identity), 's'
+  (diagonal scale-shift ``gamma``, ``beta``) or 'uconv' (1x1 conv
+  ``gamma_a`` (C, C) from the identity, ``beta_a``). The conditional codes
+  are not ported yet."""
+
+  def __init__(self, channels: int, code: str = "uconv"):
+    super().__init__()
+    if code in _COND_CODES:
+      raise NotImplementedError(
+          f"conditional coloring {code!r} is not ported yet")
+    self.code = code
+    if code == "s":
+      self.gamma = nn.Parameter(torch.ones(channels))
+      self.beta = nn.Parameter(torch.zeros(channels))
+    elif code == "uconv":
+      self.gamma_a = nn.Parameter(torch.eye(channels))
+      self.beta_a = nn.Parameter(torch.zeros(channels))
+    elif code != "n":
+      raise ValueError(f"unknown coloring code {code!r}")
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    if self.code == "n":
+      return x
+    x2d = _rows(x)
+    if self.code == "s":
+      out = coloring_ops.center_scale(x2d, self.gamma, self.beta)
+    else:
+      out = coloring_ops.color_uncond(x2d, self.gamma_a, self.beta_a)
+    return _unrows(out, x)
+
+
+class NormColor(nn.Module):
+  """The WC block: a norm code {'n', 'd', 'dr'} and a coloring code
+  {'n', 's', 'uconv'}, the JAX package's ``NormColor``.
+
+  Whitening with 'uconv' coloring is fused (``_fused_wc_uconv``): W and
+  Gamma fold into one C x C matrix M = Gamma W (float32) with bias
+  beta - mu M^T, so the rows see a single matmul in the activation dtype:
+  out = x M^T + bias. Gamma starts at the identity. 'd' whitens with the
+  batch statistics, 'dr' with the running ones (buffers ``mean``,
+  ``cov``), which advance from the batch in train mode when
+  ``update_stats`` is set. In eval mode ``kernel_eval=True`` runs the
+  whole layer through K2. Every other pair of codes runs the general path:
+  ``NormLayer`` (submodule ``norm``), then ``Coloring`` (``color``)."""
+
+  def __init__(self, channels: int, norm: str = "d", coloring: str = "uconv",
+               momentum: float = 0.99, eps: float = 1e-5, ns_iters: int = 15,
+               method: str = "newton_schulz", ns_scaling: str = "trace",
+               use_kernel: Optional[bool] = None,
+               kernel_eval: Optional[bool] = None):
+    super().__init__()
+    if norm in ("d", "dr") and coloring in _COND_CODES:
+      raise NotImplementedError(
+          f"NormColor(norm={norm!r}, coloring={coloring!r}): conditional "
+          "coloring is not ported yet")
+    self.fused = norm in ("d", "dr") and coloring == "uconv"
+    self.norm_code = norm
+    self.momentum = momentum
+    self.eps = eps
+    self.ns_iters = ns_iters
+    self.method = method
+    self.ns_scaling = ns_scaling
+    self.use_kernel = use_kernel
+    self.kernel_eval = kernel_eval
+    if self.fused:
+      self.gamma = nn.Parameter(torch.eye(channels))
+      self.beta = nn.Parameter(torch.zeros(channels))
+      self.register_buffer("mean", torch.zeros(channels))
+      self.register_buffer("cov", torch.eye(channels))
+    else:
+      self.norm = NormLayer(channels, norm, momentum=momentum, eps=eps,
+                            ns_iters=ns_iters, method=method,
+                            ns_scaling=ns_scaling, use_kernel=use_kernel,
+                            kernel_eval=kernel_eval)
+      self.color = Coloring(channels, coloring)
 
   def _wc_stats(self, x2d: torch.Tensor, train: bool, update_stats: bool):
     """(mean, stat_src) per the 'd'/'dr' contract, after advancing the
@@ -90,7 +245,7 @@ class NormColor(nn.Module):
     batch_mean, batch_cov = whiten_ops.batch_moments(x2d, self.use_kernel)
     mean, stat_src, new_mean, new_cov = whiten_ops.stats_select_and_ema(
         batch_mean, batch_cov, self.mean, self.cov,
-        use_batch=self.norm == "d", momentum=self.momentum)
+        use_batch=self.norm_code == "d", momentum=self.momentum)
     if update_stats:
       # Rebinding (not copy_) leaves the old tensors, which 'dr' feeds into
       # the graph, unmodified for backward.
@@ -100,15 +255,34 @@ class NormColor(nn.Module):
 
   def forward(self, x: torch.Tensor, train: bool = True,
               update_stats: bool = True) -> torch.Tensor:
+    if not self.fused:
+      return self.color(self.norm(x, train, update_stats))
+    return self._fused_wc_uconv(x, train, update_stats)
+
+  def _fused_wc_uconv(self, x: torch.Tensor, train: bool,
+                      update_stats: bool) -> torch.Tensor:
     x2d = _rows(x)
     mean, stat_src = self._wc_stats(x2d, train, update_stats)
-    w = whiten_ops.newton_schulz_inv_sqrt(
-        stat_src, num_iters=self.ns_iters, eps=self.eps,
-        scaling=self.ns_scaling)
+    if not train and _kernel_eval_ok(self.kernel_eval, self.method):
+      out = cuda_wc.whiten_color_apply(
+          x2d, mean, stat_src, self.gamma, self.beta, ns_iters=self.ns_iters,
+          eps=self.eps, scaling=self.ns_scaling)
+      return _unrows(out, x)
+    w = whiten_ops.inv_sqrt(stat_src, num_iters=self.ns_iters, eps=self.eps,
+                            method=self.method, scaling=self.ns_scaling)
     m = self.gamma @ w                                  # (C, C) fold, f32
     bias = self.beta - mean @ m.T
     out = x2d @ m.T.to(x.dtype) + bias.to(x.dtype)
     return _unrows(out, x)
+
+
+def _add_bias(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+  """y + bias over the channel dim (dim 1), after the product has been
+  rounded to y's dtype: flax adds the bias as a second step, so in
+  bfloat16 a bias fused into the conv or matmul rounds elsewhere (up to a
+  bf16 ulp of the product; ROADMAP queue 3)."""
+  shape = (1, -1) + (1,) * (y.dim() - 2)
+  return y + bias.to(y.dtype).view(shape)
 
 
 class Conv(nn.Conv2d):
@@ -124,8 +298,8 @@ class Conv(nn.Conv2d):
     nn.init.zeros_(self.bias)
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    return self._conv_forward(x, self.weight.to(x.dtype),
-                              self.bias.to(x.dtype))
+    return _add_bias(self._conv_forward(x, self.weight.to(x.dtype), None),
+                     self.bias)
 
 
 class Dense(nn.Linear):
@@ -138,7 +312,7 @@ class Dense(nn.Linear):
     nn.init.zeros_(self.bias)
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+    return _add_bias(F.linear(x, self.weight.to(x.dtype)), self.bias)
 
 
 class SNConv(nn.Module):
@@ -166,8 +340,8 @@ class SNConv(nn.Module):
         fully_diff=self.fully_diff)
     if update_sn:
       self.u = u_new.detach()
-    return F.conv2d(x, w_bar.to(x.dtype), self.bias.to(x.dtype),
-                    padding=self.padding)
+    return _add_bias(F.conv2d(x, w_bar.to(x.dtype), padding=self.padding),
+                     self.bias)
 
 
 class SNDense(nn.Module):
@@ -191,7 +365,7 @@ class SNDense(nn.Module):
         fully_diff=self.fully_diff)
     if update_sn:
       self.u = u_new.detach()
-    return F.linear(x, w_bar.to(x.dtype), self.bias.to(x.dtype))
+    return _add_bias(F.linear(x, w_bar.to(x.dtype)), self.bias)
 
 
 def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:

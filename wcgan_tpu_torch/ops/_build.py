@@ -1,4 +1,5 @@
-"""Build the package's CUDA sources into shared libraries and load them.
+"""Build the package's CUDA sources (K1 ``moments``, K2 ``wc_apply``) into
+shared libraries and load them.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface, so ``nvcc`` compiles it
 in seconds (no PyTorch headers) into ``build/kernels/`` at the repository
@@ -83,4 +84,26 @@ def load_moments() -> ctypes.CDLL:
                                                    ctypes.c_int]
     lib.wcgan_moments_workspace_floats.restype = ctypes.c_int64
     _LOADED["moments"] = lib
+  return lib
+
+
+def load_wc_apply() -> ctypes.CDLL:
+  """The K2 library with its C signatures declared (built on first use)."""
+  lib = _LOADED.get("wc_apply")
+  if lib is None:
+    path, _, _ = compile_library("wc_apply")
+    lib = ctypes.CDLL(str(path))
+    p, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                        ctypes.c_float)
+    lib.wcgan_whiten_color_apply.argtypes = [
+        p, i32, i64, i32, p, p, p, p, i32, f32, i32, p, p, p]
+    lib.wcgan_whiten_color_apply.restype = i32
+    lib.wcgan_wc_setup.argtypes = [p, p, p, p, i32, i32, f32, i32, p, p, p,
+                                   p]
+    lib.wcgan_wc_setup.restype = i32
+    lib.wcgan_wc_apply_workspace_floats.argtypes = [i32]
+    lib.wcgan_wc_apply_workspace_floats.restype = i64
+    lib.wcgan_wc_max_cols.argtypes = []
+    lib.wcgan_wc_max_cols.restype = i32
+    _LOADED["wc_apply"] = lib
   return lib

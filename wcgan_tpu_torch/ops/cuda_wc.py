@@ -1,17 +1,25 @@
-"""K1, the WC transform's moment pass, as a hand-written Hopper kernel.
+"""The WC transform's TPU kernels as hand-written Hopper kernels.
 
-Counterpart of ``wcgan_tpu/ops/pallas_wc.py::moments`` (the Pallas TPU
-kernel ``_moments_kernel`` with its custom VJP). ``moments(x2d)`` returns
-the float32 mean (C,) and divide-by-R covariance (C, C) of the rows of an
-(R, C) float32 or bfloat16 matrix, two-pass centered:
-
-- a CUDA tensor goes to the kernel in ``csrc/moments.cu``, or the wrapper
-  raises (wrong dtype, layout or build failure): nothing falls back;
-- a CPU tensor goes to ``moments_reference``, the plain PyTorch version,
-  which the CPU tests use and ``chip_smoke.py`` holds the kernel against.
-
-The gradient is the one the JAX package computes outside Pallas,
+K1 ``moments`` is the counterpart of ``wcgan_tpu/ops/pallas_wc.py::moments``
+(the Pallas TPU kernel ``_moments_kernel`` with its custom VJP).
+``moments(x2d)`` returns the float32 mean (C,) and divide-by-R covariance
+(C, C) of the rows of an (R, C) float32 or bfloat16 matrix, two-pass
+centered. Its gradient is the one the JAX package computes outside Pallas,
 dx = ((dSigma + dSigma^T)(x - mu) + dmu) / R, one float32 row matmul.
+
+K2 ``whiten_color_apply`` is the counterpart of
+``pallas_wc.py::whiten_color_apply`` (``_wc_apply_kernel``): the whole
+stats-given WC layer, out = x M^T + beta - mu M^T with M = Gamma W and
+W = cov^{-1/2} by coupled Newton-Schulz, forward only.
+
+For each kernel:
+
+- a CUDA tensor goes to the kernel (``csrc/moments.cu``,
+  ``csrc/wc_apply.cu``), or the wrapper raises (wrong dtype, layout, width
+  or a build failure): nothing falls back;
+- a CPU tensor goes to the plain PyTorch version (``moments_reference``,
+  ``whiten_color_apply_reference``), which the CPU tests use and
+  ``chip_smoke.py`` holds the kernel against.
 """
 
 from __future__ import annotations
@@ -21,9 +29,12 @@ from typing import Tuple
 import torch
 
 from wcgan_tpu_torch.ops import _build
+from wcgan_tpu_torch.ops import whiten
 
-# Number of times the wrapper has launched K1 (one per call, on CUDA only).
+# Number of times each wrapper has launched its kernel (one per call, on
+# CUDA only).
 MOMENTS_LAUNCHES = 0
+WC_APPLY_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -106,3 +117,141 @@ class MomentsFn(torch.autograd.Function):
 def moments(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
   """(mean, covariance) of the rows of x2d through K1, differentiable."""
   return MomentsFn.apply(x2d)
+
+
+# --- K2: the stats-given WC layer ------------------------------------------
+
+_SCALING_CODES = {"trace": 0, "fro": 1}
+
+
+def _check_scaling(scaling: str) -> int:
+  if scaling not in _SCALING_CODES:
+    raise ValueError(f"ns scaling must be 'trace' or 'fro', got {scaling!r}")
+  return _SCALING_CODES[scaling]
+
+
+def whiten_color_fold_reference(mean, cov, gamma, beta, ns_iters: int = 15,
+                                eps: float = 1e-5, scaling: str = "trace"
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """K2's setup, plainly: (M, bias) with M = Gamma cov^{-1/2} by coupled
+  Newton-Schulz and bias = beta - mean M^T, all float32."""
+  a, scale, ident = whiten._jittered_normalized(cov, eps, scaling)
+  _, z = whiten._ns_iterate(a, ident, ns_iters)
+  m = gamma.float() @ (z / torch.sqrt(scale))
+  return m, beta.float() - mean.float() @ m.T
+
+
+def whiten_color_apply_reference(x2d: torch.Tensor, mean, cov, gamma, beta,
+                                 ns_iters: int = 15, eps: float = 1e-5,
+                                 scaling: str = "trace") -> torch.Tensor:
+  """The plain version of K2: the fold, then x promoted to float32,
+  x M^T + bias in float32, cast back to x's dtype."""
+  m, bias = whiten_color_fold_reference(mean, cov, gamma, beta, ns_iters,
+                                        eps, scaling)
+  return (x2d.float() @ m.T + bias).to(x2d.dtype)
+
+
+def _stats_f32(cols: int, dev: torch.device, mean, cov, gamma, beta):
+  """The four statistics/coloring operands as contiguous float32 on
+  ``dev`` with K2's shapes, or raise."""
+  out = []
+  for name, t, shape in (("mean", mean, (cols,)), ("cov", cov, (cols, cols)),
+                         ("gamma", gamma, (cols, cols)),
+                         ("beta", beta, (cols,))):
+    if tuple(t.shape) != shape or t.device != dev:
+      raise ValueError(f"whiten_color_apply: {name} must be {shape} on "
+                       f"{dev}, got {tuple(t.shape)} on {t.device}")
+    out.append(t.float().contiguous())
+  return out
+
+
+def _check_cols(cols: int, lib) -> None:
+  if not 1 <= cols <= lib.wcgan_wc_max_cols():
+    raise ValueError(f"whiten_color_apply kernel takes 1 <= C <= "
+                     f"{lib.wcgan_wc_max_cols()}, got C={cols}")
+
+
+def whiten_color_apply_cuda(x2d: torch.Tensor, mean, cov, gamma, beta,
+                            ns_iters: int = 15, eps: float = 1e-5,
+                            scaling: str = "trace") -> torch.Tensor:
+  """Launch K2 on ``x2d``'s device, on the current stream, without
+  synchronising. Raises on anything the kernel does not take."""
+  global WC_APPLY_LAUNCHES
+  scaling_code = _check_scaling(scaling)
+  if not x2d.is_cuda:
+    raise ValueError(f"whiten_color_apply_cuda needs a CUDA tensor, got "
+                     f"{x2d.device}")
+  if x2d.dtype not in _DTYPE_CODES:
+    raise TypeError(f"whiten_color_apply kernel takes float32 or bfloat16 "
+                    f"rows, got {x2d.dtype}")
+  if x2d.dim() != 2 or not x2d.is_contiguous():
+    raise ValueError(f"whiten_color_apply kernel needs contiguous (R, C) "
+                     f"rows, got shape {tuple(x2d.shape)} strides "
+                     f"{x2d.stride()}")
+  rows, cols = x2d.shape
+  if rows < 1 or ns_iters < 0:
+    raise ValueError(f"whiten_color_apply of {tuple(x2d.shape)} with "
+                     f"ns_iters={ns_iters}")
+  lib = _build.load_wc_apply()
+  _check_cols(cols, lib)
+  dev = x2d.device
+  mean, cov, gamma, beta = _stats_f32(cols, dev, mean, cov, gamma, beta)
+  out = torch.empty_like(x2d)
+  # Released on return, before the kernels have run: the caching allocator
+  # hands its memory only to later work on this stream.
+  workspace = torch.empty((lib.wcgan_wc_apply_workspace_floats(cols),),
+                          dtype=torch.float32, device=dev)
+  stream = torch.cuda.current_stream(dev).cuda_stream
+  err = lib.wcgan_whiten_color_apply(
+      x2d.data_ptr(), _DTYPE_CODES[x2d.dtype], rows, cols, mean.data_ptr(),
+      cov.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ns_iters, eps,
+      scaling_code, out.data_ptr(), workspace.data_ptr(), stream)
+  if err != 0:
+    raise RuntimeError(f"whiten_color_apply kernel launch failed at "
+                       f"{tuple(x2d.shape)} {x2d.dtype}: cudaError_t {err}")
+  WC_APPLY_LAUNCHES += 1
+  return out
+
+
+def whiten_color_fold_cuda(mean, cov, gamma, beta, ns_iters: int = 15,
+                           eps: float = 1e-5, scaling: str = "trace"
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """K2's setup launches alone: (M, bias) as ``whiten_color_fold_reference``
+  gives them. For timing and testing the setup; it is not counted in
+  ``WC_APPLY_LAUNCHES``, and no model path calls it."""
+  scaling_code = _check_scaling(scaling)
+  if not cov.is_cuda:
+    raise ValueError(f"whiten_color_fold_cuda needs CUDA tensors, got "
+                     f"{cov.device}")
+  cols = cov.shape[-1]
+  lib = _build.load_wc_apply()
+  _check_cols(cols, lib)
+  dev = cov.device
+  mean, cov, gamma, beta = _stats_f32(cols, dev, mean, cov, gamma, beta)
+  mt = torch.empty((cols, cols), dtype=torch.float32, device=dev)
+  bias = torch.empty((cols,), dtype=torch.float32, device=dev)
+  workspace = torch.empty((lib.wcgan_wc_apply_workspace_floats(cols),),
+                          dtype=torch.float32, device=dev)
+  err = lib.wcgan_wc_setup(
+      mean.data_ptr(), cov.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+      cols, ns_iters, eps, scaling_code, mt.data_ptr(), bias.data_ptr(),
+      workspace.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+  if err != 0:
+    raise RuntimeError(f"whiten_color_apply setup launch failed at C={cols}: "
+                       f"cudaError_t {err}")
+  return mt.T, bias
+
+
+def whiten_color_apply(x2d: torch.Tensor, mean, cov, gamma, beta,
+                       ns_iters: int = 15, eps: float = 1e-5,
+                       scaling: str = "trace") -> torch.Tensor:
+  """The WC transform given (mean, cov): out = (x - mean) (Gamma W)^T + beta
+  with W = cov^{-1/2}, in x's dtype. K2 for a CUDA tensor, the plain
+  version for a CPU tensor."""
+  if x2d.is_cuda:
+    return whiten_color_apply_cuda(x2d, mean, cov, gamma, beta, ns_iters,
+                                   eps, scaling)
+  if x2d.device.type == "cpu":
+    return whiten_color_apply_reference(x2d, mean, cov, gamma, beta,
+                                        ns_iters, eps, scaling)
+  raise ValueError(f"whiten_color_apply: no kernel for device {x2d.device}")

@@ -102,6 +102,18 @@ def cholesky_inv_sqrt(cov: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
   return torch.linalg.solve_triangular(chol, ident, upper=False)
 
 
+def inv_sqrt(cov: torch.Tensor, num_iters: int = 15, eps: float = 1e-5,
+             method: str = "newton_schulz",
+             scaling: str = "trace") -> torch.Tensor:
+  """Dispatch: 'newton_schulz' (the hot path) or 'cholesky' (the oracle)."""
+  if method == "newton_schulz":
+    return newton_schulz_inv_sqrt(cov, num_iters=num_iters, eps=eps,
+                                  scaling=scaling)
+  if method == "cholesky":
+    return cholesky_inv_sqrt(cov, eps=eps)
+  raise ValueError(f"unknown inv-sqrt method: {method!r}")
+
+
 def whiten_apply(x2d: torch.Tensor, mean: torch.Tensor,
                  w: torch.Tensor) -> torch.Tensor:
   """``(x - mean) W^T`` in x's dtype. bfloat16 rows run one bfloat16
@@ -124,3 +136,30 @@ def stats_select_and_ema(batch_mean, batch_cov, moving_mean, moving_cov, *,
   if use_batch:
     return batch_mean, batch_cov, new_mean, new_cov
   return moving_mean.float(), moving_cov.float(), new_mean, new_cov
+
+
+def whiten_train(x2d: torch.Tensor, moving_mean: torch.Tensor,
+                 moving_cov: torch.Tensor, *, momentum: float = 0.99,
+                 eps: float = 1e-5, num_iters: int = 15,
+                 method: str = "newton_schulz", scaling: str = "trace",
+                 use_kernel: Optional[bool] = None):
+  """Training-mode whitening from the batch statistics ('d'). Returns
+  (whitened x2d, new moving mean, new moving cov)."""
+  batch_mean, batch_cov = batch_moments(x2d, use_kernel)
+  mean, stat_src, new_mean, new_cov = stats_select_and_ema(
+      batch_mean, batch_cov, moving_mean, moving_cov, use_batch=True,
+      momentum=momentum)
+  w = inv_sqrt(stat_src, num_iters=num_iters, eps=eps, method=method,
+               scaling=scaling)
+  return whiten_apply(x2d, mean, w), new_mean, new_cov
+
+
+def whiten_eval(x2d: torch.Tensor, moving_mean: torch.Tensor,
+                moving_cov: torch.Tensor, *, eps: float = 1e-5,
+                num_iters: int = 15, method: str = "newton_schulz",
+                scaling: str = "trace") -> torch.Tensor:
+  """Inference-mode whitening from given (running) statistics: the split
+  path, W computed first, then one row pass."""
+  w = inv_sqrt(moving_cov.float(), num_iters=num_iters, eps=eps,
+               method=method, scaling=scaling)
+  return whiten_apply(x2d, moving_mean.float(), w)

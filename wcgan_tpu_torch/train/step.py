@@ -48,7 +48,7 @@ def prepare_real(real: torch.Tensor, flip: Optional[torch.Tensor]
   return real.movedim(-1, -3)
 
 
-def _as_tensor(a, device: torch.device) -> torch.Tensor:
+def as_tensor(a, device: torch.device) -> torch.Tensor:
   if torch.is_tensor(a):
     return a.to(device)
   # np.array copies: arrays handed over from other frameworks are often
@@ -122,14 +122,14 @@ def make_outer_step(cfg: GANConfig) -> Callable[..., Dict[str, torch.Tensor]]:
                  noise: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
     del labels  # unconditional
     device = state.generator.device
-    real = _as_tensor(real_u8, device)
+    real = as_tensor(real_u8, device)
     if real.shape[0] != ratio:
       raise ValueError(f"got {real.shape[0]} D batches, expected "
                        f"training_ratio={ratio}")
     b = real.shape[1]
     if noise is None:
       noise = draw_noise(state, b, device)
-    noise = {k: _as_tensor(v, device) for k, v in noise.items()}
+    noise = {k: as_tensor(v, device) for k, v in noise.items()}
     real = prepare_real(real, noise.get("flip") if cfg.random_flip else None)
 
     d_losses, d_gnorms = [], []

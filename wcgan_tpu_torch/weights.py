@@ -10,11 +10,18 @@ a ``state_dict`` key; only layouts differ:
 - everything else (NormColor gamma/beta, biases, wc_stats, u) as it is.
 
 Both directions take and give numpy arrays, so this module needs no JAX.
+
+``export_npz`` and ``load_npz`` read and write the JAX package's
+weights-only npz (``Trainer.export_weights``, ``--generator_checkpoint``):
+params only, in the flax layout, keyed by the string that
+``"/".join(map(str, keypath))`` makes of a ``jax.tree_util`` key path,
+e.g. ``['block0']/['nc1']/['gamma']``. A file written by either package
+loads in the other.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -118,3 +125,60 @@ def from_jax(g_params, g_state, d_params, d_state, g_cfg: GeneratorConfig,
   g.load_state_dict(state_dict_from_jax(g_params, g_state), strict=True)
   d.load_state_dict(state_dict_from_jax(d_params, d_state), strict=True)
   return place(g, device), place(d, device)
+
+
+def _npz_key(path: tuple) -> str:
+  """A flax params path as the JAX package's npz key (``str`` of each
+  ``jax.tree_util.DictKey``, joined by '/')."""
+  return "/".join(f"[{k!r}]" for k in path)
+
+
+def export_npz(module: nn.Module) -> Dict[str, np.ndarray]:
+  """A port module's parameters as the JAX package's weights-only npz
+  entries: {key: float32 array in the flax layout}."""
+  return {_npz_key(path): leaf for path, leaf in
+          _flatten(params_to_jax(dict(module.named_parameters())))}
+
+
+def load_npz(module: nn.Module, loaded: Mapping[str, np.ndarray],
+             missing: str = "error", source: str = "<npz>",
+             model: Optional[str] = None,
+             log: Optional[Callable[[str], None]] = None) -> None:
+  """Copy npz entries (JAX package keys and layouts) into ``module``'s
+  parameters, as the JAX CLI's ``_load_weights_npz`` substitutes them.
+
+  A parameter absent from ``loaded`` raises a KeyError, or with
+  ``missing='init'`` keeps its value and is listed (with the entries left
+  unused) through ``log``. A shape that differs raises a ValueError.
+  Nothing is copied unless every parameter checks out. Buffers
+  (``wc_stats``, SN ``u``) are not in the format and stay as they are."""
+  if missing not in ("error", "init"):
+    raise ValueError(f"missing must be 'error' or 'init', got {missing!r}")
+  named = dict(module.named_parameters())
+  updates, used, kept = {}, set(), []
+  for path, leaf in _flatten(params_to_jax(named)):
+    key = _npz_key(path)
+    if key not in loaded:
+      if missing == "init":
+        kept.append(key)
+        continue
+      raise KeyError(
+          f"checkpoint {source} missing {key} (pass --checkpoint_missing "
+          f"init to keep absent params at their initialization)")
+    used.add(key)
+    arr = np.asarray(loaded[key])
+    if arr.shape != leaf.shape:
+      raise ValueError(f"{key}: shape {arr.shape} != {leaf.shape}")
+    if path[-1] == "kernel":
+      path, arr = path[:-1] + ("weight",), _kernel_to_torch(arr)
+    updates[".".join(path)] = torch.from_numpy(np.array(arr, np.float32))
+  with torch.no_grad():
+    for name, value in updates.items():
+      named[name].copy_(value)
+  if kept:
+    emit = log or print
+    emit(f"checkpoint_missing=init: {len(kept)} {model or 'model'} "
+         f"param(s) not in {source}, kept at init: {sorted(kept)}")
+    unused = sorted(set(loaded) - used)
+    if unused:
+      emit(f"  ({len(unused)} checkpoint key(s) unused: {unused})")
