@@ -4,9 +4,13 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU, nvcc
 and PyTorch built for CUDA. It builds K1 (wcgan_tpu_torch/csrc/moments.cu)
-and K2 (csrc/wc_apply.cu) side by side, holds each against its plain
-PyTorch version and times both, checks one outer step with and without K1
-at small width in float32, then drives the two ported paths at full width:
+and K2 (csrc/wc_apply.cu) side by side and prints ptxas's registers and
+spills (K1's Gram kernel must not spill), holds each against its plain
+PyTorch version, holds K1 against a float64 run, times both against their
+plain version, one PyTorch call for the same function (``torch.cov`` for
+K1, ``torch.addmm`` for K2's row apply) and their floors on this card,
+checks one outer step with and without K1 at small width in float32, then
+drives the two ported paths at full width:
 
 - training (slice 1): G 256x3 + D 128x4, bf16, 10 outer steps of 5 D
   updates at batch 64 + 1 G update at batch 128; K1 runs 42 times a step;
@@ -16,12 +20,13 @@ at small width in float32, then drives the two ported paths at full width:
   two must agree;
 
 and the CLI: a training run that writes sample grids, then ``--phase test``
-on the npz that ``Trainer.export_weights`` wrote. Every phase that fails
-stops the script with a non-zero exit. The last line is
+on the npz that ``Trainer.export_weights`` wrote. One training outer step
+is profiled (``torch.profiler``) for K1's share of kernel time. Every
+phase that fails stops the script with a non-zero exit. The last line is
 {"ok": true, "device": {...}}; the line before it lists each kernel with
 its launches on its path, error and times. Without a GPU it exits
-non-zero and prints no result. It imports no JAX, and of the JAX package
-only its numpy modules (data, utils, tools), as the port does.
+non-zero and prints no result. It imports no JAX and nothing of the JAX
+package, as the port does.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import dataclasses
 import glob
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -39,7 +45,7 @@ import time
 import numpy as np
 import torch
 
-from wcgan_tpu.data import get_dataset
+from wcgan_tpu_torch.data import get_dataset
 from wcgan_tpu_torch.device import place
 from wcgan_tpu_torch.models.discriminator import DiscriminatorConfig
 from wcgan_tpu_torch.models.generator import Generator, GeneratorConfig
@@ -74,9 +80,16 @@ K2_CASES_R = (1024, 65536, 262144, 130, 1000)
 SAMPLE_MEAN_TOL = 1.0
 SAMPLE_P999_TOL = 4.0
 SAMPLE_MAX_TOL = 16
-# Modules of the JAX package the port may import: numpy only.
-NUMPY_ONLY = ("wcgan_tpu", "wcgan_tpu.data", "wcgan_tpu.utils",
-              "wcgan_tpu.tools")
+# Peak rates of an H100 SXM at 700 W (NVIDIA's data sheet) for the floors:
+# float32 on the FFMA pipes, TF32 and bf16 on the tensor cores (dense),
+# HBM3.
+FFMA_FLOPS = 67e12
+TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
+HBM_BYTES = 3.35e12
+# The names of K1's launches, for the profiler's kernel table.
+K1_KERNELS = ("col_partial_sums", "finalize_mean", "centered_gram_tf32x3",
+              "reduce_gram")
 
 
 def check(ok: bool, what) -> None:
@@ -114,9 +127,26 @@ def phase_device() -> torch.device:
   return torch.device("cuda", 0)
 
 
+def _ptxas_report(out: str):
+  """[(mangled kernel name, registers, spill bytes)] from nvcc -Xptxas -v
+  output."""
+  report, name = [], None
+  for line in out.splitlines():
+    if "Compiling entry function" in line:
+      name = line.split("'")[1]
+    elif "spill" in line and name:
+      spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
+    elif "Used" in line and "registers" in line and name:
+      regs = int(re.search(r"Used (\d+) registers", line).group(1))
+      report.append((name, regs, spill))
+      name = None
+  return report
+
+
 def phase_build() -> None:
-  """Both kernels at once, one nvcc each; ptxas's register, shared-memory
-  and spill lines of every kernel function."""
+  """Both kernels at once, one nvcc each; ptxas's registers and spills of
+  every kernel function. K1's Gram kernel (wgmma accumulators in
+  registers) must not spill."""
   t0 = time.perf_counter()
   with concurrent.futures.ThreadPoolExecutor(2) as pool:
     builds = dict(zip(("moments", "wc_apply"), pool.map(
@@ -124,10 +154,17 @@ def phase_build() -> None:
   _build.load_moments()
   _build.load_wc_apply()
   for name, (path, out, compile_s) in builds.items():
-    lines = [l.strip() for l in out.splitlines()
-             if "registers" in l or "spill" in l]
-    log("build", f"{name}: {path.name} built in {compile_s:.2f} s; "
-        + " | ".join(lines))
+    report = _ptxas_report(out)
+    log("build", f"{name}: {path.name} built in {compile_s:.2f} s; ptxas -v: "
+        + "; ".join(f"{k} {r} registers, {sp} bytes spilled"
+                    for k, r, sp in report))
+    warnings = [l.strip() for l in out.splitlines()
+                if "arning" in l or "(C7" in l]
+    if warnings:
+      log("build", f"{name}: " + " | ".join(warnings))
+    if name == "moments":
+      gram = [sp for k, _, sp in report if "centered_gram" in k]
+      check(len(gram) == 2 and not any(gram), ("K1 Gram spills", report))
   log("build", f"both loaded in {time.perf_counter() - t0:.2f} s")
 
 
@@ -139,13 +176,16 @@ def phase_parity(dev: torch.device) -> float:
     for r in CHECK_R:
       x = (torch.randn((r, C), generator=gen, device=dev) * 2 + 3).to(dtype)
       got = cuda_wc.moments_cuda(x)
+      again = cuda_wc.moments_cuda(x)
       torch.cuda.synchronize()
+      check(all(torch.equal(a, b) for a, b in zip(got, again))
+            and torch.equal(got[1], got[1].T), ("not repeatable", dtype, r))
       err = max_err(got, cuda_wc.moments_reference(x))
       errs.append(f"{r}:{err:.2e}")
       check(err <= TOL, (dtype, r, err))
       worst = max(worst, err)
     log("parity", f"K1 vs plain, C={C}, {dtype}: max|d| per R " +
-        " ".join(errs))
+        " ".join(errs) + "; two calls bitwise equal, cov == cov^T")
   # |mu| = 1000, sigma = 0.01: float32 resolves the mean only to ~1e-4
   # (ulp 6e-5), so it is held to 1e-6 relative, and the covariance (1e-4
   # on the diagonal) to 1e-6 absolute, 1% of the variance.
@@ -179,8 +219,15 @@ def phase_parity(dev: torch.device) -> float:
 
 
 def _time_ms(fn, *args, iters: int = 20) -> float:
+  """Device ms per call: the queue is held by a sleep kernel (~25 ms)
+  while the host enqueues the calls, so the events time the card, not the
+  host, as long as the enqueue ends inside the hold. A call that enqueues
+  many small launches (K2's plain version) outlasts it and is timed as
+  host-bound."""
   start = torch.cuda.Event(enable_timing=True)
   end = torch.cuda.Event(enable_timing=True)
+  torch.cuda.synchronize()
+  torch.cuda._sleep(50_000_000)
   start.record()
   for _ in range(iters):
     fn(*args)
@@ -189,29 +236,96 @@ def _time_ms(fn, *args, iters: int = 20) -> float:
   return start.elapsed_time(end) / iters
 
 
+def _in_turns(*calls):
+  """Mean device ms of each call (fn, args), warmed up, timed in turns
+  a b c c b a."""
+  for fn, args in calls:
+    for _ in range(3):
+      fn(*args)
+  order = list(range(len(calls)))
+  times = [_time_ms(calls[i][0], *calls[i][1]) for i in order + order[::-1]]
+  return [(times[i] + times[-1 - i]) / 2 for i in order]
+
+
+def k1_floors(rows: int, cols: int):
+  """ms floors of one K1 call on bf16 rows on this card: (bytes, bf16
+  operations, FFMA, 3xTF32). Bytes: x read once, mean and cov written
+  once. Operations: the symmetric Gram's R*C*(C+1) flop at the bf16
+  tensor-core rate, the peak for the input's type. Their larger is the
+  bound. Beside it, the same flop on the FFMA pipes, and the floor of the
+  3xTF32 emulation K1 runs (three passes at the TF32 rate)."""
+  flop = rows * cols * (cols + 1)
+  hbm = (rows * cols * 2 + 4 * (cols + cols * cols)) / HBM_BYTES
+  return (hbm * 1e3, flop / BF16_FLOPS * 1e3, flop / FFMA_FLOPS * 1e3,
+          3 * flop / TF32_FLOPS * 1e3)
+
+
+def _torch_cov(xf):
+  return torch.cov(xf.T, correction=0)
+
+
 def phase_timing(dev: torch.device):
+  """K1, its plain version and torch.cov (on a float32 copy made outside
+  the timed window, TF32 off) per R of the main path, bf16 rows, C=256, in
+  turns, with each R's floors and the share of the bound K1 reaches; then
+  the sums over the 42 calls of one outer step. Returns those sums, (K1,
+  plain, torch.cov, bound) ms, and what sets the bound."""
   gen = torch.Generator(device=dev).manual_seed(1)
-  per_r = {}
+  per_r, floors = {}, {}
   for r in sorted(set(D_PHASE_R + G_UPDATE_R)):
     x = torch.randn((r, C), generator=gen, device=dev).to(torch.bfloat16)
-    for fn in (cuda_wc.moments_cuda, cuda_wc.moments_reference):
-      for _ in range(3):
-        fn(x)
-    # In turns, plain / kernel / kernel / plain, on the same input.
-    p1 = _time_ms(cuda_wc.moments_reference, x)
-    k1 = _time_ms(cuda_wc.moments_cuda, x)
-    k2 = _time_ms(cuda_wc.moments_cuda, x)
-    p2 = _time_ms(cuda_wc.moments_reference, x)
-    per_r[r] = ((k1 + k2) / 2, (p1 + p2) / 2)
-  log("timing", "bf16 rows, C=256, ms per call (K1 / plain): " + " ".join(
-      f"R={r}:{k:.4f}/{p:.4f}" for r, (k, p) in per_r.items()))
-  step_k = 5 * sum(per_r[r][0] for r in D_PHASE_R) + sum(
-      per_r[r][0] for r in G_UPDATE_R)
-  step_p = 5 * sum(per_r[r][1] for r in D_PHASE_R) + sum(
-      per_r[r][1] for r in G_UPDATE_R)
-  log("timing", f"the 42 calls of one outer step: K1 {step_k:.4f} ms, "
-      f"plain {step_p:.4f} ms")
-  return step_k, step_p
+    xf = x.float()
+    k, p, lib = _in_turns((cuda_wc.moments_cuda, (x,)),
+                          (cuda_wc.moments_reference, (x,)),
+                          (_torch_cov, (xf,)))
+    floors[r] = hbm, ops, ffma, tf32x3 = k1_floors(r, C)
+    bound, by = max(hbm, ops), "bytes" if hbm >= ops else "operations"
+    per_r[r] = (k, p, lib, bound)
+    log("timing", f"R={r}: K1 {k:.4f} ms, plain {p:.4f}, torch.cov {lib:.4f}"
+        f"; bound {bound:.4f} ({by}: HBM {hbm:.4f}, bf16 operations "
+        f"{ops:.4f}); floors FFMA {ffma:.4f}, 3xTF32 {tf32x3:.4f}; K1 at "
+        f"{bound / k:.1%} of its bound, {tf32x3 / k:.1%} of the 3xTF32 floor")
+
+  def step_sum(values):
+    return 5 * sum(values[r] for r in D_PHASE_R) + sum(
+        values[r] for r in G_UPDATE_R)
+
+  sums = [step_sum({r: v[i] for r, v in per_r.items()}) for i in range(4)]
+  hbm, ops, ffma, tf32x3 = (step_sum({r: f[i] for r, f in floors.items()})
+                            for i in range(4))
+  bound_by = "bytes" if hbm >= ops else "operations"
+  log("timing", f"the 42 calls of one outer step (device ms, bf16 rows, "
+      f"C=256, on {nvidia_smi()}): K1 {sums[0]:.4f}, plain {sums[1]:.4f}, "
+      f"torch.cov {sums[2]:.4f}; bound {sums[3]:.4f} ({bound_by}: HBM "
+      f"{hbm:.4f}, bf16 operations {ops:.4f}); floors FFMA {ffma:.4f}, "
+      f"3xTF32 {tf32x3:.4f}; K1 at {sums[3] / sums[0]:.1%} of its bound, "
+      f"{tf32x3 / sums[0]:.1%} of the 3xTF32 floor")
+  return tuple(sums) + (bound_by,)
+
+
+def phase_f64(dev: torch.device) -> None:
+  """K1 and the plain float32 version against a float64 run of the same
+  bf16 rows (correlated, mean in [-3, 3], |cov| up to ~5), R=131,072."""
+  gen = torch.Generator(device=dev).manual_seed(8)
+  for cols in (C, 512):
+    a = torch.randn((cols, cols), generator=gen, device=dev) / cols ** 0.5
+    x = (torch.randn((131072, cols), generator=gen, device=dev) @ a.T * 1.5
+         + torch.rand((cols,), generator=gen, device=dev) * 6 - 3
+         ).to(torch.bfloat16)
+    x64 = x.double()
+    mean64 = x64.mean(dim=0)
+    cov64 = (x64 - mean64).T @ (x64 - mean64) / x64.shape[0]
+    errs = {}
+    for name, fn in (("K1", cuda_wc.moments_cuda),
+                     ("plain", cuda_wc.moments_reference)):
+      mean, cov = fn(x)
+      errs[name] = (float((mean.double() - mean64).abs().max()),
+                    float((cov.double() - cov64).abs().max()))
+    check(errs["K1"][1] <= TOL, errs)
+    log("f64", f"R=131072, C={cols}, bf16 rows, max|cov| "
+        f"{float(cov64.abs().max()):.3f}: max|d| from float64, mean/cov: K1 "
+        f"{errs['K1'][0]:.2e}/{errs['K1'][1]:.2e}, plain float32 "
+        f"{errs['plain'][0]:.2e}/{errs['plain'][1]:.2e}")
 
 
 def _k2_inputs(rows, cols, gen, dev, cond=1e3):
@@ -292,38 +406,56 @@ def phase_k2_parity(dev: torch.device) -> float:
 
 
 def phase_k2_timing(dev: torch.device):
-  """ms per call, K2 against plain, bf16 rows, C=256, in turns
-  plain/K2/K2/plain; the sums over one forward's 7 layers; the setup
-  alone. Returns (K2, plain) ms of one batch-256 generate forward."""
+  """Device ms per call, K2 against plain, bf16 rows, C=256, in turns
+  plain/K2/K2/plain; the sums over one forward's 7 layers, with their
+  bound and the torch.addmm row apply; the setup alone. Returns (K2,
+  plain, bound, addmm) ms of one batch-256 generate forward."""
   gen = torch.Generator(device=dev).manual_seed(6)
   per_r = {}
   for r in sorted(set(GRID_R + GENERATE_R)):
     x, mean, cov, gamma, beta = _k2_inputs(r, C, gen, dev)
     args = (x.to(torch.bfloat16), mean, cov, gamma, beta)
-    fns = (cuda_wc.whiten_color_apply_reference,
-           cuda_wc.whiten_color_apply_cuda)
-    for fn in fns:
-      for _ in range(3):
-        fn(*args)
-    p1, k1, k2, p2 = (_time_ms(fns[i], *args) for i in (0, 1, 1, 0))
-    per_r[r] = ((k1 + k2) / 2, (p1 + p2) / 2)
+    p, k = _in_turns((cuda_wc.whiten_color_apply_reference, args),
+                     (cuda_wc.whiten_color_apply_cuda, args))
+    per_r[r] = (k, p)
   log("k2-timing", "bf16 rows, C=256, ns 15, ms per call (K2 / plain): "
       + " ".join(f"R={r}:{k:.4f}/{p:.4f}" for r, (k, p) in per_r.items()))
+  # The row apply's yardstick: one torch.addmm(bias, x, M^T) in float32.
+  lib = {}
+  for r in sorted(set(GENERATE_R)):
+    xf = torch.randn((r, C), generator=gen, device=dev)
+    mt = torch.randn((C, C), generator=gen, device=dev)
+    bias = torch.randn((C,), generator=gen, device=dev)
+    lib[r] = _in_turns((torch.addmm, (bias, xf, mt)))[0]
   sums = {}
   for name, rs in (("grid b64", GRID_R), ("generate b256", GENERATE_R)):
     sums[name] = (sum(per_r[r][0] for r in rs), sum(per_r[r][1] for r in rs))
     log("k2-timing", f"the 7 calls of one {name} forward: K2 "
         f"{sums[name][0]:.4f} ms, plain {sums[name][1]:.4f} ms")
+  bound = sum(k2_floor(r, C) for r in GENERATE_R)
+  lib_ms = sum(lib[r] for r in GENERATE_R)
+  log("k2-timing", f"generate b256, 7 calls: bound {bound:.4f} ms (FFMA: "
+      f"45 x 2C^3 setup + 2RC^2 apply), K2 at "
+      f"{bound / sums['generate b256'][0]:.1%} of it; torch.addmm row apply "
+      f"alone {lib_ms:.4f} ms (" + " ".join(f"R={r}:{lib[r]:.4f}"
+                                            for r in sorted(lib)) + ")")
   _, mean, cov, gamma, beta = _k2_inputs(8, C, gen, dev)
   args = (mean, cov, gamma, beta)
-  fns = (cuda_wc.whiten_color_fold_reference, cuda_wc.whiten_color_fold_cuda)
-  for fn in fns:
-    for _ in range(3):
-      fn(*args)
-  p1, k1, k2, p2 = (_time_ms(fns[i], *args) for i in (0, 1, 1, 0))
+  p, k = _in_turns((cuda_wc.whiten_color_fold_reference, args),
+                   (cuda_wc.whiten_color_fold_cuda, args))
   log("k2-timing", f"setup alone (jitter, 15 NS steps, fold, bias), C=256: "
-      f"K2 {(k1 + k2) / 2:.4f} ms, plain NS + fold {(p1 + p2) / 2:.4f} ms")
-  return sums["generate b256"]
+      f"K2 {k:.4f} ms, plain NS + fold {p:.4f} ms")
+  return sums["generate b256"] + (bound, lib_ms)
+
+
+def k2_floor(rows: int, cols: int, ns_iters: int = 15) -> float:
+  """ms floor of one K2 call, bf16 rows: the setup's 3 C x C products
+  per Newton-Schulz step (45 x 2C^3 at 15) and the apply's 2RC^2 flop on
+  the FFMA pipes, against x read and out written in bf16 and the four
+  statistics read in float32."""
+  flop = 3 * ns_iters * 2 * cols ** 3 + 2 * rows * cols ** 2
+  nbytes = 2 * rows * cols * 2 + 4 * (2 * cols * cols + 2 * cols)
+  return max(flop / FFMA_FLOPS, nbytes / HBM_BYTES) * 1e3
 
 
 def phase_step_parity(dev: torch.device) -> None:
@@ -395,6 +527,38 @@ def phase_slice(dev: torch.device):
       f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; last "
       + ", ".join(f"{k} {v[-1]:.4f}" for k, v in values.items()))
   return launches, state, gan
+
+
+def phase_profile(state, gan) -> None:
+  """One training outer step of the slice under torch.profiler: K1's
+  device time and its share of all kernel time."""
+  from torch.profiler import ProfilerActivity, profile
+  step = make_outer_step(gan)
+  dev = state.generator.device
+  real = torch.randint(0, 256, (5, 64, 32, 32, 3), dtype=torch.uint8,
+                       generator=torch.Generator(device=dev).manual_seed(9),
+                       device=dev)
+  labels = torch.zeros((5, 64), dtype=torch.int32, device=dev)
+  step(state, real, labels)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    step(state, real, labels)
+    torch.cuda.synchronize()
+  wall = (time.perf_counter() - t0) * 1e3
+  kernels = [e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+  total = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+  k1 = [e for e in kernels if any(n in e.name for n in K1_KERNELS)]
+  k1_ms = sum(e.time_range.elapsed_us() for e in k1) / 1e3
+  gram = sum(1 for e in k1 if "centered_gram" in e.name)
+  check(total > 0 and gram == 42, (total, gram))
+  log("profile", f"one outer step under torch.profiler on {nvidia_smi()}: "
+      f"{len(kernels)} kernels, {total:.3f} ms of kernel time in "
+      f"{wall:.1f} ms of wall (busy {total / wall:.2f}); K1 {k1_ms:.3f} ms "
+      f"({k1_ms / total:.1%}; {len(k1)} launches of its 4 kernels, {gram} "
+      f"Gram) against 6.6 ms of 65.1 in the slice-1 profile")
 
 
 def _generate(trainer: Trainer, n: int):
@@ -510,34 +674,38 @@ def main() -> int:
   dev = phase_device()
   phase_build()
   err = phase_parity(dev)
-  step_k, step_p = phase_timing(dev)
+  phase_f64(dev)
+  k1_ms, k1_plain_ms, k1_lib_ms, k1_bound_ms, k1_bound_by = phase_timing(dev)
   k2_err = phase_k2_parity(dev)
-  k2_ms, k2_plain_ms = phase_k2_timing(dev)
+  k2_ms, k2_plain_ms, k2_bound_ms, k2_lib_ms = phase_k2_timing(dev)
   phase_step_parity(dev)
   launches, state, gan = phase_slice(dev)
+  phase_profile(state, gan)
   k2_launches, npz = phase_sampling(dev, state, gan)
   phase_cli(npz)
-  loaded = sorted(
-      m for m in sys.modules
-      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax")
-      or (m.startswith("wcgan_tpu.") and
-          ".".join(m.split(".")[:2]) not in NUMPY_ONLY))
+  loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+      "wcgan_tpu", "jax", "jaxlib", "flax", "optax", "orbax"))
   check(not loaded, f"chip_smoke imported {loaded}")
   print(nvidia_smi(), flush=True)
-  # ms / plain_ms: K1 over the 42 calls of one outer step, K2 over the 7
-  # calls of one batch-256 generate forward; max_abs_err: K1's worst, K2's
-  # worst with float32 rows (bf16 rows are held to 2 ulps, printed above).
+  # Device ms: K1 over the 42 calls of one outer step (library: torch.cov),
+  # K2 over the 7 calls of one batch-256 generate forward (library: the row
+  # apply alone as torch.addmm); bounds from this card's peak rates. K2's
+  # plain_ms is host-bound (its launches outlast the queue's hold).
+  # max_abs_err: K1's worst against plain, K2's worst with float32 rows
+  # (bf16 rows are held to 2 ulps, printed above).
   print(json.dumps({"kernels": [{
       "name": "moments", "route": "cuda",
       "source": "wcgan_tpu_torch/csrc/moments.cu",
       "replaces": "wcgan_tpu/ops/pallas_wc.py:56",
       "launches": launches, "max_abs_err": err,
-      "ms": step_k, "plain_ms": step_p}, {
+      "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
+      "bound_by": k1_bound_by, "library_ms": k1_lib_ms}, {
       "name": "whiten_color_apply", "route": "cuda",
       "source": "wcgan_tpu_torch/csrc/wc_apply.cu",
       "replaces": "wcgan_tpu/ops/pallas_wc.py:195",
       "launches": k2_launches, "max_abs_err": k2_err,
-      "ms": k2_ms, "plain_ms": k2_plain_ms}]}), flush=True)
+      "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
+      "bound_by": "operations", "library_ms": k2_lib_ms}]}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}), flush=True)

@@ -6,8 +6,11 @@ runs. tests/conftest.py imports JAX, so on such a machine skip it:
   python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 K1 is held against its plain float32 version on the same tensors, to
-1e-4: the reference's own on-chip gate for its moments kernel. bf16 input
-is the same bf16 values on both sides, upcast. K2 is held against its
+1e-4: the reference's own on-chip gate for its moments kernel, at every
+width it takes in the CPU tests (8 to 512); at R >= 65,536, where plain
+float32 drifts, against a float64 run of the same values instead. Two
+calls must agree bitwise and cov must equal cov^T. bf16 input is the same
+bf16 values on both sides, upcast. K2 is held against its
 plain version to 5e-4 in float32 (the JAX package's gate between its
 fused kernel and the composition, tests/test_pallas_wc.py) and, with
 bf16 rows, to 2 bf16 ulps of the output's largest magnitude (both round
@@ -33,7 +36,19 @@ def dev():
 
 
 def _max_err(a, b):
-  return max(float((x - y).abs().max()) for x, y in zip(a, b))
+  return max(float((x.double() - y.double()).abs().max())
+             for x, y in zip(a, b))
+
+
+def _k1_reference(x):
+  """K1's yardstick: the plain float32 moments, or at R >= 65,536 a
+  float64 run of the same values, because there plain float32 is itself
+  off by up to ~5e-5 (C=512) and would take most of the gate."""
+  if x.shape[0] < 65536:
+    return cuda_wc.moments_reference(x)
+  x64 = x.double()
+  mean = x64.mean(dim=0)
+  return mean, (x64 - mean).T @ (x64 - mean) / x64.shape[0]
 
 
 # The ragged shapes of tests/test_pallas_wc.py, then the main path's C=256
@@ -51,18 +66,37 @@ def test_k1_matches_plain(rows, cols, dtype, dev):
   assert cuda_wc.MOMENTS_LAUNCHES == before + 1
   assert mean.dtype == cov.dtype == torch.float32
   assert torch.equal(cov, cov.T)
-  assert _max_err((mean, cov), cuda_wc.moments_reference(x)) <= ATOL
+  assert _max_err((mean, cov), _k1_reference(x)) <= ATOL
+
+
+# Every width K1 takes in the CPU tests and the JAX package's headline
+# width, zero-padded to 128-column tiles in shared memory, at ragged R
+# and at the main path's largest R.
+@pytest.mark.parametrize("rows", [130, 1000, 131072])
+@pytest.mark.parametrize("cols", [8, 16, 32, 256, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_every_width_repeatable_and_symmetric(rows, cols, dtype, dev):
+  gen = torch.Generator(device=dev).manual_seed(7 * rows + cols)
+  x = (torch.randn((rows, cols), generator=gen, device=dev) * 2 + 3).to(dtype)
+  mean, cov = cuda_wc.moments_cuda(x)
+  mean2, cov2 = cuda_wc.moments_cuda(x)
+  torch.cuda.synchronize()
+  assert torch.equal(mean, mean2) and torch.equal(cov, cov2)
+  assert torch.equal(cov, cov.T)
+  assert _max_err((mean, cov), _k1_reference(x)) <= ATOL
 
 
 def test_k1_large_mean_keeps_diagonal(dev):
   """|mu| = 1000, sigma = 0.01: the mean is final before the products."""
   gen = torch.Generator(device=dev).manual_seed(0)
   x = torch.randn((4096, 256), generator=gen, device=dev) * 0.01 + 1000.0
-  _, cov = cuda_wc.moments_cuda(x)
+  mean, cov = cuda_wc.moments_cuda(x)
+  mean_p, cov_p = cuda_wc.moments_reference(x)
   diag = torch.diagonal(cov)
   assert float(diag.min()) >= 0
   assert float(((diag - 1e-4) / 1e-4).abs().max()) <= 0.2
-  assert _max_err((cov,), cuda_wc.moments_reference(x)[1:]) <= 1e-6
+  assert float(((mean - mean_p) / mean_p).abs().max()) <= 1e-6
+  assert _max_err((cov,), (cov_p,)) <= 1e-6
 
 
 def test_k1_gradient_matches_autograd_of_plain(dev):
@@ -84,6 +118,11 @@ def test_k1_refuses_what_it_does_not_take(dev):
     cuda_wc.moments(torch.zeros((8, 4), dtype=torch.float16, device=dev))
   with pytest.raises(ValueError, match="contiguous"):
     cuda_wc.moments(torch.zeros((4, 8), device=dev).T)
+  # TMA needs rows of a multiple of 16 bytes: C % 4 (float32), C % 8 (bf16).
+  with pytest.raises(ValueError, match="16 bytes"):
+    cuda_wc.moments(torch.zeros((8, 6), device=dev))
+  with pytest.raises(ValueError, match="16 bytes"):
+    cuda_wc.moments(torch.zeros((8, 12), dtype=torch.bfloat16, device=dev))
   assert cuda_wc.MOMENTS_LAUNCHES == before
 
 

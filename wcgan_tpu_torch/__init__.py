@@ -15,10 +15,12 @@ within stated tolerances (``tests/test_torch_*.py``). The layout mirrors
 - ``wcgan_tpu_torch.weights`` — moves flax weights to the port and back,
   and reads and writes the JAX package's weights-only npz.
 - ``wcgan_tpu_torch.cli``    — ``python -m wcgan_tpu_torch``.
+- ``wcgan_tpu_torch.data``, ``.utils``, ``.tools`` — the port's own copies
+  of the JAX package's numpy modules (datasets, image grids, logs,
+  checkpoint key maps).
 
-The port imports ``torch`` and never ``jax``; from the JAX package it
-reuses only the numpy modules ``wcgan_tpu.data``, ``wcgan_tpu.utils`` and
-``wcgan_tpu.tools.h5_convert``.
+The port imports ``torch`` and never ``jax``, and nothing of the JAX
+package (tests/test_torch_imports.py enforces it).
 """
 
 __version__ = "0.1.0"

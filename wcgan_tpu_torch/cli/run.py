@@ -26,8 +26,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from wcgan_tpu.data import DATASETS, get_dataset
-from wcgan_tpu.tools.h5_convert import apply_key_map, h5_flat
+from wcgan_tpu_torch.data import DATASETS, get_dataset
+from wcgan_tpu_torch.tools.h5_convert import apply_key_map, h5_flat
 from wcgan_tpu_torch import weights
 from wcgan_tpu_torch.device import resolve_device
 from wcgan_tpu_torch.models.discriminator import DiscriminatorConfig
@@ -226,7 +226,7 @@ def _load_weights_npz(module, path: str, key_map_path: Optional[str] = None,
   Keras-style ``.h5`` into ``module``'s parameters, as the JAX CLI's
   ``_load_weights_npz`` does: the optional ``--checkpoint_key_map`` JSON
   (one flat table, or 'generator'/'discriminator' sections selected by
-  ``model``) renames keys through ``wcgan_tpu.tools.h5_convert``, and
+  ``model``) renames keys through ``wcgan_tpu_torch.tools.h5_convert``, and
   ``missing`` is ``--checkpoint_missing``."""
   emit = log or print
   key_map = None
@@ -250,8 +250,7 @@ def _load_weights_npz(module, path: str, key_map_path: Optional[str] = None,
     except ModuleNotFoundError as e:
       raise ModuleNotFoundError(
           f"loading {path} needs h5py, which is not installed ({e}); "
-          "convert it to .npz where h5py is (python -m "
-          "wcgan_tpu.tools.h5_convert to_npz)") from e
+          "convert it to .npz where h5py is installed") from e
   else:
     with np.load(path) as data:
       loaded = dict(data)

@@ -47,12 +47,13 @@ def moments_reference(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
   return mean, xc.T @ xc / x.shape[0]
 
 
-def moments_cuda(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-  """Launch K1 on ``x2d``'s device, on the current stream, without
-  synchronising. Raises on anything the kernel does not take."""
-  global MOMENTS_LAUNCHES
-  if not x2d.is_cuda:
-    raise ValueError(f"moments_cuda needs a CUDA tensor, got {x2d.device}")
+def check_moments_rows(x2d: torch.Tensor) -> None:
+  """Raise unless K1 takes ``x2d`` as its rows: float32 or bfloat16,
+  contiguous (R, C), 1 <= R < 2^31, and each row a multiple of 16 bytes
+  starting 16-byte aligned (the TMA tensor map's stride rule), i.e.
+  C % 4 == 0 in float32 and C % 8 == 0 in bfloat16. Every WC width of the
+  JAX package's configurations, C in {64, 128, 256, 512, 1024}, passes in
+  both types."""
   if x2d.dtype not in _DTYPE_CODES:
     raise TypeError(f"moments kernel takes float32 or bfloat16, got "
                     f"{x2d.dtype}")
@@ -60,8 +61,26 @@ def moments_cuda(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     raise ValueError(f"moments kernel needs contiguous (R, C) rows, got "
                      f"shape {tuple(x2d.shape)} strides {x2d.stride()}")
   rows, cols = x2d.shape
-  if rows < 1 or cols < 1:
-    raise ValueError(f"moments of an empty matrix {tuple(x2d.shape)}")
+  if not (1 <= rows < 2 ** 31 and cols >= 1):
+    raise ValueError(f"moments kernel takes 1 <= R < 2^31 rows of C >= 1, "
+                     f"got {tuple(x2d.shape)}")
+  if (cols * x2d.element_size()) % 16 or x2d.data_ptr() % 16:
+    raise ValueError(
+        f"moments kernel needs rows of a multiple of 16 bytes on a 16-byte "
+        f"boundary (TMA), got C={cols} x {x2d.element_size()} bytes at "
+        f"address {x2d.data_ptr():#x}: C % {16 // x2d.element_size()} must "
+        f"be 0 (an offset view needs .clone())")
+
+
+def moments_cuda(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Launch K1 on ``x2d``'s device, on the current stream, without
+  synchronising. Raises on anything the kernel does not take
+  (``check_moments_rows``)."""
+  global MOMENTS_LAUNCHES
+  if not x2d.is_cuda:
+    raise ValueError(f"moments_cuda needs a CUDA tensor, got {x2d.device}")
+  check_moments_rows(x2d)
+  rows, cols = x2d.shape
   lib = _build.load_moments()
   dev = x2d.device
   # The workspace is released on return, before the kernel has run; the

@@ -28,9 +28,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-from wcgan_tpu.data.base import ArrayDataset
-from wcgan_tpu.utils.images import make_grid, save_png
-from wcgan_tpu.utils.logging import MetricsLogger
+from wcgan_tpu_torch.data.base import ArrayDataset
+from wcgan_tpu_torch.utils.images import make_grid, save_png
+from wcgan_tpu_torch.utils.logging import MetricsLogger
 from wcgan_tpu_torch import weights
 from wcgan_tpu_torch.train import step as step_lib
 from wcgan_tpu_torch.train.state import GANTrainState
