@@ -5,12 +5,14 @@
 Run from the repository root on a machine with an NVIDIA Hopper GPU, nvcc
 and PyTorch built for CUDA. It builds K1 (wcgan_tpu_torch/csrc/moments.cu)
 and K2 (csrc/wc_apply.cu) side by side and prints ptxas's registers and
-spills (K1's Gram kernel must not spill), holds each against its plain
-PyTorch version, holds K1 against a float64 run, times both against their
-plain version, one PyTorch call for the same function (``torch.cov`` for
-K1, ``torch.addmm`` for K2's row apply) and their floors on this card,
-checks one outer step with and without K1 at small width in float32, then
-drives the two ported paths at full width:
+spills (K1's Gram kernel and K2's row apply, whose wgmma accumulators live
+in registers, must not spill), holds each against its plain PyTorch
+version, holds K1 against a float64 run, times both against their plain
+version, one PyTorch call for the same function (``torch.cov`` for K1,
+``torch.addmm`` for K2's row apply) and their bounds on this card (K2 per
+R also as its two launches apart: the cooperative setup and the bf16
+tensor-core row apply), checks one outer step with and without K1 at
+small width in float32, then drives the two ported paths at full width:
 
 - training (slice 1): G 256x3 + D 128x4, bf16, 10 outer steps of 5 D
   updates at batch 64 + 1 G update at batch 128; K1 runs 42 times a step;
@@ -21,7 +23,9 @@ drives the two ported paths at full width:
 
 and the CLI: a training run that writes sample grids, then ``--phase test``
 on the npz that ``Trainer.export_weights`` wrote. One training outer step
-is profiled (``torch.profiler``) for K1's share of kernel time. Every
+is profiled (``torch.profiler``) for K1's share of kernel time, and one
+K2 generate forward for K2's kernels, launches per call and the device's
+busy share. Every
 phase that fails stops the script with a non-zero exit. The last line is
 {"ok": true, "device": {...}}; the line before it lists each kernel with
 its launches on its path, error and times. Without a GPU it exits
@@ -87,9 +91,10 @@ FFMA_FLOPS = 67e12
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 HBM_BYTES = 3.35e12
-# The names of K1's launches, for the profiler's kernel table.
+# The names of K1's and K2's launches, for the profiler's kernel table.
 K1_KERNELS = ("col_partial_sums", "finalize_mean", "centered_gram_tf32x3",
               "reduce_gram")
+K2_KERNELS = ("ns_setup", "rows_apply_bf16", "rows_apply_f32")
 
 
 def check(ok: bool, what) -> None:
@@ -145,8 +150,8 @@ def _ptxas_report(out: str):
 
 def phase_build() -> None:
   """Both kernels at once, one nvcc each; ptxas's registers and spills of
-  every kernel function. K1's Gram kernel (wgmma accumulators in
-  registers) must not spill."""
+  every kernel function. K1's Gram kernel and K2's bf16 row apply (wgmma
+  accumulators in registers) must not spill."""
   t0 = time.perf_counter()
   with concurrent.futures.ThreadPoolExecutor(2) as pool:
     builds = dict(zip(("moments", "wc_apply"), pool.map(
@@ -165,6 +170,10 @@ def phase_build() -> None:
     if name == "moments":
       gram = [sp for k, _, sp in report if "centered_gram" in k]
       check(len(gram) == 2 and not any(gram), ("K1 Gram spills", report))
+    else:
+      rows = [sp for k, _, sp in report if "rows_apply_bf16" in k]
+      check(len(rows) == 2 and not any(rows), ("K2 row apply spills",
+                                               report))
   log("build", f"both loaded in {time.perf_counter() - t0:.2f} s")
 
 
@@ -405,57 +414,88 @@ def phase_k2_parity(dev: torch.device) -> float:
   return worst_f32
 
 
+def k2_bounds(rows: int, cols: int, ns_iters: int = 15):
+  """ms of one K2 call on bf16 rows on this card: (bytes, bf16 operations,
+  FFMA). Bytes: x read and out written once in bf16, mean, cov, Gamma and
+  beta read once in float32. Operations: the row apply's 2RC^2 and the
+  setup's 3 ns_iters 2C^3 flop at the bf16 tensor-core rate, the peak for
+  the input's type. The bound is the larger of the two. Beside it, the
+  same flop on the FFMA pipes: a floor of an all-float32 kernel, not the
+  bound."""
+  flop = 2 * rows * cols ** 2 + 3 * ns_iters * 2 * cols ** 3
+  nbytes = 2 * rows * cols * 2 + 4 * (2 * cols * cols + 2 * cols)
+  return (nbytes / HBM_BYTES * 1e3, flop / BF16_FLOPS * 1e3,
+          flop / FFMA_FLOPS * 1e3)
+
+
+def k2_setup_stages(ns_iters: int = 15) -> int:
+  """Dependent stages of K2's setup with trace scaling: Y0/T0, Y1, T and
+  Y/Z per further Newton-Schulz step, the fold, the bias (a grid-wide
+  barrier between two; Frobenius scaling adds one)."""
+  return 1 + (ns_iters >= 2) + 2 * max(ns_iters - 1, 0) + 2
+
+
 def phase_k2_timing(dev: torch.device):
-  """Device ms per call, K2 against plain, bf16 rows, C=256, in turns
-  plain/K2/K2/plain; the sums over one forward's 7 layers, with their
-  bound and the torch.addmm row apply; the setup alone. Returns (K2,
-  plain, bound, addmm) ms of one batch-256 generate forward."""
+  """Device ms per call, bf16 rows, C=256, at each R of the sampling
+  forwards, in turns: K2, its plain version, its setup launch alone, its
+  row-apply launch alone and torch.addmm (the row apply in float32, on a
+  float32 copy made outside the timed window), with the bound; then the
+  sums over the 7 calls of one forward, and the setup without
+  Newton-Schulz steps (its cost per dependent stage). Returns (K2, plain,
+  bound, torch.addmm) ms of one batch-256 generate forward and what sets
+  the bound."""
   gen = torch.Generator(device=dev).manual_seed(6)
+  names = ("K2", "plain", "setup", "rows", "addmm")
   per_r = {}
   for r in sorted(set(GRID_R + GENERATE_R)):
     x, mean, cov, gamma, beta = _k2_inputs(r, C, gen, dev)
-    args = (x.to(torch.bfloat16), mean, cov, gamma, beta)
-    p, k = _in_turns((cuda_wc.whiten_color_apply_reference, args),
-                     (cuda_wc.whiten_color_apply_cuda, args))
-    per_r[r] = (k, p)
-  log("k2-timing", "bf16 rows, C=256, ns 15, ms per call (K2 / plain): "
-      + " ".join(f"R={r}:{k:.4f}/{p:.4f}" for r, (k, p) in per_r.items()))
-  # The row apply's yardstick: one torch.addmm(bias, x, M^T) in float32.
-  lib = {}
-  for r in sorted(set(GENERATE_R)):
-    xf = torch.randn((r, C), generator=gen, device=dev)
-    mt = torch.randn((C, C), generator=gen, device=dev)
-    bias = torch.randn((C,), generator=gen, device=dev)
-    lib[r] = _in_turns((torch.addmm, (bias, xf, mt)))[0]
+    stats = (mean, cov, gamma, beta)
+    xb = x.to(torch.bfloat16)
+    workspace = cuda_wc.whiten_color_setup_cuda(*stats)
+    m, bias = cuda_wc.whiten_color_fold_reference(*stats)
+    xf, mt = xb.float(), m.T.contiguous()
+    times = _in_turns((cuda_wc.whiten_color_apply_cuda, (xb,) + stats),
+                      (cuda_wc.whiten_color_apply_reference, (xb,) + stats),
+                      (cuda_wc.whiten_color_setup_cuda, stats),
+                      (cuda_wc.whiten_color_rows_cuda, (xb, workspace)),
+                      (torch.addmm, (bias, xf, mt)))
+    hbm, ops, ffma = k2_bounds(r, C)
+    per_r[r] = dict(zip(names, times), bound=max(hbm, ops), hbm=hbm, ops=ops,
+                    ffma=ffma)
+    t = per_r[r]
+    log("k2-timing", f"R={r}: K2 {t['K2']:.4f} ms = setup {t['setup']:.4f} "
+        f"+ row apply {t['rows']:.4f}; plain {t['plain']:.4f}; torch.addmm "
+        f"{t['addmm']:.4f}; bound {t['bound']:.4f} (bytes {hbm:.4f}, bf16 "
+        f"operations {ops:.4f}); K2 at {t['bound'] / t['K2']:.1%} of it, "
+        f"row apply at {hbm / t['rows']:.1%} of its bytes")
   sums = {}
-  for name, rs in (("grid b64", GRID_R), ("generate b256", GENERATE_R)):
-    sums[name] = (sum(per_r[r][0] for r in rs), sum(per_r[r][1] for r in rs))
-    log("k2-timing", f"the 7 calls of one {name} forward: K2 "
-        f"{sums[name][0]:.4f} ms, plain {sums[name][1]:.4f} ms")
-  bound = sum(k2_floor(r, C) for r in GENERATE_R)
-  lib_ms = sum(lib[r] for r in GENERATE_R)
-  log("k2-timing", f"generate b256, 7 calls: bound {bound:.4f} ms (FFMA: "
-      f"45 x 2C^3 setup + 2RC^2 apply), K2 at "
-      f"{bound / sums['generate b256'][0]:.1%} of it; torch.addmm row apply "
-      f"alone {lib_ms:.4f} ms (" + " ".join(f"R={r}:{lib[r]:.4f}"
-                                            for r in sorted(lib)) + ")")
+  for fwd, rs in (("grid b64", GRID_R), ("generate b256", GENERATE_R)):
+    sums[fwd] = {k: sum(per_r[r][k] for r in rs) for k in per_r[rs[0]]}
+    t = sums[fwd]
+    by = "bytes" if t["hbm"] >= t["ops"] else "operations"
+    log("k2-timing", f"the 7 calls of one {fwd} forward (device ms, bf16 "
+        f"rows, C=256, on {nvidia_smi()}): K2 {t['K2']:.4f} = setup "
+        f"{t['setup']:.4f} + row apply {t['rows']:.4f}; plain "
+        f"{t['plain']:.4f}; torch.addmm {t['addmm']:.4f}; bound "
+        f"{t['bound']:.4f} ({by}: bytes {t['hbm']:.4f}, bf16 operations "
+        f"{t['ops']:.4f}); K2 at {t['bound'] / t['K2']:.1%} of its bound")
+  faster = all(per_r[r]["rows"] < per_r[r]["addmm"] for r in GENERATE_R)
+  gen_sums = sums["generate b256"]
+  log("k2-timing", f"floors beside the bound, not the bound: all flop on the "
+      f"FFMA pipes {gen_sums['ffma']:.4f} ms; the setup's "
+      f"{k2_setup_stages()} dependent stages a call. Row apply faster than "
+      f"torch.addmm at every R of GENERATE_R: {faster}")
   _, mean, cov, gamma, beta = _k2_inputs(8, C, gen, dev)
-  args = (mean, cov, gamma, beta)
-  p, k = _in_turns((cuda_wc.whiten_color_fold_reference, args),
-                   (cuda_wc.whiten_color_fold_cuda, args))
-  log("k2-timing", f"setup alone (jitter, 15 NS steps, fold, bias), C=256: "
-      f"K2 {k:.4f} ms, plain NS + fold {p:.4f} ms")
-  return sums["generate b256"] + (bound, lib_ms)
-
-
-def k2_floor(rows: int, cols: int, ns_iters: int = 15) -> float:
-  """ms floor of one K2 call, bf16 rows: the setup's 3 C x C products
-  per Newton-Schulz step (45 x 2C^3 at 15) and the apply's 2RC^2 flop on
-  the FFMA pipes, against x read and out written in bf16 and the four
-  statistics read in float32."""
-  flop = 3 * ns_iters * 2 * cols ** 3 + 2 * rows * cols ** 2
-  nbytes = 2 * rows * cols * 2 + 4 * (2 * cols * cols + 2 * cols)
-  return max(flop / FFMA_FLOPS, nbytes / HBM_BYTES) * 1e3
+  stats = (mean, cov, gamma, beta)
+  t0, t15 = _in_turns((cuda_wc.whiten_color_setup_cuda, stats + (0,)),
+                      (cuda_wc.whiten_color_setup_cuda, stats))
+  per_stage = (t15 - t0) / (k2_setup_stages() - k2_setup_stages(0)) * 1e3
+  log("k2-timing", f"setup alone, C=256: ns_iters 15 {t15:.4f} ms, 0 "
+      f"(jitter, scale, fold, bias) {t0:.4f} ms: {per_stage:.2f} us per "
+      f"Newton-Schulz stage")
+  by = "bytes" if gen_sums["hbm"] >= gen_sums["ops"] else "operations"
+  return (gen_sums["K2"], gen_sums["plain"], gen_sums["bound"],
+          gen_sums["addmm"], by)
 
 
 def phase_step_parity(dev: torch.device) -> None:
@@ -575,6 +615,56 @@ def _generate(trainer: Trainer, n: int):
           cuda_wc.MOMENTS_LAUNCHES, cuda_wc.WC_APPLY_LAUNCHES)
 
 
+def _profile_k2_forward(trainer: Trainer) -> None:
+  """One batch-256 generate forward with K2 under torch.profiler: every
+  kernel by name and device time, K2's launches per call, its share of
+  kernel time, and the device's busy share: kernel time over the span
+  from the first kernel's start to the last one's end (the profiled wall
+  time also holds the profiler's own start-up)."""
+  from torch.profiler import ProfilerActivity, profile
+  trainer.generate(256, batch=256)
+  torch.cuda.synchronize()
+  before = cuda_wc.WC_APPLY_LAUNCHES
+  t0 = time.perf_counter()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    trainer.generate(256, batch=256)
+    torch.cuda.synchronize()
+  wall = (time.perf_counter() - t0) * 1e3
+  calls = cuda_wc.WC_APPLY_LAUNCHES - before
+  kernels = [e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+  total = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+  span = (max(e.time_range.end for e in kernels)
+          - min(e.time_range.start for e in kernels)) / 1e3
+  by_name = {}
+  for e in kernels:
+    # "void (anonymous namespace)::rows_apply_bf16<128>(...)" ->
+    # "rows_apply_bf16"
+    name = re.split(r"[<(]", e.name.replace("(anonymous namespace)::", "")
+                    )[0].split("::")[-1].replace("void ", "")[:48]
+    n, ms = by_name.get(name, (0, 0.0))
+    by_name[name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+  k2 = {k: v for k, v in by_name.items()
+        if any(n in k for n in K2_KERNELS)}
+  k2_launches = sum(n for n, _ in k2.values())
+  k2_ms = sum(ms for _, ms in k2.values())
+  check(calls == 7 and k2_launches <= 2 * calls and total > 0,
+        (calls, k2))
+  log("profile-k2", f"one generate(256, batch=256) forward with K2 under "
+      f"torch.profiler on {nvidia_smi()}: {len(kernels)} kernels, "
+      f"{total:.3f} ms of kernel time in a {span:.3f} ms device span (busy "
+      f"{total / span:.2f}; profiled wall {wall:.1f} ms); K2 {k2_ms:.3f} ms "
+      f"({k2_ms / total:.1%}) in "
+      f"{k2_launches} kernels for {calls} calls "
+      f"({k2_launches / calls:.0f} a call): " + ", ".join(
+          f"{k} {n}x {ms:.3f} ms" for k, (n, ms) in sorted(
+              k2.items())))
+  log("profile-k2", "kernels by device time: " + "; ".join(
+      f"{k} {n}x {ms:.3f} ms" for k, (n, ms) in sorted(
+          by_name.items(), key=lambda kv: -kv[1][1])[:8]))
+
+
 def phase_sampling(dev: torch.device, state, gan):
   """The sampling slice at full width: the trained G 256x3 (running
   statistics advanced by the slice's 12 G updates) through
@@ -621,6 +711,7 @@ def phase_sampling(dev: torch.device, state, gan):
       f"{rate['split']:.1f} / {rate['split again']:.1f} imgs/s ({k2_s} K2 "
       f"launches; peak {mem_s:.0f} MiB); uint8 |K2 - split| mean "
       f"{diff.mean():.4f}, p99.9 {p999:.0f}, max {int(diff.max())}")
+  _profile_k2_forward(fused)
   path = split.save_sample_grid(0)
   check(os.path.getsize(path) > 0, path)
   split.export_weights(0)
@@ -677,7 +768,8 @@ def main() -> int:
   phase_f64(dev)
   k1_ms, k1_plain_ms, k1_lib_ms, k1_bound_ms, k1_bound_by = phase_timing(dev)
   k2_err = phase_k2_parity(dev)
-  k2_ms, k2_plain_ms, k2_bound_ms, k2_lib_ms = phase_k2_timing(dev)
+  k2_ms, k2_plain_ms, k2_bound_ms, k2_lib_ms, k2_bound_by = phase_k2_timing(
+      dev)
   phase_step_parity(dev)
   launches, state, gan = phase_slice(dev)
   phase_profile(state, gan)
@@ -689,8 +781,9 @@ def main() -> int:
   print(nvidia_smi(), flush=True)
   # Device ms: K1 over the 42 calls of one outer step (library: torch.cov),
   # K2 over the 7 calls of one batch-256 generate forward (library: the row
-  # apply alone as torch.addmm); bounds from this card's peak rates. K2's
-  # plain_ms is host-bound (its launches outlast the queue's hold).
+  # apply alone as torch.addmm in float32); bounds from this card's peak
+  # rates, each the larger of its bytes and its operations. K2's plain_ms
+  # is host-bound (its launches outlast the queue's hold).
   # max_abs_err: K1's worst against plain, K2's worst with float32 rows
   # (bf16 rows are held to 2 ulps, printed above).
   print(json.dumps({"kernels": [{
@@ -705,7 +798,7 @@ def main() -> int:
       "replaces": "wcgan_tpu/ops/pallas_wc.py:195",
       "launches": k2_launches, "max_abs_err": k2_err,
       "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
-      "bound_by": "operations", "library_ms": k2_lib_ms}]}), flush=True)
+      "bound_by": k2_bound_by, "library_ms": k2_lib_ms}]}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}), flush=True)

@@ -123,8 +123,9 @@ def build(name: str, source: str):
   slug = re.sub(r"\W+", "_", name).strip("_")
   cu, so = OUT / f"{slug}.cu", OUT / f"lib{slug}.so"
   cu.write_text(source)
-  proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-                         str(so), str(cu)], capture_output=True, text=True)
+  proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
+                         str(_build.CSRC_DIR), "-o", str(so), str(cu)],
+                        capture_output=True, text=True)
   if proc.returncode:
     raise SystemExit(f"{name}: nvcc failed\n{proc.stdout}{proc.stderr}")
   lib = ctypes.CDLL(str(so))

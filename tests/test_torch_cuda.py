@@ -14,7 +14,9 @@ bf16 values on both sides, upcast. K2 is held against its
 plain version to 5e-4 in float32 (the JAX package's gate between its
 fused kernel and the composition, tests/test_pallas_wc.py) and, with
 bf16 rows, to 2 bf16 ulps of the output's largest magnitude (both round
-a float32 result once; the float32 results differ by far less)."""
+a float32 result once; the float32 results differ by far less). At
+R = 262,144 its bf16 rows are also held against a float64 run of the same
+fold: no further from it than twice the plain version's distance."""
 
 import numpy as np
 import pytest
@@ -236,3 +238,81 @@ def test_k2_eval_layers_launch_once_per_forward(dev):
   torch.cuda.synchronize()
   assert cuda_wc.WC_APPLY_LAUNCHES == before + 7
   assert img.dtype == torch.float32 and torch.isfinite(img).all()
+
+
+def _k2_f64(x, mean, cov, gamma, beta, scaling):
+  """x M^T + bias in float64 on the plain version's float32 fold."""
+  m, bias = cuda_wc.whiten_color_fold_reference(mean, cov, gamma, beta,
+                                                scaling=scaling)
+  return x.double() @ m.double().T + bias.double()
+
+
+@pytest.mark.parametrize("scaling", ["trace", "fro"])
+def test_k2_large_r_bf16_against_float64(scaling, dev):
+  """The main path's largest call (R = 262,144, C = 256, bf16 rows): both
+  K2 and the plain version round to bf16, so each is up to half an ulp
+  from float64; K2 within 2 ulps of plain and within 2x of its distance."""
+  gen = torch.Generator(device=dev).manual_seed(11)
+  x, mean, cov, gamma, beta = _wc_inputs(262144, 256, gen, dev)
+  x = x.to(torch.bfloat16)
+  out = cuda_wc.whiten_color_apply(x, mean, cov, gamma, beta,
+                                   scaling=scaling)
+  ref = cuda_wc.whiten_color_apply_reference(x, mean, cov, gamma, beta,
+                                             scaling=scaling)
+  exact = _k2_f64(x, mean, cov, gamma, beta, scaling)
+  torch.cuda.synchronize()
+  assert float((out.float() - ref.float()).abs().max()) <= _bf16_gate(ref)
+  err_k2 = float((out.double() - exact).abs().max())
+  err_plain = float((ref.double() - exact).abs().max())
+  assert err_k2 <= 2 * err_plain, (err_k2, err_plain)
+
+
+# Ragged R at the narrow widths (one 64-column slice, K padded to 64) and
+# widths that cut the slices and K chunks unevenly: 72 and 136 (128-column
+# slices), 264 and 392 (64-column slices, the last one ragged).
+@pytest.mark.parametrize("rows,cols", [(1, 16), (127, 16), (4097, 16),
+                                       (129, 64), (4099, 64), (300, 8),
+                                       (300, 72), (300, 136), (300, 264),
+                                       (300, 392)])
+def test_k2_bf16_ragged_rows_and_widths(rows, cols, dev):
+  gen = torch.Generator(device=dev).manual_seed(rows * cols)
+  x, mean, cov, gamma, beta = _wc_inputs(rows, cols, gen, dev)
+  x = x.to(torch.bfloat16)
+  out = cuda_wc.whiten_color_apply(x, mean, cov, gamma, beta)
+  ref = cuda_wc.whiten_color_apply_reference(x, mean, cov, gamma, beta)
+  torch.cuda.synchronize()
+  assert out.shape == x.shape and out.dtype == torch.bfloat16
+  assert float((out.float() - ref.float()).abs().max()) <= _bf16_gate(ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_two_launches_equal_the_whole_call(dtype, dev):
+  """The setup and the row apply launched apart give the whole call's
+  result bitwise, and neither counts as a K2 launch."""
+  gen = torch.Generator(device=dev).manual_seed(12)
+  x, mean, cov, gamma, beta = _wc_inputs(4096, 256, gen, dev)
+  x = x.to(dtype)
+  before = cuda_wc.WC_APPLY_LAUNCHES
+  workspace = cuda_wc.whiten_color_setup_cuda(mean, cov, gamma, beta)
+  apart = cuda_wc.whiten_color_rows_cuda(x, workspace)
+  assert cuda_wc.WC_APPLY_LAUNCHES == before
+  whole = cuda_wc.whiten_color_apply(x, mean, cov, gamma, beta)
+  again = cuda_wc.whiten_color_apply(x, mean, cov, gamma, beta)
+  torch.cuda.synchronize()
+  assert torch.equal(apart, whole) and torch.equal(whole, again)
+
+
+@pytest.mark.parametrize("cols", [4, 12, 20, 520])
+def test_k2_refuses_widths_it_does_not_take(cols, dev):
+  """Below 8, not a multiple of 8 (bf16 rows must be 16-byte multiples for
+  TMA), or above 512: refused before any launch, in both dtypes."""
+  before = cuda_wc.WC_APPLY_LAUNCHES
+  stats = (torch.zeros(cols, device=dev), torch.eye(cols, device=dev),
+           torch.eye(cols, device=dev), torch.zeros(cols, device=dev))
+  for dtype in (torch.float32, torch.bfloat16):
+    with pytest.raises(ValueError, match="C % 8 == 0"):
+      cuda_wc.whiten_color_apply(
+          torch.zeros((8, cols), dtype=dtype, device=dev), *stats)
+  with pytest.raises(ValueError, match="C % 8 == 0"):
+    cuda_wc.whiten_color_fold_cuda(*stats)
+  assert cuda_wc.WC_APPLY_LAUNCHES == before

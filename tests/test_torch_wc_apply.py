@@ -6,7 +6,14 @@ the port's side is the plain version, which the wrapper runs for a CPU
 tensor. The cases follow tests/test_pallas_wc.py: both scalings, the
 negative-diagonal jitter, ragged rows, identity Gamma. Tolerance 1e-4:
 both run the same 15 float32 Newton-Schulz steps and the same float32 row
-pass, with sums taken in another order."""
+pass, with sums taken in another order.
+
+The kernel's bf16 row arithmetic is emulated here too (``_emulate_k2``):
+M split into three bf16 pieces (hi, mid, lo), the bf16 x taken as it is,
+per 16-wide K step the pieces smallest first into one float32
+accumulator, then the float32 bias and one rounding to bf16, as
+csrc/wc_apply.cu computes it on the tensor cores. That is where the piece
+count is checked without a card."""
 
 import flax
 import jax
@@ -192,3 +199,129 @@ def test_kernel_eval_with_cholesky_raises():
   xj = jnp.zeros((4, 2, 2, 8))
   with pytest.raises(ValueError, match="newton_schulz"):
     jnc.apply(jnc.init(KEY, xj, train=True), xj, train=False)
+
+
+# --- K2's bf16 row apply, emulated ---------------------------------------------
+
+
+def _bf16(a):
+  return torch.from_numpy(np.asarray(a, np.float32)).bfloat16().float().numpy()
+
+
+def _pieces(m, count):
+  """M as `count` bf16 pieces, each the rounded remainder of the ones before
+  (float32 remainders, exact), largest first."""
+  out, rest = [], np.asarray(m, np.float32)
+  for _ in range(count):
+    piece = _bf16(rest)
+    out.append(piece)
+    rest = (rest - piece).astype(np.float32)
+  return out
+
+
+def _emulate_k2(x, m, bias, count=3):
+  """(float32 sum before rounding, bf16 result) of K2's bf16 row apply on
+  bf16 values x (R, C): per 16-wide step of K the pieces of M go in
+  smallest first, each product exact and added to a float32 accumulator;
+  then + bias in float32 and one rounding."""
+  x = np.asarray(x, np.float32)
+  pieces = _pieces(m, count)
+  acc = np.zeros((x.shape[0], m.shape[0]), np.float32)
+  for k in range(0, x.shape[1], 16):
+    xk = x[:, k:k + 16].astype(np.float64)
+    for piece in reversed(pieces):
+      acc += (xk @ piece[:, k:k + 16].T.astype(np.float64)).astype(np.float32)
+  pre = (acc + np.asarray(bias, np.float32)).astype(np.float32)
+  return pre, _bf16(pre)
+
+
+def _bf16_gate(ref):
+  """2 bf16 ulps of the largest |ref| (the on-card gate)."""
+  return 2.0 * 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+
+
+def _k2_inputs(rng, rows, c, cond=1e3):
+  """chip_smoke.py's recipe: running statistics with a correlated
+  covariance of condition ``cond``, bf16 rows drawn from them, Gamma near
+  1/sqrt(C) scale."""
+  q, _ = np.linalg.qr(rng.standard_normal((c, c)))
+  eig = np.logspace(0.0, -np.log10(cond), c)
+  cov = ((q * eig) @ q.T).astype(np.float32)
+  mean = rng.standard_normal(c).astype(np.float32)
+  x = _bf16(mean + (rng.standard_normal((rows, c)) * np.sqrt(eig)) @ q.T)
+  gamma = (rng.standard_normal((c, c)) / np.sqrt(c)).astype(np.float32)
+  beta = rng.standard_normal(c).astype(np.float32)
+  return x, mean, cov, gamma, beta
+
+
+def _plain_fold(mean, cov, gamma, beta, scaling="trace"):
+  m, bias = cuda_wc.whiten_color_fold_reference(_t(mean), _t(cov), _t(gamma),
+                                                _t(beta), scaling=scaling)
+  return m.numpy(), bias.numpy()
+
+
+@pytest.mark.parametrize("rows,c,scaling", [(130, 16, "trace"),
+                                            (130, 16, "fro"),
+                                            (1000, 64, "fro"),
+                                            (200, 8, "trace")])
+def test_k2_bf16_arithmetic_matches_jax_and_plain(rows, c, scaling, rng):
+  """The emulated bf16 row apply (on the plain setup's M and bias) against
+  the Pallas kernel in interpret mode and the port's plain version, on the
+  same bf16 rows, ragged R, both scalings: within the on-card gate."""
+  x, mean, cov, gamma, beta = _k2_inputs(rng, rows, c)
+  m, bias = _plain_fold(mean, cov, gamma, beta, scaling)
+  _, got = _emulate_k2(x, m, bias)
+  out_j = np.asarray(pallas_wc.whiten_color_apply(
+      jnp.asarray(x).astype(jnp.bfloat16), *map(jnp.asarray, (
+          mean, cov, gamma, beta)), scaling=scaling, interpret=True),
+      np.float32)
+  out_t = cuda_wc.whiten_color_apply(
+      _t(x).bfloat16(), _t(mean), _t(cov), _t(gamma), _t(beta),
+      scaling=scaling).float().numpy()
+  for ref in (out_j, out_t):
+    assert np.abs(got - ref).max() <= _bf16_gate(ref)
+
+
+def test_k2_one_piece_misses_the_gate_and_three_keep_it(rng):
+  """The main path's width and a live layer's conditioning (C=256,
+  cond 1e3): one bf16 piece of M is off the plain version by more than
+  2 bf16 ulps; three pieces keep the gate, and before rounding they are
+  within 2x of plain float32's distance from float64."""
+  x, mean, cov, gamma, beta = _k2_inputs(rng, 16384, 256)
+  m, bias = _plain_fold(mean, cov, gamma, beta)
+  plain = cuda_wc.whiten_color_apply(
+      _t(x).bfloat16(), _t(mean), _t(cov), _t(gamma),
+      _t(beta)).float().numpy()
+  gate = _bf16_gate(plain)
+  exact = x.astype(np.float64) @ m.T.astype(np.float64) + bias
+  plain_pre = (_t(x) @ _t(m).T + _t(bias)).numpy()
+  _, one = _emulate_k2(x, m, bias, count=1)
+  three_pre, three = _emulate_k2(x, m, bias, count=3)
+  assert np.abs(one - plain).max() > gate
+  assert np.abs(three - plain).max() <= gate
+  assert (np.abs(three_pre - exact).max()
+          <= 2 * np.abs(plain_pre - exact).max())
+
+
+@pytest.mark.parametrize("cols,ok", [(8, True), (16, True), (136, True),
+                                     (256, True), (512, True), (4, False),
+                                     (12, False), (520, False)])
+def test_kernel_width_check(cols, ok):
+  """K2 takes 8 <= C <= 512 with C % 8 == 0 (TMA rows of bf16); the G
+  presets' widths all pass."""
+  if ok:
+    cuda_wc.check_wc_cols(cols)
+    return
+  with pytest.raises(ValueError, match="C <= 512"):
+    cuda_wc.check_wc_cols(cols)
+
+
+def test_k2_wrappers_refuse_cpu_tensors():
+  c = 8
+  stats = (torch.zeros(c), torch.eye(c), torch.eye(c), torch.zeros(c))
+  with pytest.raises(ValueError, match="CUDA tensor"):
+    cuda_wc.whiten_color_apply_cuda(torch.zeros((4, c)), *stats)
+  with pytest.raises(ValueError, match="CUDA tensors"):
+    cuda_wc.whiten_color_setup_cuda(*stats)
+  with pytest.raises(ValueError, match="CUDA tensor"):
+    cuda_wc.whiten_color_rows_cuda(torch.zeros((4, c)), torch.zeros(16))

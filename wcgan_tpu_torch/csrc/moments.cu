@@ -79,6 +79,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kTile = 128;          // edge of an output tile: M = N = 128
@@ -163,85 +165,13 @@ Plan plan_for(int64_t rows, int cols) {
   return p;
 }
 
-// --- PTX wrappers: mbarrier, TMA, wgmma --------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
-                                                      uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Returns once the phase of parity `parity` of `bar` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One 2-D box of x, {col, row} its first element, into shared memory; the
-// bytes land on `bar`'s transaction count. Out-of-range elements read 0.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            int col, int row, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
+// --- PTX wrappers (the rest are in hopper.cuh) ---------------------------
 
 // v rounded to tf32 (10 mantissa bits), to nearest with ties away from 0,
 // as cvt.rna.tf32.f32 rounds, low 13 bits zero; two integer operations
 // (cvt.rna measured 10% slower in the whole kernel). Finite v only.
 __device__ __forceinline__ float tf32_round(float v) {
   return __uint_as_float((__float_as_uint(v) + 0x1000u) & 0xffffe000u);
-}
-
-// Descriptor of a K-major operand in the 128-byte swizzle: rows of 128
-// bytes (32 tf32 along K), groups of 8 rows 1,024 bytes apart (SBO).
-__device__ __forceinline__ uint64_t operand_desc(const void* p) {
-  const uint64_t addr = smem_addr(p);
-  return ((addr & 0x3ffff) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
 
 // d (64 x 128, this warpgroup's fragment) = A (64 x 8) B (8 x 128)
@@ -488,7 +418,7 @@ centered_gram_tf32x3(const __grid_constant__ CUtensorMap xmap,
     mbar_arrive(&empty[slot]);  // the raw stage is free for the producer
     // The generic-proxy stores become visible to wgmma (async proxy).
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    wgmma_wait_all();  // this warpgroup's stage s - 1
+    wgmma_wait<0>();  // this warpgroup's stage s - 1
 #pragma unroll
     for (int i = 0; i < 64; ++i) total[i] += part[i];
     named_barrier_sync(1, kConsumers);  // set `set` complete
@@ -507,7 +437,7 @@ centered_gram_tf32x3(const __grid_constant__ CUtensorMap xmap,
     }
     wgmma_commit();
   }
-  wgmma_wait_all();
+  wgmma_wait<0>();
 #pragma unroll
   for (int i = 0; i < 64; ++i) total[i] += part[i];
 
@@ -555,32 +485,6 @@ reduce_gram(const float* __restrict__ ws, int64_t splits, int cols,
 }
 
 // --- host side -------------------------------------------------------------
-
-using EncodeTiledFn = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (so the
-// library needs no link against libcuda). Null if the driver lacks it.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    return q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
-  return fn;
-}
 
 template <typename T>
 cudaError_t launch(const T* x, int64_t rows, int cols, float* mean, float* cov,

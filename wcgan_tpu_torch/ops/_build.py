@@ -4,9 +4,10 @@ shared libraries and load them.
 Each ``csrc/<name>.cu`` exposes a plain C interface, so ``nvcc`` compiles it
 in seconds (no PyTorch headers) into ``build/kernels/`` at the repository
 root, on first use, and ``ctypes`` loads it. The library's file name carries
-a hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused across processes. A missing ``nvcc`` or a failed
-compile raises with the compiler's output; nothing falls back.
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source is rebuilt and an unchanged one is reused across
+processes. A missing ``nvcc`` or a failed compile raises with the
+compiler's output; nothing falls back.
 """
 
 from __future__ import annotations
@@ -51,8 +52,11 @@ def compile_library(name: str) -> Tuple[Path, str, float]:
   Returns (library path, compiler output, seconds spent compiling; 0.0
   when the library was already built)."""
   src = CSRC_DIR / f"{name}.cu"
-  digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                          ).hexdigest()[:16]
+  # The shared headers count too: an edited header must not load a stale
+  # library.
+  digest = hashlib.sha256(b"".join(
+      f.read_bytes() for f in (src, *sorted(CSRC_DIR.glob("*.cuh"))))
+      + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
   out = BUILD_DIR / f"lib{name}_{digest}.so"
   if out.is_file():
     return out, "", 0.0
@@ -98,12 +102,13 @@ def load_wc_apply() -> ctypes.CDLL:
     lib.wcgan_whiten_color_apply.argtypes = [
         p, i32, i64, i32, p, p, p, p, i32, f32, i32, p, p, p]
     lib.wcgan_whiten_color_apply.restype = i32
-    lib.wcgan_wc_setup.argtypes = [p, p, p, p, i32, i32, f32, i32, p, p, p,
-                                   p]
+    lib.wcgan_wc_setup.argtypes = [p, p, p, p, i32, i32, f32, i32, p, p]
     lib.wcgan_wc_setup.restype = i32
-    lib.wcgan_wc_apply_workspace_floats.argtypes = [i32]
-    lib.wcgan_wc_apply_workspace_floats.restype = i64
-    lib.wcgan_wc_max_cols.argtypes = []
-    lib.wcgan_wc_max_cols.restype = i32
+    lib.wcgan_wc_rows.argtypes = [p, i32, i64, i32, p, p, p]
+    lib.wcgan_wc_rows.restype = i32
+    for fn in (lib.wcgan_wc_apply_workspace_floats, lib.wcgan_wc_mt_offset,
+               lib.wcgan_wc_bias_offset):
+      fn.argtypes = [i32]
+      fn.restype = i64
     _LOADED["wc_apply"] = lib
   return lib

@@ -10,7 +10,10 @@ dx = ((dSigma + dSigma^T)(x - mu) + dmu) / R, one float32 row matmul.
 K2 ``whiten_color_apply`` is the counterpart of
 ``pallas_wc.py::whiten_color_apply`` (``_wc_apply_kernel``): the whole
 stats-given WC layer, out = x M^T + beta - mu M^T with M = Gamma W and
-W = cov^{-1/2} by coupled Newton-Schulz, forward only.
+W = cov^{-1/2} by coupled Newton-Schulz, forward only. One call is two
+launches: a cooperative setup (Newton-Schulz, fold, bias; it raises if its
+grid cannot be co-resident) and the row apply (bf16 rows on the tensor
+cores with M in three bf16 pieces, float32 rows in FFMA).
 
 For each kernel:
 
@@ -184,42 +187,66 @@ def _stats_f32(cols: int, dev: torch.device, mean, cov, gamma, beta):
   return out
 
 
-def _check_cols(cols: int, lib) -> None:
-  if not 1 <= cols <= lib.wcgan_wc_max_cols():
-    raise ValueError(f"whiten_color_apply kernel takes 1 <= C <= "
-                     f"{lib.wcgan_wc_max_cols()}, got C={cols}")
+# K2 takes 8 <= C <= 512 with C % 8 == 0 (kMinCols, kMaxCols in
+# csrc/wc_apply.cu, which refuses the rest too): a bf16 row must be a
+# multiple of 16 bytes for the TMA unit.
+K2_MAX_COLS = 512
 
 
-def whiten_color_apply_cuda(x2d: torch.Tensor, mean, cov, gamma, beta,
-                            ns_iters: int = 15, eps: float = 1e-5,
-                            scaling: str = "trace") -> torch.Tensor:
-  """Launch K2 on ``x2d``'s device, on the current stream, without
-  synchronising. Raises on anything the kernel does not take."""
-  global WC_APPLY_LAUNCHES
-  scaling_code = _check_scaling(scaling)
+def check_wc_cols(cols: int) -> None:
+  """Raise unless K2 takes width ``cols``. Every WC width of the G presets
+  (64 to 512, multiples of 64) passes."""
+  if not (8 <= cols <= K2_MAX_COLS and cols % 8 == 0):
+    raise ValueError(
+        f"whiten_color_apply kernel takes 8 <= C <= {K2_MAX_COLS} with "
+        f"C % 8 == 0 (bf16 rows of a multiple of 16 bytes for TMA), got "
+        f"C={cols}")
+
+
+def _check_rows(x2d: torch.Tensor) -> None:
   if not x2d.is_cuda:
     raise ValueError(f"whiten_color_apply_cuda needs a CUDA tensor, got "
                      f"{x2d.device}")
   if x2d.dtype not in _DTYPE_CODES:
     raise TypeError(f"whiten_color_apply kernel takes float32 or bfloat16 "
                     f"rows, got {x2d.dtype}")
-  if x2d.dim() != 2 or not x2d.is_contiguous():
+  if x2d.dim() != 2 or not x2d.is_contiguous() or x2d.data_ptr() % 16:
     raise ValueError(f"whiten_color_apply kernel needs contiguous (R, C) "
-                     f"rows, got shape {tuple(x2d.shape)} strides "
-                     f"{x2d.stride()}")
+                     f"rows on a 16-byte boundary, got shape "
+                     f"{tuple(x2d.shape)} strides {x2d.stride()} at "
+                     f"{x2d.data_ptr():#x}")
+  if not 1 <= x2d.shape[0] < 2 ** 31:
+    raise ValueError(f"whiten_color_apply kernel takes 1 <= R < 2^31 rows, "
+                     f"got {tuple(x2d.shape)}")
+  check_wc_cols(x2d.shape[1])
+
+
+def _workspace(lib, cols: int, dev: torch.device) -> torch.Tensor:
+  """K2's scratch for one call: the setup's Y, Z, T, M^T, bias and the bf16
+  pieces of M. Released on return, before the kernels have run: the
+  caching allocator hands its memory only to later work on this stream."""
+  return torch.empty((lib.wcgan_wc_apply_workspace_floats(cols),),
+                     dtype=torch.float32, device=dev)
+
+
+def whiten_color_apply_cuda(x2d: torch.Tensor, mean, cov, gamma, beta,
+                            ns_iters: int = 15, eps: float = 1e-5,
+                            scaling: str = "trace") -> torch.Tensor:
+  """Launch K2 on ``x2d``'s device, on the current stream, without
+  synchronising: the setup (one cooperative launch) and the row apply.
+  Raises on anything the kernel does not take, and when the setup's grid
+  cannot be co-resident."""
+  global WC_APPLY_LAUNCHES
+  scaling_code = _check_scaling(scaling)
+  _check_rows(x2d)
   rows, cols = x2d.shape
-  if rows < 1 or ns_iters < 0:
-    raise ValueError(f"whiten_color_apply of {tuple(x2d.shape)} with "
-                     f"ns_iters={ns_iters}")
+  if ns_iters < 0:
+    raise ValueError(f"whiten_color_apply with ns_iters={ns_iters}")
   lib = _build.load_wc_apply()
-  _check_cols(cols, lib)
   dev = x2d.device
   mean, cov, gamma, beta = _stats_f32(cols, dev, mean, cov, gamma, beta)
   out = torch.empty_like(x2d)
-  # Released on return, before the kernels have run: the caching allocator
-  # hands its memory only to later work on this stream.
-  workspace = torch.empty((lib.wcgan_wc_apply_workspace_floats(cols),),
-                          dtype=torch.float32, device=dev)
+  workspace = _workspace(lib, cols, dev)
   stream = torch.cuda.current_stream(dev).cuda_stream
   err = lib.wcgan_whiten_color_apply(
       x2d.data_ptr(), _DTYPE_CODES[x2d.dtype], rows, cols, mean.data_ptr(),
@@ -232,33 +259,69 @@ def whiten_color_apply_cuda(x2d: torch.Tensor, mean, cov, gamma, beta,
   return out
 
 
-def whiten_color_fold_cuda(mean, cov, gamma, beta, ns_iters: int = 15,
-                           eps: float = 1e-5, scaling: str = "trace"
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-  """K2's setup launches alone: (M, bias) as ``whiten_color_fold_reference``
-  gives them. For timing and testing the setup; it is not counted in
+def whiten_color_setup_cuda(mean, cov, gamma, beta, ns_iters: int = 15,
+                            eps: float = 1e-5, scaling: str = "trace"
+                            ) -> torch.Tensor:
+  """K2's setup launch alone; returns the workspace it fills (M^T, the
+  bias and the bf16 pieces of M), which ``whiten_color_rows_cuda`` takes.
+  For timing and testing the two launches apart: not counted in
   ``WC_APPLY_LAUNCHES``, and no model path calls it."""
   scaling_code = _check_scaling(scaling)
   if not cov.is_cuda:
-    raise ValueError(f"whiten_color_fold_cuda needs CUDA tensors, got "
+    raise ValueError(f"whiten_color_setup_cuda needs CUDA tensors, got "
                      f"{cov.device}")
   cols = cov.shape[-1]
+  check_wc_cols(cols)
+  if ns_iters < 0:
+    raise ValueError(f"whiten_color_apply with ns_iters={ns_iters}")
   lib = _build.load_wc_apply()
-  _check_cols(cols, lib)
   dev = cov.device
   mean, cov, gamma, beta = _stats_f32(cols, dev, mean, cov, gamma, beta)
-  mt = torch.empty((cols, cols), dtype=torch.float32, device=dev)
-  bias = torch.empty((cols,), dtype=torch.float32, device=dev)
-  workspace = torch.empty((lib.wcgan_wc_apply_workspace_floats(cols),),
-                          dtype=torch.float32, device=dev)
+  workspace = _workspace(lib, cols, dev)
   err = lib.wcgan_wc_setup(
       mean.data_ptr(), cov.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-      cols, ns_iters, eps, scaling_code, mt.data_ptr(), bias.data_ptr(),
-      workspace.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+      cols, ns_iters, eps, scaling_code, workspace.data_ptr(),
+      torch.cuda.current_stream(dev).cuda_stream)
   if err != 0:
     raise RuntimeError(f"whiten_color_apply setup launch failed at C={cols}: "
                        f"cudaError_t {err}")
-  return mt.T, bias
+  return workspace
+
+
+def whiten_color_fold_cuda(mean, cov, gamma, beta, ns_iters: int = 15,
+                           eps: float = 1e-5, scaling: str = "trace"
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """K2's setup alone: (M, bias) in float32 as
+  ``whiten_color_fold_reference`` gives them (views of its workspace)."""
+  workspace = whiten_color_setup_cuda(mean, cov, gamma, beta, ns_iters, eps,
+                                      scaling)
+  cols = cov.shape[-1]
+  lib = _build.load_wc_apply()
+  mt_at, bias_at = lib.wcgan_wc_mt_offset(cols), lib.wcgan_wc_bias_offset(cols)
+  mt = workspace[mt_at:mt_at + cols * cols].view(cols, cols)
+  return mt.T, workspace[bias_at:bias_at + cols]
+
+
+def whiten_color_rows_cuda(x2d: torch.Tensor,
+                           workspace: torch.Tensor) -> torch.Tensor:
+  """K2's row-apply launch alone, out = x M^T + bias, on a workspace that
+  ``whiten_color_setup_cuda`` filled for x's width. For timing; not
+  counted in ``WC_APPLY_LAUNCHES``."""
+  _check_rows(x2d)
+  rows, cols = x2d.shape
+  lib = _build.load_wc_apply()
+  if (workspace.dtype != torch.float32 or workspace.device != x2d.device
+      or workspace.numel() != lib.wcgan_wc_apply_workspace_floats(cols)):
+    raise ValueError("whiten_color_rows_cuda needs the workspace of "
+                     "whiten_color_setup_cuda at x's width and device")
+  out = torch.empty_like(x2d)
+  err = lib.wcgan_wc_rows(x2d.data_ptr(), _DTYPE_CODES[x2d.dtype], rows, cols,
+                          workspace.data_ptr(), out.data_ptr(),
+                          torch.cuda.current_stream(x2d.device).cuda_stream)
+  if err != 0:
+    raise RuntimeError(f"whiten_color_apply row launch failed at "
+                       f"{tuple(x2d.shape)} {x2d.dtype}: cudaError_t {err}")
+  return out
 
 
 def whiten_color_apply(x2d: torch.Tensor, mean, cov, gamma, beta,
