@@ -21,8 +21,18 @@ small width in float32, then drives the two ported paths at full width:
   (7 launches a forward) and then on the split path; the images of the
   two must agree;
 
-and the CLI: a training run that writes sample grids, then ``--phase test``
-on the npz that ``Trainer.export_weights`` wrote. One training outer step
+the CLI: a training run that writes sample grids, then ``--phase test``
+on the npz that ``Trainer.export_weights`` wrote; and the CLI's default
+run (slice 5): the same G and D with device-resident data in chains of 8
+outer steps, EMA weights (0.999) and a full-state checkpoint each epoch,
+2 epochs of 8 outer steps, then ``--resume auto`` for a third. That phase
+checks the log, the checkpoints and the diagnostics in ``metrics.jsonl``,
+restores the state into fresh trainers bit for bit, holds one outer step
+from a saved and from its restored state together, counts K1 in one
+standing-statistics recompute (7 x 16) and K2 in EMA sampling
+(``generate(1024, batch=256)`` with K2 forced, 7 a forward), and times
+the checkpoint, ``diagnostics()``, the recompute and EMA sampling. One
+training outer step
 is profiled (``torch.profiler``) for K1's share of kernel time, and one
 K2 generate forward for K2's kernels, launches per call and the device's
 busy share. Every
@@ -49,6 +59,7 @@ import time
 import numpy as np
 import torch
 
+from wcgan_tpu_torch.cli import run as cli_run
 from wcgan_tpu_torch.data import get_dataset
 from wcgan_tpu_torch.device import place
 from wcgan_tpu_torch.models.discriminator import DiscriminatorConfig
@@ -56,7 +67,7 @@ from wcgan_tpu_torch.models.generator import Generator, GeneratorConfig
 from wcgan_tpu_torch.ops import _build, cuda_wc
 from wcgan_tpu_torch.train.state import OptimConfig, create_state
 from wcgan_tpu_torch.train.step import GANConfig, make_outer_step
-from wcgan_tpu_torch.train.trainer import Trainer, TrainerConfig
+from wcgan_tpu_torch.train.trainer import CKPT_FILE, Trainer, TrainerConfig
 
 C = 256
 # R = N*H*W of the 7 WC layers of G 256x3 (4x4 -> 32x32) at the D-phase
@@ -601,6 +612,12 @@ def phase_profile(state, gan) -> None:
       f"Gram) against 6.6 ms of 65.1 in the slice-1 profile")
 
 
+def _u8_diff(a: np.ndarray, b: np.ndarray):
+  """(mean, 99.9th percentile, max) of |a - b| over uint8 images."""
+  diff = np.abs(a.astype(np.int16) - b.astype(np.int16))
+  return float(diff.mean()), float(np.quantile(diff, 0.999)), int(diff.max())
+
+
 def _generate(trainer: Trainer, n: int):
   """(uint8 images, seconds, peak MiB, K1 and K2 launches) of one
   ``generate(n, batch=256)`` with every count set to 0 just before."""
@@ -699,18 +716,16 @@ def phase_sampling(dev: torch.device, state, gan):
   check(imgs_k.dtype == np.uint8 and imgs_k.shape == (n, 32, 32, 3)
         and imgs_s.shape == imgs_k.shape, (imgs_k.dtype, imgs_k.shape))
   check(np.array_equal(imgs_k, runs["K2 again"][0]), "K2 not repeatable")
-  diff = np.abs(imgs_k.astype(np.int16) - imgs_s.astype(np.int16))
-  p999 = float(np.quantile(diff, 0.999))
-  check(diff.mean() <= SAMPLE_MEAN_TOL and p999 <= SAMPLE_P999_TOL
-        and diff.max() <= SAMPLE_MAX_TOL,
-        (float(diff.mean()), p999, int(diff.max())))
+  mean, p999, top = _u8_diff(imgs_k, imgs_s)
+  check(mean <= SAMPLE_MEAN_TOL and p999 <= SAMPLE_P999_TOL
+        and top <= SAMPLE_MAX_TOL, (mean, p999, top))
   rate = {k: n / v[1] for k, v in runs.items()}
   log("sampling", f"G 256x3 bf16, generate({n}, batch=256) on "
       f"{nvidia_smi()}: K2 {rate['K2']:.1f} / {rate['K2 again']:.1f} imgs/s "
       f"({k2_k} K2 launches, 7/forward; peak {mem_k:.0f} MiB), split "
       f"{rate['split']:.1f} / {rate['split again']:.1f} imgs/s ({k2_s} K2 "
       f"launches; peak {mem_s:.0f} MiB); uint8 |K2 - split| mean "
-      f"{diff.mean():.4f}, p99.9 {p999:.0f}, max {int(diff.max())}")
+      f"{mean:.4f}, p99.9 {p999:.0f}, max {top}")
   _profile_k2_forward(fused)
   path = split.save_sample_grid(0)
   check(os.path.getsize(path) > 0, path)
@@ -761,6 +776,201 @@ def phase_cli(npz: str) -> None:
   log("cli", f"{' '.join(cmd[1:])}: rc 0 in {dt:.1f} s; wrote {grid}")
 
 
+# The run phase: the CLI's defaults (device data, chains of 8) with EMA
+# weights, a checkpoint each epoch, 8 outer steps an epoch.
+RUN_ARGS = ("--generator_ema", "0.999", "--checkpoint_ratio", "1",
+            "--batches_per_epoch", "8")
+DIAG_KEYS = ("wc_cov_cond_max", "wc_whiten_residual_max", "d_sigma_max")
+
+
+def _bit_equal(a, b, where="state") -> None:
+  """Nested dicts and lists of tensors and numbers, equal bit for bit."""
+  if isinstance(a, dict):
+    check(isinstance(b, dict) and a.keys() == b.keys(), where)
+    for k in a:
+      _bit_equal(a[k], b[k], f"{where}/{k}")
+  elif isinstance(a, (list, tuple)):
+    check(len(a) == len(b), where)
+    for i, (x, y) in enumerate(zip(a, b)):
+      _bit_equal(x, y, f"{where}/{i}")
+  elif torch.is_tensor(a):
+    check(torch.is_tensor(b) and a.dtype == b.dtype and a.shape == b.shape
+          and torch.equal(a.cpu(), b.cpu()), where)
+  else:
+    check(a == b, (where, a, b))
+
+
+def _count(tensors) -> int:
+  if isinstance(tensors, dict):
+    return sum(_count(v) for v in tensors.values())
+  if isinstance(tensors, (list, tuple)):
+    return sum(_count(v) for v in tensors)
+  return int(torch.is_tensor(tensors))
+
+
+def _ms(fn, *args):
+  """(result, host ms) of fn(*args), synchronised on both sides."""
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  out = fn(*args)
+  torch.cuda.synchronize()
+  return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_run(dev: torch.device):
+  """The CLI's default run at full width, then ``--resume auto``; the
+  checkpoint restored into fresh trainers. Returns the launches of K1 (one
+  outer step from a saved and from its restored state; one standing
+  recompute) and K2 (EMA generate)."""
+  out_dir = os.path.join("build", "chip_smoke_run")
+  shutil.rmtree(out_dir, ignore_errors=True)
+  base = [*RUN_ARGS, "--checkpoints_dir", os.path.join(out_dir, "ckpt")]
+  cmd, dt1, _ = _run_cli(base + ["--number_of_epochs", "2"], out_dir)
+  log("run", f"{' '.join(cmd[1:])}: rc 0 in {dt1:.1f} s")
+  cmd, dt2, lines = _run_cli(base + ["--number_of_epochs", "3", "--resume",
+                                     "auto"], out_dir)
+  log("run", f"{' '.join(cmd[1:])}: rc 0 in {dt2:.1f} s; "
+      + "; ".join(l for l in lines if l.startswith("resumed from")))
+  counts = [sum(l.startswith(f"Epoch {i}:") for l in lines) for i in range(3)]
+  check(any("(start_epoch 2)" in l for l in lines) and counts == [1, 1, 1],
+        (counts, lines))
+  ckpt = os.path.join(out_dir, "ckpt", "smoke")
+  for i in range(3):
+    for name in (os.path.join(f"epoch_{i}", CKPT_FILE),
+                 f"epoch_{i}_generator.npz", f"epoch_{i}_discriminator.npz"):
+      check(os.path.isfile(os.path.join(ckpt, name)), name)
+  with open(os.path.join(out_dir, "smoke", "metrics.jsonl")) as f:
+    records = [json.loads(l) for l in f]
+  check([r["epoch"] for r in records] == [0, 1, 2], records)
+  for r in records:
+    check(all(np.isfinite(r[k]) for k in DIAG_KEYS), r)
+    log("run", f"epoch {r['epoch']}: {r['seconds']:.3f} s, "
+        f"{r['imgs_per_sec']:.1f} imgs/s (8 outer steps of 5 x 64 real "
+        f"images, host clock) on {nvidia_smi()}; " + ", ".join(
+            f"{k} {r[k]:.4g}" for k in DIAG_KEYS + ("d_loss", "g_loss")))
+
+  args = cli_run.build_parser().parse_args(
+      ["--device", "cuda", "--dataset", "synthetic", "--arch", "res",
+       "--bf16", "--output_dir", os.path.join(out_dir, "inproc"), "--name",
+       "smoke", *base])
+  saved_path = os.path.join(ckpt, "epoch_2")
+  a = cli_run.build_experiment(args)
+  check(a.latest_checkpoint() == os.path.abspath(saved_path),
+        a.latest_checkpoint())
+  _, restore_ms = _ms(a.restore_checkpoint, saved_path)
+  saved = torch.load(os.path.join(saved_path, CKPT_FILE), map_location=dev,
+                     weights_only=True)
+  check(saved["g"]["nc_out.cov"].device == dev, "map_location")
+  _bit_equal(a.full_state(), saved)
+  n_tensors = _count(saved)
+  # A live state (a chain past the file), saved and restored in-process.
+  a.step_fn(a.state, *a._device_data)
+  _, save_ms = _ms(a.save_checkpoint, 3)
+  b = cli_run.build_experiment(args)
+  _, restore2_ms = _ms(b.restore_checkpoint, a.checkpoint_path(3))
+  _bit_equal(b.full_state(), a.full_state())
+  log("run", f"restored {saved_path} into a fresh trainer: {n_tensors} "
+      f"tensors bit-equal to the file; save_checkpoint {save_ms:.1f} ms, "
+      f"restore_checkpoint {restore_ms:.1f} / {restore2_ms:.1f} ms (host "
+      f"clock, synchronised; on {nvidia_smi()}); a live state saved and "
+      "restored bit-equal")
+
+  gen = torch.Generator(device=dev).manual_seed(7)
+  noise = {"z_d": torch.randn((5, 64, 128), generator=gen, device=dev),
+           "z_g": torch.randn((128, 128), generator=gen, device=dev),
+           "flip": torch.rand((5, 64), generator=gen, device=dev) < 0.5}
+  real = a._device_data[0][:5 * 64].view(5, 64, 32, 32, 3)
+  step = make_outer_step(a.gan_cfg)
+  cuda_wc.MOMENTS_LAUNCHES = 0
+  m_a = {k: float(v) for k, v in step(a.state, real, None, noise).items()}
+  m_b = {k: float(v) for k, v in step(b.state, real, None, noise).items()}
+  step_launches = cuda_wc.MOMENTS_LAUNCHES
+  check(step_launches == 2 * 42, step_launches)
+  for k in m_a:
+    check(abs(m_a[k] - m_b[k]) <= STEP_RTOL * max(1.0, abs(m_a[k])),
+          (k, m_a[k], m_b[k]))
+  bufs_b = dict(b.state.g.named_buffers())
+  stats_err = max(float((t - bufs_b[n]).abs().max())
+                  for n, t in a.state.g.named_buffers())
+  check(stats_err <= STATS_ATOL, stats_err)
+  log("run", "one outer step with the same noise from the saved and from "
+      "the restored state: " + ", ".join(
+          f"{k} {m_a[k]:.6f}/{m_b[k]:.6f}" for k in m_a)
+      + f"; wc_stats max|d| {stats_err:.2e}; K1 launches {step_launches}")
+
+  diag, diag_ms = _ms(b.diagnostics)
+  check(all(np.isfinite(diag[k]) for k in DIAG_KEYS), diag)
+  cuda_wc.MOMENTS_LAUNCHES = 0
+  first, standing_ms = _ms(b.sampling_state)
+  standing_launches = cuda_wc.MOMENTS_LAUNCHES
+  check(standing_launches == 7 * 16, standing_launches)
+  cuda_wc.MOMENTS_LAUNCHES = 0
+  check(b.sampling_state() is first and cuda_wc.MOMENTS_LAUNCHES == 0,
+        cuda_wc.MOMENTS_LAUNCHES)
+  step(b.state, real, None)
+  cuda_wc.MOMENTS_LAUNCHES = 0
+  again, standing2_ms = _ms(b.sampling_state)
+  check(again is not first and cuda_wc.MOMENTS_LAUNCHES == 7 * 16,
+        cuda_wc.MOMENTS_LAUNCHES)
+  log("run", f"diagnostics() {diag_ms:.1f} ms; standing statistics (16 "
+      f"train-mode G forwards at batch 64 under the EMA params) "
+      f"{standing_ms:.1f} / {standing2_ms:.1f} ms with {standing_launches} "
+      f"K1 launches, a cached second call 0, recomputed after one outer "
+      f"step (host clock, synchronised; on {nvidia_smi()})")
+
+  g_k = place(Generator(dataclasses.replace(b.state.g.cfg, kernel_eval=True),
+                        torch.Generator().manual_seed(0)), dev)
+  g_k.load_state_dict(b.state.g.state_dict())
+  fused = Trainer(b.ds, dataclasses.replace(b.state, g=g_k), b.gan_cfg,
+                  dataclasses.replace(b.cfg, device_data=False))
+  n = 1024
+  for trainer in (fused, b):                          # warm-up
+    trainer.generate(256, batch=256)
+  runs = {name: _generate(trainer, n) for name, trainer in (
+      ("K2", fused), ("split", b), ("K2 again", fused))}
+  imgs_k, dt_k, mem_k, k1_k, k2_k = runs["K2"]
+  imgs_s, dt_s, _, _, k2_s = runs["split"]
+  check(k2_k == 7 * (n // 256) and k1_k == 0 and k2_s == 0,
+        (k2_k, k1_k, k2_s))
+  check(imgs_k.shape == (n, 32, 32, 3)
+        and np.array_equal(imgs_k, runs["K2 again"][0]), "EMA K2 repeat")
+  # K2 held against its plain version on this path: every layer's call
+  # swapped for whiten_color_apply_reference, the same inputs.
+  with_k2 = cuda_wc.whiten_color_apply
+  cuda_wc.whiten_color_apply = cuda_wc.whiten_color_apply_reference
+  try:
+    imgs_p = fused.generate(n, batch=256)
+  finally:
+    cuda_wc.whiten_color_apply = with_k2
+  diffs = {"plain": _u8_diff(imgs_k, imgs_p), "split": _u8_diff(imgs_k,
+                                                                imgs_s)}
+  mean, p999, top = diffs["plain"]
+  check(mean <= SAMPLE_MEAN_TOL and p999 <= SAMPLE_P999_TOL
+        and top <= SAMPLE_MAX_TOL, diffs)
+  # Beside both, the same G in float32 on the same tensors: how far each
+  # bf16 path is from it.
+  g32 = place(Generator(dataclasses.replace(b.state.g.cfg, dtype="float32"),
+                        torch.Generator().manual_seed(0)), dev)
+  g32.load_state_dict(b.state.g.state_dict())
+  f32 = Trainer(b.ds, dataclasses.replace(b.state, g=g32), b.gan_cfg,
+                dataclasses.replace(b.cfg, device_data=False))
+  tensors = fused.sampling_state()
+  f32.sampling_state = lambda: tensors
+  imgs_32 = f32.generate(n, batch=256)
+  to_32 = {k: _u8_diff(v, imgs_32)[0] for k, v in (
+      ("K2", imgs_k), ("plain", imgs_p), ("split", imgs_s))}
+  log("run", f"EMA generate({n}, batch=256) with standing statistics on "
+      f"{nvidia_smi()}: K2 {n / dt_k:.1f} / {n / runs['K2 again'][1]:.1f} "
+      f"imgs/s ({k2_k} K2 launches, 7/forward, bitwise repeatable; peak "
+      f"{mem_k:.0f} MiB), split {n / dt_s:.1f} imgs/s; uint8 |K2 - K2's "
+      "plain version| mean {:.4f}, p99.9 {:.0f}, max {} (gated); |K2 - "
+      "split| mean {:.4f}, p99.9 {:.0f}, max {}; mean |x - float32 G| K2 "
+      "{:.4f}, plain {:.4f}, split {:.4f}".format(
+          *diffs["plain"], *diffs["split"], to_32["K2"], to_32["plain"],
+          to_32["split"]))
+  return step_launches, standing_launches, k2_k
+
+
 def main() -> int:
   dev = phase_device()
   phase_build()
@@ -775,6 +985,7 @@ def main() -> int:
   phase_profile(state, gan)
   k2_launches, npz = phase_sampling(dev, state, gan)
   phase_cli(npz)
+  run_step_launches, standing_launches, run_k2_launches = phase_run(dev)
   loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
       "wcgan_tpu", "jax", "jaxlib", "flax", "optax", "orbax"))
   check(not loaded, f"chip_smoke imported {loaded}")
@@ -786,17 +997,27 @@ def main() -> int:
   # is host-bound (its launches outlast the queue's hold).
   # max_abs_err: K1's worst against plain, K2's worst with float32 rows
   # (bf16 rows are held to 2 ulps, printed above).
+  # launches: the sum over the paths in launches_by_path, each counted from
+  # 0 just before its run.
+  k1_paths = {"training slice, 10 outer steps": launches,
+              "run: one outer step from a saved and from its restored "
+              "state": run_step_launches,
+              "run: one standing-statistics recompute": standing_launches}
+  k2_paths = {"sampling: generate(1024, batch=256)": k2_launches,
+              "run: EMA generate(1024, batch=256)": run_k2_launches}
   print(json.dumps({"kernels": [{
       "name": "moments", "route": "cuda",
       "source": "wcgan_tpu_torch/csrc/moments.cu",
       "replaces": "wcgan_tpu/ops/pallas_wc.py:56",
-      "launches": launches, "max_abs_err": err,
+      "launches": sum(k1_paths.values()), "launches_by_path": k1_paths,
+      "max_abs_err": err,
       "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
       "bound_by": k1_bound_by, "library_ms": k1_lib_ms}, {
       "name": "whiten_color_apply", "route": "cuda",
       "source": "wcgan_tpu_torch/csrc/wc_apply.cu",
       "replaces": "wcgan_tpu/ops/pallas_wc.py:195",
-      "launches": k2_launches, "max_abs_err": k2_err,
+      "launches": sum(k2_paths.values()), "launches_by_path": k2_paths,
+      "max_abs_err": k2_err,
       "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
       "bound_by": k2_bound_by, "library_ms": k2_lib_ms}]}), flush=True)
   print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -94,3 +95,58 @@ def test_cli_phase_test_writes_a_grid_without_jax(tmp_path):
   assert (tmp_path / "tiny" / "epoch_00005.png").exists()
   log = (tmp_path / "tiny" / "log.txt").read_text()
   assert "wrote sample grid" in log and "Epoch " not in log
+
+
+PORTED = {"--checkpoints_dir": "ck", "--checkpoint_ratio": "3",
+          "--resume": "auto", "--generator_ema": "0.999",
+          "--ema_standing_stats": "4", "--wc_residual_action": "fallback",
+          "--fallback_cooldown": "0", "--residual_probe_every": "2",
+          "--device_data": "0", "--steps_per_call": "4",
+          "--device_data_limit": "1000000"}
+
+
+def test_cli_takes_the_ported_flags():
+  from wcgan_tpu.cli.run import build_parser as jax_parser
+  from wcgan_tpu_torch.cli import run as trun
+  argv = [a for kv in PORTED.items() for a in kv]
+  trun._reject_unsupported(argv)
+  got = vars(trun.build_parser().parse_args(argv))
+  want = vars(jax_parser().parse_args(argv))
+  defaults_t = vars(trun.build_parser().parse_args([]))
+  defaults_j = vars(jax_parser().parse_args([]))
+  for flag in PORTED:
+    key = flag[2:]
+    assert got[key] == want[key], flag
+    assert defaults_t[key] == defaults_j[key], flag
+
+
+@pytest.mark.parametrize("flag", ["--mesh", "--conditional"])
+def test_cli_still_refuses_by_name(flag):
+  from wcgan_tpu_torch.cli import run as trun
+  with pytest.raises(SystemExit, match=f"{flag} not supported"):
+    trun._reject_unsupported([flag, "2"])
+
+
+def test_cli_ema_checkpoints_and_resume_without_jax(tmp_path):
+  """--generator_ema with a checkpoint every epoch, then --resume auto, in
+  fresh interpreters that never import JAX."""
+  base = ["--device", "cpu", "--output_dir", str(tmp_path), *TINY,
+          "--checkpoints_dir", str(tmp_path / "ck"), "--generator_ema",
+          "0.9", "--checkpoint_ratio", "1"]
+  proc = _run(base)
+  assert proc.returncode == 0, proc.stdout + proc.stderr
+  proc = _run(base + ["--resume", "auto", "--number_of_epochs", "3"])
+  assert proc.returncode == 0, proc.stdout + proc.stderr
+  assert "NO_JAX_IMPORTED" in proc.stdout
+  log = (tmp_path / "tiny" / "log.txt").read_text()
+  assert "(start_epoch 2)" in log
+  assert [log.count(f"Epoch {i}:") for i in range(3)] == [1, 1, 1]
+  assert sorted(p.name for p in (tmp_path / "ck" / "tiny").iterdir()) == [
+      f"epoch_{i}{s}" for i in range(3)
+      for s in ("", "_discriminator.npz", "_generator.npz")]
+  records = [json.loads(l) for l in
+             (tmp_path / "tiny" / "metrics.jsonl").read_text().splitlines()]
+  assert [r["epoch"] for r in records] == [0, 1, 2]
+  assert all(np.isfinite(r[k]) for r in records
+             for k in ("wc_cov_cond_max", "wc_whiten_residual_max",
+                       "d_sigma_max"))

@@ -18,6 +18,8 @@ a float32 result once; the float32 results differ by far less). At
 R = 262,144 its bf16 rows are also held against a float64 run of the same
 fold: no further from it than twice the plain version's distance."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -316,3 +318,124 @@ def test_k2_refuses_widths_it_does_not_take(cols, dev):
   with pytest.raises(ValueError, match="C % 8 == 0"):
     cuda_wc.whiten_color_fold_cuda(*stats)
   assert cuda_wc.WC_APPLY_LAUNCHES == before
+
+
+# --- the trainer on the card: full state, standing statistics, EMA K2 -------
+
+TRAIN_FLAGS = ["--device", "cuda", "--dataset", "synthetic",
+               "--synthetic_size", "256", "--generator_filters", "32,32,32",
+               "--discriminator_filters", "32,32", "--batch_size", "16",
+               "--training_ratio", "2", "--z_dim", "16", "--bf16",
+               "--batches_per_epoch", "2", "--steps_per_call", "2",
+               "--display_ratio", "0", "--generator_ema", "0.9",
+               "--name", "lane"]
+
+
+def _trainer(tmp_path, *extra):
+  from wcgan_tpu_torch.cli import run as trun
+  return trun.build_experiment(trun.build_parser().parse_args(
+      TRAIN_FLAGS + ["--output_dir", str(tmp_path / "o"),
+                     "--checkpoints_dir", str(tmp_path / "c"), *extra]))
+
+
+def _assert_bit_equal(a, b, where="state"):
+  if isinstance(a, dict):
+    assert a.keys() == b.keys(), where
+    for k in a:
+      _assert_bit_equal(a[k], b[k], f"{where}/{k}")
+  elif isinstance(a, (list, tuple)):
+    assert len(a) == len(b), where
+    for i, (x, y) in enumerate(zip(a, b)):
+      _assert_bit_equal(x, y, f"{where}/{i}")
+  elif torch.is_tensor(a):
+    assert a.dtype == b.dtype and a.device == b.device, where
+    assert torch.equal(a, b), where
+  else:
+    assert a == b, where
+
+
+def test_full_state_roundtrip_on_card_bit_equal(dev, tmp_path):
+  tt = _trainer(tmp_path, "--number_of_epochs", "1", "--checkpoint_ratio",
+                "1")
+  tt.train()
+  fresh = _trainer(tmp_path)
+  fresh.restore_checkpoint(tt.checkpoint_path(0))
+  assert fresh.state.g.nc_out.cov.is_cuda
+  assert fresh.state.generator.device.type == "cuda"
+  _assert_bit_equal(fresh.full_state(), tt.full_state())
+  # The file loads on the card as it is.
+  saved = torch.load(os.path.join(tt.checkpoint_path(0), "state.pt"),
+                     map_location=dev, weights_only=True)
+  assert saved["g"]["nc_out.cov"].is_cuda
+
+
+def test_standing_stats_launch_k1_per_layer_and_batch(dev, tmp_path):
+  """One standing recompute: 7 WC layers x ema_standing_stats batches of
+  K1; a cached second call launches nothing; an outer step recomputes."""
+  tt = _trainer(tmp_path, "--ema_standing_stats", "3")
+  before = cuda_wc.MOMENTS_LAUNCHES
+  first = tt.sampling_state()
+  torch.cuda.synchronize()
+  assert cuda_wc.MOMENTS_LAUNCHES == before + 7 * 3
+  assert tt.sampling_state() is first
+  assert cuda_wc.MOMENTS_LAUNCHES == before + 7 * 3
+  tt.step_fn(tt.state, *tt._device_data)
+  before = cuda_wc.MOMENTS_LAUNCHES
+  assert tt.sampling_state() is not first
+  assert cuda_wc.MOMENTS_LAUNCHES == before + 7 * 3
+
+
+def test_ema_sampling_through_k2_matches_its_plain_version(dev, tmp_path,
+                                                         monkeypatch):
+  """generate() from the EMA weights with standing statistics: a G with
+  kernel_eval=True sends every WC layer through K2 (7 a forward) and
+  agrees with the same G whose layers call K2's plain version, within
+  chip_smoke.py's sampling gates. (Against the split path, which rounds
+  M to bf16 before its row product, the mean gap passes 1 level under
+  standing statistics: that rounding is the split path's, PERF.md.)"""
+  import dataclasses
+  from wcgan_tpu_torch.device import place
+  from wcgan_tpu_torch.models.generator import Generator
+  from wcgan_tpu_torch.train.trainer import Trainer
+  # The headline widths, where chip_smoke.py's gates were set.
+  tt = _trainer(tmp_path, "--number_of_epochs", "1", "--checkpoint_ratio",
+                "0", "--generator_filters", "256,256,256",
+                "--discriminator_filters", "128,128,128,128", "--batch_size",
+                "64")
+  tt.train()
+  g_k = place(Generator(dataclasses.replace(tt.state.g.cfg,
+                                            kernel_eval=True),
+                        torch.Generator().manual_seed(0)), dev)
+  g_k.load_state_dict(tt.state.g.state_dict())
+  fused = Trainer(tt.ds, dataclasses.replace(tt.state, g=g_k), tt.gan_cfg,
+                  tt.cfg)
+  before = cuda_wc.WC_APPLY_LAUNCHES
+  imgs = fused.generate(64, batch=32)
+  torch.cuda.synchronize()
+  assert cuda_wc.WC_APPLY_LAUNCHES == before + 7 * 2
+  assert np.array_equal(imgs, fused.generate(64, batch=32))
+  monkeypatch.setattr(cuda_wc, "whiten_color_apply",
+                      cuda_wc.whiten_color_apply_reference)
+  plain = fused.generate(64, batch=32)
+  diff = np.abs(imgs.astype(np.int16) - plain.astype(np.int16))
+  assert diff.mean() <= 1.0 and np.quantile(diff, 0.999) <= 4.0
+  assert diff.max() <= 16
+
+
+def test_window_staging_on_card(dev, tmp_path):
+  """Datasets over --device_data_limit: each window is copied from pinned
+  memory on a side stream and the training stream waits for it; the
+  window staged for an epoch that will not run is released."""
+  tt = _trainer(tmp_path, "--number_of_epochs", "2", "--checkpoint_ratio",
+                "0", "--device_data_limit", str(32 * 32 * 3 * 80))
+  assert tt._window_elems == 40 and tt._window_next is not None
+  tt.train()
+  imgs, labels = tt._device_data
+  assert imgs.is_cuda and imgs.shape == (40, 32, 32, 3)
+  assert labels.is_cuda and tt._window_next is None
+  assert tt.state.step == 4
+  # Epoch 1 trained on the second window the seed + 17 generator picked.
+  rng = np.random.default_rng(17)
+  rng.choice(256, 40, replace=False)
+  second = np.sort(rng.choice(256, 40, replace=False))
+  np.testing.assert_array_equal(imgs.cpu().numpy(), tt.ds.images[second])

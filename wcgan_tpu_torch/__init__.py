@@ -10,8 +10,11 @@ within stated tolerances (``tests/test_torch_*.py``). The layout mirrors
   kernels: K1, the moment pass, and K2, the whole stats-given WC layer.
 - ``wcgan_tpu_torch.models`` — WC layers, SN conv/dense, the ResNet
   generator and discriminator.
-- ``wcgan_tpu_torch.train``  — train state, the K-D-updates + 1-G-update
-  outer step, LR schedules, the epoch loop and the sampling surfaces.
+- ``wcgan_tpu_torch.train``  — train state (with the EMA shadow), the
+  K-D-updates + 1-G-update outer step and its device-data form, LR
+  schedules, the epoch loop (full-state checkpoints, resume, the
+  whitening probe and guard) and the sampling surfaces (EMA weights with
+  standing statistics).
 - ``wcgan_tpu_torch.weights`` — moves flax weights to the port and back,
   and reads and writes the JAX package's weights-only npz.
 - ``wcgan_tpu_torch.cli``    — ``python -m wcgan_tpu_torch``.

@@ -3,14 +3,20 @@
 Counterpart of ``wcgan_tpu/cli/run.py`` for the slices ported so far: the
 unconditional ResNet WC-GAN (G with norm codes n/d/dr and coloring codes
 n/s/uconv, SN ResNet D), hinge/ns/wgan losses, Adam with the reference's
-LR schedules, sample grids, and ``--phase test``, which writes one grid
-from weights-only ``.npz`` (or ``.h5``) files. Flag names are the JAX
-CLI's. A flag of the JAX CLI that the port does not support yet is
+LR schedules, the reference's default run (device-resident data in
+chains of ``--steps_per_call``, the whitening probe and guard, full-state
+checkpoints every ``--checkpoint_ratio`` epochs, ``--resume``), EMA
+weights with standing statistics (``--generator_ema``), sample grids, and
+``--phase test``, which writes one grid from the restored state or from
+weights-only ``.npz`` (or ``.h5``) files. Flag names and defaults are the
+JAX CLI's. A flag of the JAX CLI that the port does not support yet is
 rejected with an error, never ignored.
 
 Usage:
   python -m wcgan_tpu_torch --device cuda --dataset synthetic --arch res \\
       --bf16 --number_of_epochs 2 --batches_per_epoch 3
+  python -m wcgan_tpu_torch --device cuda --dataset synthetic --bf16 \\
+      --number_of_epochs 4 --resume auto
   python -m wcgan_tpu_torch --device cpu --phase test \\
       --generator_checkpoint epoch_9_generator.npz
 """
@@ -45,20 +51,16 @@ COLORING_CODES = ("n", "s", "uconv")
 # Flags of the JAX CLI (wcgan_tpu/cli/run.py) that this port does not take
 # yet; each is refused by name instead of being silently dropped.
 UNSUPPORTED_FLAGS = (
-    "--checkpoints_dir", "--checkpoint_ratio", "--resume", "--gan_type",
-    "--gradient_penalty_weight", "--conditional",
+    "--gan_type", "--gradient_penalty_weight", "--conditional",
     "--generator_concat_cls", "--discriminator_norm",
     "--discriminator_coloring", "--discriminator_spectral",
     "--spectral_iterations", "--fully_diff_spectral", "--conv_singular",
-    "--filters_emb", "--sn_update_on_g_step", "--generator_ema",
-    "--ema_standing_stats", "--wc_residual_action",
-    "--fallback_cooldown", "--residual_probe_every", "--whitening_precision",
+    "--filters_emb", "--sn_update_on_g_step", "--whitening_precision",
     "--compute_inception_score", "--compute_fid", "--score_every",
     "--samples_inception", "--samples_fid", "--inception_weights",
     "--platform", "--mesh", "--remat", "--profile_dir", "--debug_nans",
     "--synthetic_resolution", "--smoke", "--batched_fake_gen",
-    "--d_fake_stats", "--device_data", "--steps_per_call",
-    "--device_data_limit", "--compilation_cache_dir", "--preset")
+    "--d_fake_stats", "--compilation_cache_dir", "--preset")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -71,6 +73,12 @@ def build_parser() -> argparse.ArgumentParser:
   p.add_argument("--name", default=None,
                  help="experiment name (default: derived from config)")
   p.add_argument("--output_dir", default="output")
+  p.add_argument("--checkpoints_dir", default="checkpoints")
+  p.add_argument("--checkpoint_ratio", type=int, default=10,
+                 help="full-state checkpoint and weights-only npz every N "
+                      "epochs (0 = never)")
+  p.add_argument("--resume", default=None,
+                 help="'auto' = latest full-state checkpoint, or a path")
   p.add_argument("--display_ratio", type=int, default=1,
                  help="write a sample grid every N epochs (0 = never)")
   p.add_argument("--start_epoch", type=int, default=0,
@@ -132,6 +140,38 @@ def build_parser() -> argparse.ArgumentParser:
   p.add_argument("--random_flip", type=int, default=None,
                  help="1/0 horizontal flip of real images (default: on for "
                       "natural-image datasets)")
+  p.add_argument("--generator_ema", type=float, default=0.0,
+                 help="EMA decay for generator weights used at sampling "
+                      "(0 = off; e.g. 0.999)")
+  p.add_argument("--ema_standing_stats", type=int, default=16,
+                 help="train-mode batches that re-estimate G's "
+                      "normalization statistics under the EMA params before "
+                      "EMA sampling (only with --generator_ema); 0 = the "
+                      "raw trajectory's running statistics")
+  p.add_argument("--wc_residual_action", default="warn",
+                 choices=["warn", "abort", "fallback"],
+                 help="when the whitening residual probe passes 1e-2 (or is "
+                      "not finite): 'warn' = log and continue, 'abort' = "
+                      "checkpoint and stop, 'fallback' = checkpoint, demote "
+                      "'dr' norms to 'd', then double ns_iters once, and "
+                      "abort once nothing is left")
+  p.add_argument("--fallback_cooldown", type=int, default=-1,
+                 help="outer steps after a fallback rung in which breaches "
+                      "do not escalate; -1 = ceil(5/(1-wc_momentum))")
+  p.add_argument("--residual_probe_every", type=int, default=0,
+                 help="also probe whitening health every N outer steps "
+                      "inside the epoch (0 = per epoch only)")
+  p.add_argument("--device_data", type=int, default=1,
+                 help="1 = the dataset lives on the device and batches are "
+                      "drawn there, i.i.d. with replacement; 0 = host-fed "
+                      "shuffled batches")
+  p.add_argument("--steps_per_call", type=int, default=8,
+                 help="outer steps chained per call (device_data only); "
+                      "the epoch rounds down to whole chains")
+  p.add_argument("--device_data_limit", type=int, default=2_000_000_000,
+                 help="device byte budget for the dataset; larger datasets "
+                      "train on a rotating random window per epoch (two "
+                      "half-budget windows in flight)")
   return p
 
 
@@ -194,7 +234,7 @@ def build_experiment(args) -> Trainer:
   gan_cfg = GANConfig(
       loss=args.loss, training_ratio=args.training_ratio,
       generator_batch_multiple=args.generator_batch_multiple,
-      z_dim=args.z_dim,
+      z_dim=args.z_dim, g_ema_decay=args.generator_ema,
       random_flip=(bool(args.random_flip) if args.random_flip is not None
                    else args.dataset not in ("mnist", "fashion-mnist",
                                              "digits")))
@@ -206,16 +246,24 @@ def build_experiment(args) -> Trainer:
       lr_decay_schedule=args.lr_decay_schedule,
       total_outer_steps=steps_per_epoch * args.number_of_epochs)
   state = create_state(g_cfg, d_cfg, opt_cfg, args.training_ratio, device,
-                       seed=args.seed)
+                       seed=args.seed, g_ema_decay=args.generator_ema)
   name = args.name or (f"{args.dataset}_{args.arch}_{args.loss}"
                        f"_{args.generator_block_norm}-"
                        f"{args.generator_block_coloring}")
-  tcfg = TrainerConfig(name=name, output_dir=os.path.join(args.output_dir,
-                                                         name),
-                       number_of_epochs=args.number_of_epochs,
-                       start_epoch=args.start_epoch,
-                       display_ratio=args.display_ratio,
-                       batches_per_epoch=args.batches_per_epoch or 0)
+  tcfg = TrainerConfig(
+      name=name, output_dir=os.path.join(args.output_dir, name),
+      checkpoints_dir=args.checkpoints_dir,
+      number_of_epochs=args.number_of_epochs, start_epoch=args.start_epoch,
+      checkpoint_ratio=args.checkpoint_ratio,
+      display_ratio=args.display_ratio,
+      batches_per_epoch=args.batches_per_epoch, seed=args.seed,
+      device_data=bool(args.device_data),
+      device_data_limit=args.device_data_limit,
+      steps_per_call=args.steps_per_call,
+      wc_residual_action=args.wc_residual_action,
+      fallback_cooldown=args.fallback_cooldown,
+      residual_probe_every=args.residual_probe_every,
+      ema_standing_batches=args.ema_standing_stats)
   return Trainer(ds, state, gan_cfg, tcfg)
 
 
@@ -268,6 +316,21 @@ def main(argv=None) -> int:
   trainer.logger.line(f"wcgan_tpu_torch on {device}"
                       + (f" ({torch.cuda.get_device_name(device)})"
                          if device.type == "cuda" else ""))
+  if args.resume == "auto":
+    latest = trainer.latest_checkpoint()
+    if latest:
+      trainer.restore_checkpoint(latest)
+      # Continue the epoch schedule unless --start_epoch pins it.
+      if args.start_epoch == 0:
+        base = os.path.basename(latest.rstrip(os.sep))
+        try:
+          trainer.cfg.start_epoch = int(base.split("_")[1]) + 1
+        except (IndexError, ValueError):
+          pass
+      trainer.logger.line(f"resumed from {latest} "
+                          f"(start_epoch {trainer.cfg.start_epoch})")
+  elif args.resume:
+    trainer.restore_checkpoint(args.resume)
   for model, module, path in (
       ("generator", trainer.state.g, args.generator_checkpoint),
       ("discriminator", trainer.state.d, args.discriminator_checkpoint)):
@@ -276,8 +339,9 @@ def main(argv=None) -> int:
                         missing=args.checkpoint_missing,
                         log=trainer.logger.line)
   if args.phase == "test":
-    # As in the JAX CLI, only the parameters are replaced: G's running
-    # statistics stay at their initialization (mean 0, cov I).
+    # As in the JAX CLI, a weights-only file replaces only the parameters:
+    # without --resume G's running statistics stay at their initialization
+    # (mean 0, cov I).
     path = trainer.save_sample_grid(args.start_epoch)
     trainer.logger.line(f"wrote sample grid {path}")
     return 0

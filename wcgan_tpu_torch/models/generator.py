@@ -85,6 +85,30 @@ class Generator(nn.Module):
                               method=cfg.ns_method, **wc)
     self.conv_out = L.Conv(in_ch, cfg.output_channels, 3, generator)
 
+  def reconfigure(self, **changes) -> None:
+    """Change ``ns_iters`` or demote norm codes 'dr' -> 'd' (``block_norm``,
+    ``last_norm``) on the live module, as the whitening fallback ladder
+    does. 'dr' and 'd' hold the same parameters and statistics and differ
+    only in which statistics the train-mode transform reads, so both carry
+    over unchanged."""
+    cfg = dataclasses.replace(self.cfg, **changes)
+    for old, new in ((self.cfg.block_norm, cfg.block_norm),
+                     (self.cfg.last_norm, cfg.last_norm)):
+      if old != new and {old, new} != {"d", "dr"}:
+        raise ValueError(f"cannot change norm code {old!r} -> {new!r} in "
+                         "place; only 'd' and 'dr' share their state")
+    self.cfg = cfg
+    layers = [(cfg.block_norm, self.get_submodule(f"block{i}.{name}"))
+              for i in range(len(cfg.filters)) for name in ("nc1", "nc2")]
+    layers.append((cfg.last_norm, self.nc_out))
+    for code, nc in layers:
+      nc.ns_iters = cfg.ns_iters
+      if nc.fused:
+        nc.norm_code = code
+      elif code != "n":
+        nc.norm.code = nc.norm.wc.mode = code
+        nc.norm.wc.ns_iters = cfg.ns_iters
+
   def forward(self, z: torch.Tensor, train: bool = True,
               update_stats: bool = True) -> torch.Tensor:
     cfg = self.cfg

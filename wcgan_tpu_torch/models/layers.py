@@ -14,8 +14,9 @@ does.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Callable, Dict, Iterator, Optional
 
 import torch
 import torch.nn.functional as F
@@ -76,6 +77,10 @@ def _kernel_eval_ok(kernel_eval: Optional[bool], method: str) -> bool:
   return False
 
 
+# Receives a train-mode whitening layer's batch (mean, cov), float32.
+MomentsSink = Callable[[torch.Tensor, torch.Tensor], None]
+
+
 class DecorrelationNorm(nn.Module):
   """Full-covariance whitening, the W half of the WC transform; the JAX
   package's ``DecorrelationNorm``. Mode 'd' whitens with the batch
@@ -101,6 +106,7 @@ class DecorrelationNorm(nn.Module):
     self.ns_scaling = ns_scaling
     self.use_kernel = use_kernel
     self.kernel_eval = kernel_eval
+    self.moments_sink: Optional[MomentsSink] = None
     self.register_buffer("mean", torch.zeros(channels))
     self.register_buffer("cov", torch.eye(channels))
 
@@ -120,16 +126,14 @@ class DecorrelationNorm(nn.Module):
       else:
         out = whiten_ops.whiten_eval(x2d, self.mean, self.cov, **wc)
       return _unrows(out, x)
-    if self.mode == "d":
-      out, new_mean, new_cov = whiten_ops.whiten_train(
-          x2d, self.mean, self.cov, momentum=self.momentum,
-          use_kernel=self.use_kernel, **wc)
-    else:
-      batch_mean, batch_cov = whiten_ops.batch_moments(x2d, self.use_kernel)
-      mean, stat_src, new_mean, new_cov = whiten_ops.stats_select_and_ema(
-          batch_mean, batch_cov, self.mean, self.cov, use_batch=False,
-          momentum=self.momentum)
-      out = whiten_ops.whiten_eval(x2d, mean, stat_src, **wc)
+    batch_mean, batch_cov = whiten_ops.batch_moments(x2d, self.use_kernel)
+    if self.moments_sink is not None:
+      self.moments_sink(batch_mean, batch_cov)
+    mean, stat_src, new_mean, new_cov = whiten_ops.stats_select_and_ema(
+        batch_mean, batch_cov, self.mean, self.cov,
+        use_batch=self.mode == "d", momentum=self.momentum)
+    out = whiten_ops.whiten_apply(x2d, mean, whiten_ops.inv_sqrt(stat_src,
+                                                                 **wc))
     if update_stats:
       self.mean = new_mean.detach()
       self.cov = new_cov.detach()
@@ -225,6 +229,7 @@ class NormColor(nn.Module):
     self.ns_scaling = ns_scaling
     self.use_kernel = use_kernel
     self.kernel_eval = kernel_eval
+    self.moments_sink: Optional[MomentsSink] = None
     if self.fused:
       self.gamma = nn.Parameter(torch.eye(channels))
       self.beta = nn.Parameter(torch.zeros(channels))
@@ -243,6 +248,8 @@ class NormColor(nn.Module):
     if not train:
       return self.mean, self.cov
     batch_mean, batch_cov = whiten_ops.batch_moments(x2d, self.use_kernel)
+    if self.moments_sink is not None:
+      self.moments_sink(batch_mean, batch_cov)
     mean, stat_src, new_mean, new_cov = whiten_ops.stats_select_and_ema(
         batch_mean, batch_cov, self.mean, self.cov,
         use_batch=self.norm_code == "d", momentum=self.momentum)
@@ -274,6 +281,37 @@ class NormColor(nn.Module):
     bias = self.beta - mean @ m.T
     out = x2d @ m.T.to(x.dtype) + bias.to(x.dtype)
     return _unrows(out, x)
+
+
+@contextlib.contextmanager
+def capture_batch_moments(model: nn.Module
+                          ) -> Iterator[Dict[str, torch.Tensor]]:
+  """Inside the block, each train-mode forward of a whitening layer of
+  ``model`` records its batch moments into the yielded dict, keyed like the
+  layer's running-statistics buffers (``<layer>.mean``, ``<layer>.cov``);
+  a later forward overwrites an earlier one. The moments come straight
+  from the batch, not from the running statistics' update, so they are
+  exact whatever the momentum, and they are seen even where the buffers
+  are not rebound (``update_stats=False``, ``torch.func.functional_call``).
+  """
+  out: Dict[str, torch.Tensor] = {}
+  layers = [(name, m) for name, m in model.named_modules()
+            if isinstance(m, (DecorrelationNorm, NormColor))
+            and "mean" in m._buffers]
+
+  def sink(prefix: str) -> MomentsSink:
+    def record(mean: torch.Tensor, cov: torch.Tensor) -> None:
+      out[f"{prefix}.mean"] = mean.detach()
+      out[f"{prefix}.cov"] = cov.detach()
+    return record
+
+  for name, m in layers:
+    m.moments_sink = sink(name)
+  try:
+    yield out
+  finally:
+    for _, m in layers:
+      m.moments_sink = None
 
 
 def _add_bias(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:

@@ -138,22 +138,6 @@ def stats_select_and_ema(batch_mean, batch_cov, moving_mean, moving_cov, *,
   return moving_mean.float(), moving_cov.float(), new_mean, new_cov
 
 
-def whiten_train(x2d: torch.Tensor, moving_mean: torch.Tensor,
-                 moving_cov: torch.Tensor, *, momentum: float = 0.99,
-                 eps: float = 1e-5, num_iters: int = 15,
-                 method: str = "newton_schulz", scaling: str = "trace",
-                 use_kernel: Optional[bool] = None):
-  """Training-mode whitening from the batch statistics ('d'). Returns
-  (whitened x2d, new moving mean, new moving cov)."""
-  batch_mean, batch_cov = batch_moments(x2d, use_kernel)
-  mean, stat_src, new_mean, new_cov = stats_select_and_ema(
-      batch_mean, batch_cov, moving_mean, moving_cov, use_batch=True,
-      momentum=momentum)
-  w = inv_sqrt(stat_src, num_iters=num_iters, eps=eps, method=method,
-               scaling=scaling)
-  return whiten_apply(x2d, mean, w), new_mean, new_cov
-
-
 def whiten_eval(x2d: torch.Tensor, moving_mean: torch.Tensor,
                 moving_cov: torch.Tensor, *, eps: float = 1e-5,
                 num_iters: int = 15, method: str = "newton_schulz",

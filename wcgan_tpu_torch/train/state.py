@@ -3,13 +3,16 @@
 Counterpart of ``wcgan_tpu/train/state.py``. The reference threads an
 immutable pytree through a jitted step; here the step updates this object
 in place: G and D (parameters plus their ``wc_stats``/``u`` buffers), the
-two Adams with their LR schedulers, the outer-step count and the
-``torch.Generator`` that draws z and the flips.
+two Adams with their LR schedulers, the outer-step count, the
+``torch.Generator`` that draws z, the flips and the device-data picks, and
+the EMA shadow of G's parameters (``g_ema``, the reference's
+``GANTrainState.g_ema``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Optional
 
 import torch
 
@@ -44,13 +47,26 @@ class GANTrainState:
   d_sched: torch.optim.lr_scheduler.LambdaLR
   generator: torch.Generator
   step: int = 0                   # counts OUTER steps
+  # EMA of G's parameters, name -> tensor over ``g.named_parameters()``
+  # (None when disabled); updated in place after each G update.
+  g_ema: Optional[Dict[str, torch.Tensor]] = None
+  # Bumped by every G update and every restore: the shadow is updated in
+  # place, so its identity cannot say that it changed.
+  g_version: int = 0
+
+
+def ema_copy(g: Generator) -> Dict[str, torch.Tensor]:
+  """A copy of G's parameters, the EMA shadow at init; 4-D weights keep
+  their channels_last layout."""
+  return {name: p.detach().clone(memory_format=torch.preserve_format)
+          for name, p in g.named_parameters()}
 
 
 def state_from_modules(g: Generator, d: Discriminator, opt_cfg: OptimConfig,
                        training_ratio: int, device: torch.device,
-                       seed: int) -> GANTrainState:
-  """Optimizers and the noise generator around modules already on
-  ``device``."""
+                       seed: int, g_ema_decay: float = 0.0) -> GANTrainState:
+  """Optimizers, the noise generator and (``g_ema_decay`` > 0) the EMA
+  shadow around modules already on ``device``."""
   g_opt, g_sched = schedules.adam(
       g.parameters(), opt_cfg.generator_lr, opt_cfg.beta1, opt_cfg.beta2,
       opt_cfg.lr_decay_schedule, opt_cfg.total_outer_steps)
@@ -59,15 +75,18 @@ def state_from_modules(g: Generator, d: Discriminator, opt_cfg: OptimConfig,
       opt_cfg.lr_decay_schedule, opt_cfg.total_outer_steps * training_ratio)
   noise = torch.Generator(device=device).manual_seed(seed)
   return GANTrainState(g=g, d=d, g_opt=g_opt, d_opt=d_opt, g_sched=g_sched,
-                       d_sched=d_sched, generator=noise)
+                       d_sched=d_sched, generator=noise,
+                       g_ema=ema_copy(g) if g_ema_decay > 0.0 else None)
 
 
 def create_state(g_cfg: GeneratorConfig, d_cfg: DiscriminatorConfig,
                  opt_cfg: OptimConfig, training_ratio: int,
-                 device: torch.device, seed: int = 0) -> GANTrainState:
+                 device: torch.device, seed: int = 0,
+                 g_ema_decay: float = 0.0) -> GANTrainState:
   """Random G and D from ``seed`` (initialized on the CPU, so the same seed
   gives the same weights on any device), placed on ``device``."""
   init = torch.Generator().manual_seed(seed)
   g = place(Generator(g_cfg, init), device)
   d = place(Discriminator(d_cfg, init), device)
-  return state_from_modules(g, d, opt_cfg, training_ratio, device, seed + 1)
+  return state_from_modules(g, d, opt_cfg, training_ratio, device, seed + 1,
+                            g_ema_decay)

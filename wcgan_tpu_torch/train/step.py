@@ -10,7 +10,12 @@ Semantics kept from the reference:
 - Real and fake images are scored in one concatenated D forward per D
   update, which advances every SN ``u`` once.
 - The G update runs at ``generator_batch_multiple`` x B; it is the only
-  place G's running statistics advance, and D's ``u`` does not.
+  place G's running statistics advance, and D's ``u`` does not. With
+  ``g_ema_decay`` > 0 the EMA shadow follows each G update.
+
+``make_dataset_step`` draws the real batches on the device from a
+dataset that lives there, and ``_multi`` chains outer steps, as the
+reference's device-data path does.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ class GANConfig:
   generator_batch_multiple: int = 2
   z_dim: int = 128
   random_flip: bool = False
+  g_ema_decay: float = 0.0            # EMA of G params for sampling (0 = off)
 
 
 def prepare_real(real: torch.Tensor, flip: Optional[torch.Tensor]
@@ -116,6 +122,14 @@ def make_outer_step(cfg: GANConfig) -> Callable[..., Dict[str, torch.Tensor]]:
     grads = torch.autograd.grad(loss, params)
     gnorm = _global_norm(grads)
     _apply(params, grads, state.g_opt, state.g_sched)
+    if cfg.g_ema_decay > 0.0 and state.g_ema:
+      # e <- d*e + (1-d)*p, the reference's form and rounding (lerp rounds
+      # otherwise).
+      with torch.no_grad():
+        ema = list(state.g_ema.values())
+        torch._foreach_mul_(ema, cfg.g_ema_decay)
+        torch._foreach_add_(ema, params, alpha=1.0 - cfg.g_ema_decay)
+    state.g_version += 1
     return loss.detach(), gnorm
 
   def outer_step(state: GANTrainState, real_u8, labels,
@@ -144,3 +158,46 @@ def make_outer_step(cfg: GANConfig) -> Callable[..., Dict[str, torch.Tensor]]:
             "g_grad_norm": g_gnorm}
 
   return outer_step
+
+
+def make_dataset_step(cfg: GANConfig, batch_size: int
+                      ) -> Callable[..., Dict[str, torch.Tensor]]:
+  """The outer step over a dataset that lives on the state's device.
+
+  ``step(state, data_x, data_y, noise=None)`` takes the whole dataset,
+  ``data_x`` (N, H, W, C) uint8 and ``data_y`` (N,), draws ``ratio * B``
+  indices uniformly with replacement from ``state.generator`` and runs
+  the outer step on the gathered batches: i.i.d. picks in place of
+  shuffled epochs, as the reference's ``make_dataset_step``. The picks
+  cannot equal the reference's threefry draws; they share its
+  distribution."""
+  inner = make_outer_step(cfg)
+  ratio = cfg.training_ratio
+
+  def step(state: GANTrainState, data_x: torch.Tensor, data_y: torch.Tensor,
+           noise: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+    idx = torch.randint(0, data_x.shape[0], (ratio * batch_size,),
+                        generator=state.generator, device=data_x.device)
+    real = data_x.index_select(0, idx).view(
+        (ratio, batch_size) + tuple(data_x.shape[1:]))
+    labels = data_y.index_select(0, idx).view(ratio, batch_size)
+    return inner(state, real, labels, noise=noise)
+
+  return step
+
+
+def _multi(fn: Callable[..., Dict[str, torch.Tensor]], steps_per_call: int
+           ) -> Callable[..., Dict[str, torch.Tensor]]:
+  """``steps_per_call`` outer steps of ``fn`` per call, returning their
+  mean metrics. The steps run eagerly; the chain sets the epoch length
+  and the probe cadence, as the reference's one-program chain does."""
+  if steps_per_call <= 1:
+    return fn
+
+  def multi(state: GANTrainState, data_x: torch.Tensor,
+            data_y: torch.Tensor) -> Dict[str, torch.Tensor]:
+    metrics = [fn(state, data_x, data_y) for _ in range(steps_per_call)]
+    return {k: torch.stack([m[k] for m in metrics]).mean()
+            for k in metrics[0]}
+
+  return multi
