@@ -35,8 +35,29 @@ the checkpoint, ``diagnostics()``, the recompute and EMA sampling. One
 training outer step
 is profiled (``torch.profiler``) for K1's share of kernel time, and one
 K2 generate forward for K2's kernels, launches per call and the device's
-busy share. Every
-phase that fails stops the script with a non-zero exit. The last line is
+busy share. Then the conditional slice (slice 6):
+
+- k1-widths: K1 at C = 64, 128 and 512, f32 and bf16 rows, at every R of
+  the conditional models and a ragged R, within TOL and bitwise
+  repeatable, timed in turns with its bound and torch.cov;
+- cond-slice: cWC + projection-D (preset cifar10_cwc_resnet_proj: G
+  256x3 ucconv, 10 classes) and cWC-sa (preset tiny_imagenet_cwcsa's
+  shape: G (512, 256, 128, 64) ucconv-sa at 64x64, 200 classes) at full
+  width, bf16 outer steps with 42 and 54 K1 launches a step, one float32
+  outer step of each with K1 and with plain moments (deterministic
+  kernels; plain on the same batches reordered gives float32 rounding's
+  own spread, which bounds the gate where it passes STEP_RTOL), one cWC
+  step profiled;
+- gp-dnorm: WC layers in D with WGAN-GP: one D update's loss and its D
+  gradient (K1's backward differentiated twice) against the plain
+  version's, then one float32 outer step with K1 (138 launches) and with
+  plain moments;
+- cond-sampling: conditional ``generate(1024, batch=256)`` (no K2 launch:
+  K2 has one coloring for all rows, and forcing it raises), and the CLI
+  with ``--conditional --gan_type PROJECTIVE``: labelled grids, then
+  ``--phase test`` on the exported npz.
+
+Every phase that fails stops the script with a non-zero exit. The last line is
 {"ok": true, "device": {...}}; the line before it lists each kernel with
 its launches on its path, error and times. Without a GPU it exits
 non-zero and prints no result. It imports no JAX and nothing of the JAX
@@ -46,6 +67,7 @@ package, as the port does.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import glob
 import json
@@ -62,9 +84,12 @@ import torch
 from wcgan_tpu_torch.cli import run as cli_run
 from wcgan_tpu_torch.data import get_dataset
 from wcgan_tpu_torch.device import place
-from wcgan_tpu_torch.models.discriminator import DiscriminatorConfig
+from wcgan_tpu_torch.models.discriminator import (Discriminator,
+                                                  DiscriminatorConfig)
+from wcgan_tpu_torch.models import layers as L
 from wcgan_tpu_torch.models.generator import Generator, GeneratorConfig
-from wcgan_tpu_torch.ops import _build, cuda_wc
+from wcgan_tpu_torch.ops import _build, cuda_wc, losses
+from wcgan_tpu_torch.train import step as step_lib
 from wcgan_tpu_torch.train.state import OptimConfig, create_state
 from wcgan_tpu_torch.train.step import GANConfig, make_outer_step
 from wcgan_tpu_torch.train.trainer import CKPT_FILE, Trainer, TrainerConfig
@@ -971,6 +996,463 @@ def phase_run(dev: torch.device):
   return step_launches, standing_launches, k2_k
 
 
+# --- the conditional slice ----------------------------------------------------
+
+# K1 at the widths of the conditional models: (C, R) at batch 64 and the G
+# update's 128. cWC-sa G (512, 256, 128, 64), 64x64: 9 WC layers; WC in
+# D 128x4: blocks 1-3 nc1/nc2 at C=128, R = 256 B (block 1) and 64 B.
+CWCSA_LAYERS = ((512, 1024), (512, 4096), (512, 4096), (256, 16384),
+                (256, 16384), (128, 65536), (128, 65536), (64, 262144),
+                (64, 262144))
+D_WC_LAYERS = ((128, 16384), (128, 16384), (128, 4096), (128, 4096),
+               (128, 4096), (128, 4096))
+RAGGED_R = 1000
+
+
+def _doubled(layers):
+  return tuple((c, 2 * r) for c, r in layers)
+
+
+def _k1_yardstick(x):
+  """Plain float32 moments below R = 65,536; a float64 run above, where
+  plain float32 drifts by up to ~5e-5 itself (the cuda lane's rule)."""
+  if x.shape[0] < 65536:
+    return cuda_wc.moments_reference(x)
+  x64 = x.double()
+  mean = x64.mean(dim=0)
+  return mean, (x64 - mean).T @ (x64 - mean) / x64.shape[0]
+
+
+def phase_k1_widths(dev: torch.device):
+  """K1 at C = 64, 128 and 512 (and 256 for the sums) at every R of the
+  conditional models plus a ragged R, f32 and bf16 rows: within TOL of
+  its yardstick, bitwise repeatable, cov == cov^T. Then bf16 timing in
+  turns against the plain version and torch.cov with each (C, R)'s bound,
+  and the sums over one cWC-sa outer step (54 calls) and over D's WC
+  layers in one WGAN-GP outer step (96 calls). Returns the worst error
+  and those sums."""
+  gen = torch.Generator(device=dev).manual_seed(11)
+  shapes = sorted({(c, r) for c, r in CWCSA_LAYERS + _doubled(CWCSA_LAYERS)
+                   + D_WC_LAYERS + _doubled(D_WC_LAYERS) if c != 256})
+  worst = 0.0
+  for c in sorted({c for c, _ in shapes}):
+    errs = []
+    for r in [r for cc, r in shapes if cc == c] + [RAGGED_R]:
+      for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn((r, c), generator=gen, device=dev) * 2 + 3).to(dtype)
+        got, again = cuda_wc.moments_cuda(x), cuda_wc.moments_cuda(x)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again))
+              and torch.equal(got[1], got[1].T), ("not repeatable", c, r,
+                                                  dtype))
+        err = max_err(got, _k1_yardstick(x))
+        check(err <= TOL, (c, r, dtype, err))
+        worst = max(worst, err)
+        errs.append(f"{r}/{'f32' if dtype == torch.float32 else 'bf16'}:"
+                    f"{err:.2e}")
+    log("k1-widths", f"C={c}: max|d| per R/dtype (plain below R=65536, "
+        "float64 from it) " + " ".join(errs) + "; two calls bitwise equal, "
+        "cov == cov^T")
+  per = {}
+  timed = sorted(set(shapes) | {(256, 16384), (256, 32768)})
+  for c, r in timed:
+    x = torch.randn((r, c), generator=gen, device=dev).to(torch.bfloat16)
+    xf = x.float()
+    k, p, lib = _in_turns((cuda_wc.moments_cuda, (x,)),
+                          (cuda_wc.moments_reference, (x,)),
+                          (_torch_cov, (xf,)))
+    hbm, ops, _, _ = k1_floors(r, c)
+    per[(c, r)] = (k, p, lib, max(hbm, ops), hbm, ops)
+    log("k1-widths", f"C={c} R={r}: K1 {k:.4f} ms, plain {p:.4f}, torch.cov "
+        f"{lib:.4f}; bound {max(hbm, ops):.4f} ("
+        f"{'bytes' if hbm >= ops else 'operations'}: HBM {hbm:.4f}, bf16 "
+        f"operations {ops:.4f}); K1 at {max(hbm, ops) / k:.1%} of it")
+  sums = {}
+  for name, layers, reps in (
+      ("cWC-sa outer step, 54 calls", CWCSA_LAYERS, 5),
+      ("WC in D, one WGAN-GP outer step, 96 calls", D_WC_LAYERS, 15)):
+    calls = [l for l in layers for _ in range(reps)] + list(
+        _doubled(layers))
+    sums[name] = [sum(per[l][i] for l in calls) for i in range(6)]
+    k, p, lib, bound, hbm, ops = sums[name]
+    log("k1-widths", f"{name} (device ms, bf16 rows, on {nvidia_smi()}): K1 "
+        f"{k:.4f}, plain {p:.4f}, torch.cov {lib:.4f}; bound {bound:.4f} "
+        f"(HBM {hbm:.4f}, bf16 operations {ops:.4f}); K1 at "
+        f"{bound / k:.1%} of it")
+  return worst, sums
+
+
+def _cond_cfgs(model: str, dtype: str, use_kernel=None):
+  """(GeneratorConfig, DiscriminatorConfig, GANConfig, batch, resolution)
+  of the full-width conditional models: 'cwc' (preset
+  cifar10_cwc_resnet_proj: G 256x3 ucconv, 10 classes, SN D 128x4 with
+  projection, hinge), 'cwcsa' (preset tiny_imagenet_cwcsa's shape: G
+  (512, 256, 128, 64) ucconv-sa at 64x64, 200 classes, D (64, ..., 1024)
+  with projection), 'gp' (the cWC G, D 128x4 with WC layers 'd' and
+  projection, WGAN-GP weight 10)."""
+  if model == "cwcsa":
+    g = GeneratorConfig(resolution=64, filters=(512, 256, 128, 64),
+                        block_coloring="ucconv-sa",
+                        last_coloring="ucconv-sa", num_classes=200,
+                        filters_emb=10, dtype=dtype, use_kernel=use_kernel)
+    d = DiscriminatorConfig(resolution=64, filters=(64, 128, 256, 512, 1024),
+                            downsample=(True, True, True, True, False),
+                            projection=True, num_classes=200, dtype=dtype,
+                            use_kernel=use_kernel)
+    gan = GANConfig(loss="hinge", gan_type="projection", num_classes=200,
+                    training_ratio=5, random_flip=True)
+    return g, d, gan, 64, 64
+  g = GeneratorConfig(filters=(256, 256, 256), block_coloring="ucconv",
+                      last_coloring="ucconv", num_classes=10, dtype=dtype,
+                      use_kernel=use_kernel)
+  d = DiscriminatorConfig(filters=(128, 128, 128, 128), projection=True,
+                          num_classes=10, dtype=dtype, use_kernel=use_kernel,
+                          norm="d" if model == "gp" else "n")
+  gan = GANConfig(loss="wgan-gp" if model == "gp" else "hinge",
+                  gradient_penalty_weight=10.0 if model == "gp" else 0.0,
+                  gan_type="projection", num_classes=10, training_ratio=5,
+                  random_flip=True)
+  return g, d, gan, 64, 32
+
+
+def _cond_inputs(dev, gan, b, res, seed):
+  """Real uint8 images, their labels and every draw of one outer step."""
+  gen = torch.Generator(device=dev).manual_seed(seed)
+  k, nc, gb = gan.training_ratio, gan.num_classes, 2 * b
+  real = torch.randint(0, 256, (k, b, res, res, 3), dtype=torch.uint8,
+                       generator=gen, device=dev)
+  labels = torch.randint(0, nc, (k, b), generator=gen, device=dev)
+  noise = {"z_d": torch.randn((k, b, gan.z_dim), generator=gen, device=dev),
+           "z_g": torch.randn((gb, gan.z_dim), generator=gen, device=dev),
+           "flip": torch.rand((k, b), generator=gen, device=dev) < 0.5,
+           "y_d": torch.randint(0, nc, (k, b), generator=gen, device=dev),
+           "y_g": torch.randint(0, nc, (gb,), generator=gen, device=dev)}
+  if gan.gradient_penalty_weight > 0:
+    noise["gp_eps"] = torch.rand((k, b), generator=gen, device=dev)
+  return real, labels, noise
+
+
+@contextlib.contextmanager
+def _deterministic():
+  """Deterministic kernels inside the block: cuDNN's deterministic
+  algorithms, and PyTorch's for the rest (the gather backward of the
+  class tables accumulates with atomics otherwise), so that two runs of
+  one float32 step differ only where their code differs."""
+  saved = (torch.are_deterministic_algorithms_enabled(),
+           torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+      True, False)
+  try:
+    yield
+  finally:
+    torch.use_deterministic_algorithms(saved[0], warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        saved[1:])
+
+
+def _rel(a: dict, b: dict) -> dict:
+  return {k: abs(a[k] - b[k]) / max(1.0, abs(b[k])) for k in b}
+
+
+def _permuted(perm, gperm, real, labels, noise):
+  """The same step's inputs with every batch in another order: each D
+  batch's images, labels and draws by ``perm``, the G update's by
+  ``gperm``. Losses are batch means and the whitening statistics are sums
+  over rows, so the step is the same in exact arithmetic and differs only
+  in float32 rounding."""
+  noise = {k: (v[gperm] if k in ("z_g", "y_g") else v[:, perm])
+           for k, v in noise.items()}
+  return real[:, perm], labels[:, perm], noise
+
+
+def _f32_pair(dev, model: str):
+  """One float32 outer step of ``model`` from the same state with K1 and
+  with plain moments on the same images, labels and noise, then with plain
+  moments on the same batches in another order, with deterministic
+  kernels. K1 must agree with plain within STEP_RTOL (the statistics
+  within STATS_ATOL) or, where plain's own float32 rounding (the reordered
+  batch) moves a metric further, within twice that. Returns (metrics K1, metrics plain, wc_stats max|d| of G and
+  D, K1 launches, seconds of the K1 step, the K1 state, the largest
+  relative metric differences K1 vs plain and plain vs reordered)."""
+  out = []
+  with _deterministic():
+    for use_kernel, reorder in ((True, False), (False, False),
+                                (False, True)):
+      g_cfg, d_cfg, gan, b, res = _cond_cfgs(model, "float32", use_kernel)
+      state = create_state(g_cfg, d_cfg, OptimConfig(), gan.training_ratio,
+                           dev, seed=3)
+      inputs = _cond_inputs(dev, gan, b, res, seed=12)
+      if reorder:
+        gen = torch.Generator(device=dev).manual_seed(14)
+        inputs = _permuted(
+            torch.randperm(b, generator=gen, device=dev),
+            torch.randperm(2 * b, generator=gen, device=dev), *inputs)
+      real, labels, noise = inputs
+      torch.cuda.synchronize()
+      cuda_wc.MOMENTS_LAUNCHES = 0
+      t0 = time.perf_counter()
+      metrics = make_outer_step(gan)(state, real, labels, noise=noise)
+      torch.cuda.synchronize()
+      out.append(({k: float(v) for k, v in metrics.items()},
+                  {f"{m}.{n}": t.detach().clone() for m in ("g", "d")
+                   for n, t in getattr(state, m).named_buffers()
+                   if n.endswith(("mean", "cov"))},
+                  cuda_wc.MOMENTS_LAUNCHES, time.perf_counter() - t0,
+                  state if not out else None))
+  (m_k, s_k, n_k, dt, st), (m_p, s_p, n_p, _, _), (m_r, s_r, n_r, _, _) = (
+      out)
+  check(n_p == 0 and n_r == 0, (n_p, n_r))
+  d_kp, d_pr = _rel(m_k, m_p), _rel(m_r, m_p)
+  stats_err, stats_pr = (max(float((a[n] - s_p[n]).abs().max()) for n in s_p)
+                         for a in (s_k, s_r))
+  log(f"{model}-f32", "relative metric differences, deterministic kernels: "
+      "K1 vs plain " + ", ".join(f"{k} {v:.2e}" for k, v in d_kp.items())
+      + "; plain vs plain on the reordered batches " + ", ".join(
+          f"{k} {v:.2e}" for k, v in d_pr.items())
+      + f"; wc_stats max|d| K1 vs plain {stats_err:.2e}, plain vs reordered "
+      f"{stats_pr:.2e}")
+  for k in m_p:
+    check(np.isfinite(m_k[k]) and d_kp[k] <= max(STEP_RTOL, 2 * d_pr[k]),
+          (model, k, m_k[k], m_p[k], m_r[k]))
+  check(stats_err <= max(STATS_ATOL, 2 * stats_pr),
+        (model, stats_err, stats_pr))
+  return (m_k, m_p, stats_err, n_k, dt, st, max(d_kp.values()),
+          max(d_pr.values()))
+
+
+def _bf16_steps(dev, model: str, steps: int):
+  """``steps`` bf16 outer steps of ``model`` after one warm-up, counted
+  from 0: (K1 launches, seconds, metrics of the last, state)."""
+  g_cfg, d_cfg, gan, b, res = _cond_cfgs(model, "bfloat16")
+  opt = OptimConfig(lr_decay_schedule="linear", total_outer_steps=100)
+  state = create_state(g_cfg, d_cfg, opt, gan.training_ratio, dev, seed=0)
+  step = make_outer_step(gan)
+  real, labels, _ = _cond_inputs(dev, gan, b, res, seed=4)
+  step(state, real, labels)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  cuda_wc.MOMENTS_LAUNCHES = 0
+  t0 = time.perf_counter()
+  metrics = [step(state, real, labels) for _ in range(steps)]
+  torch.cuda.synchronize()
+  dt = time.perf_counter() - t0
+  launches = cuda_wc.MOMENTS_LAUNCHES
+  values = {k: float(metrics[-1][k]) for k in metrics[-1]}
+  check(all(np.isfinite(v) for v in values.values()), values)
+  return launches, dt, values, state, gan
+
+
+def phase_cond_slice(dev: torch.device):
+  """The two conditional models at full width: bf16 outer steps with the
+  K1 launches counted (42 and 54 a step), outer steps/s and imgs/s on the
+  host clock; one float32 outer step of each with K1 and with plain
+  moments; one cWC step profiled. Returns the launches by path and the
+  cWC state (for sampling)."""
+  paths = {}
+  cwc_state = None
+  for model, steps, per_step, name in (
+      ("cwc", 4, 42, "cWC + projection-D (cifar10_cwc_resnet_proj)"),
+      ("cwcsa", 3, 54, "cWC-sa (tiny_imagenet_cwcsa's shape)")):
+    launches, dt, last, state, gan = _bf16_steps(dev, model, steps)
+    check(launches == per_step * steps, (model, launches))
+    b = 64
+    log("cond-slice", f"{name}, bf16, b64 x5 D + b128 G, {steps} outer "
+        f"steps in {dt:.3f} s = {steps / dt:.3f} steps/s, "
+        f"{steps * 5 * b / dt:.1f} imgs/s (host clock, synchronised) on "
+        f"{nvidia_smi()}; K1 launches {launches} ({per_step}/step); peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; last "
+        + ", ".join(f"{k} {v:.4f}" for k, v in last.items()))
+    paths[f"cond-slice: {model}, {steps} bf16 outer steps"] = launches
+    if model == "cwc":
+      cwc_state, cwc_gan = state, gan
+    else:
+      del state
+    m_k, m_p, stats_err, n_k, dt32, _, kp, pr = _f32_pair(dev, model)
+    check(n_k == per_step, (model, n_k))
+    paths[f"cond-slice: {model}, one float32 outer step"] = n_k
+    log("cond-slice", f"{name}, float32, one outer step, K1 vs plain "
+        f"moments: " + ", ".join(f"{k} {m_k[k]:.6f}/{m_p[k]:.6f}"
+                                 for k in m_p)
+        + f"; largest relative difference {kp:.2e} (plain vs reordered "
+        f"{pr:.2e}); wc_stats max|d| {stats_err:.2e}; K1 launches {n_k}; "
+        f"{dt32:.3f} s")
+    torch.cuda.empty_cache()
+  _profile_cond_step(cwc_state, cwc_gan)
+  return paths, cwc_state, cwc_gan
+
+
+def _profile_cond_step(state, gan) -> None:
+  """One bf16 cWC outer step under torch.profiler: kernel time, busy
+  share over the device span, K1's share."""
+  from torch.profiler import ProfilerActivity, profile
+  dev = state.generator.device
+  real, labels, _ = _cond_inputs(dev, gan, 64, 32, seed=9)
+  step = make_outer_step(gan)
+  step(state, real, labels)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    step(state, real, labels)
+    torch.cuda.synchronize()
+  wall = (time.perf_counter() - t0) * 1e3
+  kernels = [e for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+  total = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+  span = (max(e.time_range.end for e in kernels)
+          - min(e.time_range.start for e in kernels)) / 1e3
+  k1 = [e for e in kernels if any(n in e.name for n in K1_KERNELS)]
+  k1_ms = sum(e.time_range.elapsed_us() for e in k1) / 1e3
+  gram = sum(1 for e in k1 if "centered_gram" in e.name)
+  check(total > 0 and gram == 42, (total, gram))
+  log("profile-cond", f"one cWC outer step (bf16) under torch.profiler on "
+      f"{nvidia_smi()}: {len(kernels)} kernels, {total:.3f} ms of kernel "
+      f"time in a {span:.3f} ms device span (busy {total / span:.2f}; "
+      f"profiled wall {wall:.1f} ms); K1 {k1_ms:.3f} ms "
+      f"({k1_ms / total:.1%}; {gram} Gram launches)")
+
+
+def _d_grads(d, x, fake, labels, eps):
+  """(the WGAN-GP D loss of one D update, its D-parameter gradient
+  flattened, K1 launches): real and fake scored apart, the penalty on the
+  interpolates, as ``train/step.py`` takes it."""
+  before = cuda_wc.MOMENTS_LAUNCHES
+  gp = losses.gradient_penalty(lambda xi: d(xi, labels)[0], x, fake, eps,
+                               weight=10.0)
+  loss = losses.wgan_d_loss(d(x, labels)[0], d(fake, labels)[0]) + gp
+  grads = torch.autograd.grad(loss, list(d.parameters()), allow_unused=True,
+                              materialize_grads=True)
+  torch.cuda.synchronize()
+  return (loss.detach().item(), torch.cat([g.flatten() for g in grads]),
+          cuda_wc.MOMENTS_LAUNCHES - before)
+
+
+def _cond_number(cov: torch.Tensor) -> float:
+  eig = torch.linalg.eigvalsh(cov.double())
+  return float(eig[-1] / eig[0].clamp(min=1e-30))
+
+
+def phase_gp_dnorm(dev: torch.device):
+  """WC in D with WGAN-GP at full width. First the D loss of one D update
+  (penalty included) and its D-parameter gradient, which differentiates
+  K1's backward a second time, through K1 and through plain moments on the
+  same D and inputs, and through plain moments on the batch reordered
+  (float32 rounding alone); then one float32 outer step with K1 (138
+  launches) and with plain moments. Returns the step's K1 launches."""
+  g_cfg, d_cfg, gan, b, res = _cond_cfgs("gp", "float32")
+  state = create_state(g_cfg, d_cfg, OptimConfig(), 5, dev, seed=3)
+  real, labels, noise = _cond_inputs(dev, gan, b, res, seed=13)
+  x = step_lib.prepare_real(real[0], None)
+  with torch.no_grad():
+    fake = state.g(noise["z_d"][0], noise["y_d"][0], train=True,
+                   update_stats=False)
+  d_plain = place(Discriminator(dataclasses.replace(d_cfg, use_kernel=False),
+                                torch.Generator().manual_seed(0)), dev)
+  d_plain.load_state_dict(state.d.state_dict())
+  perm = torch.randperm(b, generator=torch.Generator(device=dev).manual_seed(
+      15), device=dev)
+  y, eps = labels[0], noise["gp_eps"][0]
+  with _deterministic(), L.capture_batch_moments(state.d) as moments:
+    (loss_k, g_k, n1), (loss_p, g_p, n2), (loss_r, g_r, _) = (
+        _d_grads(state.d, x, fake, y, eps), _d_grads(d_plain, x, fake, y, eps),
+        _d_grads(d_plain, x[perm], fake[perm], y[perm], eps[perm]))
+  conds = [_cond_number(v) for k, v in moments.items() if k.endswith("cov")]
+  scale = float(g_p.abs().max())
+  err_kp = float((g_k - g_p).abs().max()) / scale
+  err_pr = float((g_r - g_p).abs().max()) / scale
+  flips = float(((g_k > 0) != (g_p > 0)).float().mean())
+  log("gp-dnorm", f"one D update's loss (real, fake and interpolates of 64, "
+      f"penalty included): K1 {loss_k:.6f}, plain {loss_p:.6f}, plain on "
+      f"the reordered batch {loss_r:.6f}; its D-parameter gradient through "
+      f"K1's double backward, max|d| / max|grad| (max|grad| {scale:.3e}): "
+      f"K1 vs plain {err_kp:.2e}, plain vs reordered {err_pr:.2e}; "
+      f"gradient signs that differ K1 vs plain {flips:.2e}; K1 launches {n1} "
+      f"(3 D passes x 6 WC layers); condition numbers of D's batch "
+      f"covariances (fake pass) " + ", ".join(
+          f"{c:.3g}" for c in conds))
+  check(np.isfinite(loss_k) and bool(torch.isfinite(g_k).all())
+        and abs(loss_k - loss_p) <= STEP_RTOL * max(1.0, abs(loss_p))
+        and err_kp <= max(STEP_RTOL, 2 * err_pr) and n1 == 18 and n2 == 0,
+        (loss_k, loss_p, err_kp, err_pr, n1, n2))
+  del state, d_plain
+  m_k, m_p, stats_err, n_k, dt, _, kp, pr = _f32_pair(dev, "gp")
+  check(n_k == 5 * (7 + 6 + 6 + 6) + 7 + 6, n_k)
+  log("gp-dnorm", "cWC G 256x3 + D 128x4 with WC layers 'd' and projection, "
+      "WGAN-GP 10, float32, one outer step, K1 vs plain moments: "
+      + ", ".join(f"{k} {m_k[k]:.6f}/{m_p[k]:.6f}" for k in m_p)
+      + f"; largest relative difference {kp:.2e} (plain vs reordered "
+      f"{pr:.2e}); wc_stats max|d| {stats_err:.2e}; K1 launches {n_k}; "
+      f"{dt:.3f} s")
+  return n_k
+
+
+def phase_cond_sampling(dev: torch.device, state, gan):
+  """Conditional sampling from the cWC G: ``generate(1024, batch=256)``
+  (z, then labels, per batch) twice, bitwise equal, with no K2 launch;
+  K2 forced on its conditional layers raises, naming one. Then the CLI: a
+  conditional PROJECTIVE run with labelled grids and ``--phase test`` on
+  its exported npz. Returns the K2 launches of the generate run."""
+  ds = get_dataset("synthetic", batch_size=64, seed=0, conditional=True,
+                   z_dim=gan.z_dim, synthetic_size=256)
+  out_dir = os.path.join("build", "chip_smoke_cond")
+  shutil.rmtree(out_dir, ignore_errors=True)
+  cfg = TrainerConfig(name="smoke", output_dir=out_dir,
+                      checkpoints_dir=os.path.join(out_dir, "ckpt"))
+  trainer = Trainer(ds, state, gan, cfg)
+  trainer.generate(256, batch=256)                       # warm-up
+  imgs, dt, mem, k1, k2 = _generate(trainer, 1024)
+  again = _generate(trainer, 1024)
+  check(imgs.shape == (1024, 32, 32, 3) and imgs.dtype == np.uint8
+        and np.array_equal(imgs, again[0]), "conditional generate repeat")
+  check(k1 == 0 and k2 == 0 and again[4] == 0, (k1, k2))
+  g_k = place(Generator(dataclasses.replace(state.g.cfg, kernel_eval=True),
+                        torch.Generator().manual_seed(0)), dev)
+  g_k.load_state_dict(state.g.state_dict())
+  z = torch.randn((8, gan.z_dim), device=dev)
+  try:
+    g_k(z, torch.zeros(8, dtype=torch.long, device=dev), train=False)
+    check(False, "kernel_eval=True on a conditional layer did not raise")
+  except ValueError as e:
+    check("block0.nc1" in str(e), str(e))
+  log("cond-sampling", f"cWC G 256x3 bf16, conditional generate(1024, "
+      f"batch=256) on {nvidia_smi()}: {1024 / dt:.1f} / "
+      f"{1024 / again[1]:.1f} imgs/s (host clock), bitwise repeatable, K2 "
+      f"launches {k2}, K1 {k1}; peak {mem:.0f} MiB; kernel_eval=True "
+      "raises on block0.nc1")
+  path = trainer.save_sample_grid(0)
+  check(os.path.getsize(path) > 0, path)
+  cli_dir = os.path.join("build", "chip_smoke_cond_cli")
+  shutil.rmtree(cli_dir, ignore_errors=True)
+  cond = ["--conditional", "--gan_type", "PROJECTIVE",
+          "--generator_block_coloring", "ucconv",
+          "--generator_last_coloring", "ucconv"]
+  cmd, dt, lines = _run_cli(cond + [
+      "--number_of_epochs", "2", "--batches_per_epoch", "3",
+      "--checkpoint_ratio", "2", "--checkpoints_dir",
+      os.path.join(cli_dir, "ckpt")], cli_dir)
+  grids = sorted(os.path.basename(p) for p in
+                 glob.glob(os.path.join(cli_dir, "smoke", "*.png")))
+  npz = os.path.join(cli_dir, "ckpt", "smoke", "epoch_1_generator.npz")
+  check(sum(l.startswith("Epoch ") for l in lines) == 2
+        and grids == ["epoch_00000.png", "epoch_00001.png"]
+        and os.path.isfile(npz), (lines, grids))
+  with np.load(npz) as data:
+    check("['block0']/['nc1']/['gamma_c']" in data.files, data.files[:8])
+  log("cond-sampling", f"{' '.join(cmd[1:])}: rc 0 in {dt:.1f} s; "
+      f"labelled grids {grids}; {npz}")
+  test_dir = os.path.join("build", "chip_smoke_cond_test")
+  shutil.rmtree(test_dir, ignore_errors=True)
+  cmd, dt, lines = _run_cli(cond + ["--phase", "test", "--generator_checkpoint",
+                                    npz, "--start_epoch", "2"], test_dir)
+  grid = os.path.join(test_dir, "smoke", "epoch_00002.png")
+  check(os.path.isfile(grid) and any("wrote sample grid" in l
+                                     for l in lines), lines)
+  log("cond-sampling", f"{' '.join(cmd[1:])}: rc 0 in {dt:.1f} s; wrote "
+      f"{grid}")
+  return k2
+
+
 def main() -> int:
   dev = phase_device()
   phase_build()
@@ -986,6 +1468,10 @@ def main() -> int:
   k2_launches, npz = phase_sampling(dev, state, gan)
   phase_cli(npz)
   run_step_launches, standing_launches, run_k2_launches = phase_run(dev)
+  widths_err, _ = phase_k1_widths(dev)
+  cond_paths, cwc_state, cwc_gan = phase_cond_slice(dev)
+  gp_launches = phase_gp_dnorm(dev)
+  cond_k2 = phase_cond_sampling(dev, cwc_state, cwc_gan)
   loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
       "wcgan_tpu", "jax", "jaxlib", "flax", "optax", "orbax"))
   check(not loaded, f"chip_smoke imported {loaded}")
@@ -1002,15 +1488,19 @@ def main() -> int:
   k1_paths = {"training slice, 10 outer steps": launches,
               "run: one outer step from a saved and from its restored "
               "state": run_step_launches,
-              "run: one standing-statistics recompute": standing_launches}
+              "run: one standing-statistics recompute": standing_launches,
+              **cond_paths,
+              "gp-dnorm: one float32 WGAN-GP outer step": gp_launches}
   k2_paths = {"sampling: generate(1024, batch=256)": k2_launches,
-              "run: EMA generate(1024, batch=256)": run_k2_launches}
+              "run: EMA generate(1024, batch=256)": run_k2_launches,
+              "cond-sampling: conditional generate(1024, batch=256)":
+                  cond_k2}
   print(json.dumps({"kernels": [{
       "name": "moments", "route": "cuda",
       "source": "wcgan_tpu_torch/csrc/moments.cu",
       "replaces": "wcgan_tpu/ops/pallas_wc.py:56",
       "launches": sum(k1_paths.values()), "launches_by_path": k1_paths,
-      "max_abs_err": err,
+      "max_abs_err": max(err, widths_err),
       "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
       "bound_by": k1_bound_by, "library_ms": k1_lib_ms}, {
       "name": "whiten_color_apply", "route": "cuda",

@@ -116,6 +116,46 @@ def test_k1_gradient_matches_autograd_of_plain(dev):
   assert _max_err(grads[:1], grads[1:]) <= ATOL
 
 
+# The conditional slice's widths and row counts: the cWC-sa G whitens at
+# C = 512, 256, 128 and 64 with R up to 524,288 (its G update at C=64);
+# WC in D at C=128.
+@pytest.mark.parametrize("rows,cols", [(1024, 512), (8192, 512),
+                                       (1000, 512), (4096, 128),
+                                       (131072, 128), (1000, 128),
+                                       (262144, 64), (524288, 64),
+                                       (1000, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_conditional_widths(rows, cols, dtype, dev):
+  gen = torch.Generator(device=dev).manual_seed(3 * rows + cols)
+  x = (torch.randn((rows, cols), generator=gen, device=dev) * 2 + 3).to(dtype)
+  mean, cov = cuda_wc.moments_cuda(x)
+  mean2, cov2 = cuda_wc.moments_cuda(x)
+  torch.cuda.synchronize()
+  assert torch.equal(mean, mean2) and torch.equal(cov, cov2)
+  assert torch.equal(cov, cov.T)
+  assert _max_err((mean, cov), _k1_reference(x)) <= ATOL
+
+
+@pytest.mark.parametrize("rows,cols", [(4096, 128), (16384, 64)])
+def test_k1_double_backward_matches_autograd_of_plain(rows, cols, dev):
+  """The gradient of a gradient's norm through K1 (WGAN-GP with WC in D)
+  against plain autograd over the two-pass formula, rtol 1e-4."""
+  gen = torch.Generator(device=dev).manual_seed(rows)
+  x = torch.randn((rows, cols), generator=gen, device=dev) * 1.5 + 2
+  w = torch.randn((cols, cols), generator=gen, device=dev)
+  outs = []
+  for fn in (cuda_wc.moments, cuda_wc.moments_reference):
+    xg = x.clone().requires_grad_(True)
+    mean, cov = fn(xg)
+    g, = torch.autograd.grad(torch.sum(cov * w) + torch.sum(mean ** 2), xg,
+                             create_graph=True)
+    hx, = torch.autograd.grad(torch.sum(g ** 2), xg)
+    outs.append((g.detach(), hx))
+  for a, b in zip(*outs):
+    scale = float(b.abs().max())
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6 * scale)
+
+
 def test_k1_refuses_what_it_does_not_take(dev):
   before = cuda_wc.MOMENTS_LAUNCHES
   with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -439,3 +479,94 @@ def test_window_staging_on_card(dev, tmp_path):
   rng.choice(256, 40, replace=False)
   second = np.sort(rng.choice(256, 40, replace=False))
   np.testing.assert_array_equal(imgs.cpu().numpy(), tt.ds.images[second])
+
+
+# --- the conditional slice on the card -----------------------------------------
+
+
+COND_FLAGS = ["--device", "cuda", "--dataset", "synthetic",
+              "--synthetic_size", "256", "--generator_filters", "32,32,32",
+              "--discriminator_filters", "32,32,32", "--batch_size", "16",
+              "--training_ratio", "2", "--z_dim", "16", "--bf16",
+              "--batches_per_epoch", "2", "--steps_per_call", "2",
+              "--display_ratio", "0", "--checkpoint_ratio", "0",
+              "--conditional", "--gan_type", "PROJECTIVE",
+              "--generator_block_coloring", "ucconv",
+              "--generator_last_coloring", "ucconv-sa", "--name", "cond"]
+
+
+def test_conditional_training_and_generate_on_card(dev, tmp_path):
+  """A conditional run on the card: 7 K1 launches a G forward, none of K2
+  in conditional sampling, repeatable images."""
+  from wcgan_tpu_torch.cli import run as trun
+  tt = trun.build_experiment(trun.build_parser().parse_args(
+      COND_FLAGS + ["--number_of_epochs", "1", "--output_dir",
+                    str(tmp_path)]))
+  before = cuda_wc.MOMENTS_LAUNCHES
+  tt.train()
+  torch.cuda.synchronize()
+  # 2 outer steps x (2 D-phase G forwards + 1 G update) x 7 WC layers.
+  assert cuda_wc.MOMENTS_LAUNCHES == before + 2 * 3 * 7
+  k2 = cuda_wc.WC_APPLY_LAUNCHES
+  imgs = tt.generate(64, batch=32)
+  assert cuda_wc.WC_APPLY_LAUNCHES == k2
+  assert np.array_equal(imgs, tt.generate(64, batch=32))
+
+
+def test_wgan_gp_with_wc_in_d_on_card(dev):
+  """One float32 WGAN-GP outer step with WC in D through K1 (its backward
+  differentiated twice by the penalty) against the same step on plain
+  moments, with deterministic kernels: within chip_smoke.py's STEP_RTOL,
+  or within twice the distance that float32 rounding alone (the same
+  batches in another order, plain moments) puts between two plain runs."""
+  from wcgan_tpu_torch.models.discriminator import DiscriminatorConfig
+  from wcgan_tpu_torch.models.generator import GeneratorConfig
+  from wcgan_tpu_torch.train.state import OptimConfig, create_state
+  from wcgan_tpu_torch.train.step import GANConfig, make_outer_step
+  gan = GANConfig(loss="wgan-gp", gradient_penalty_weight=10.0,
+                  gan_type="projection", num_classes=10, training_ratio=2,
+                  z_dim=32)
+  gen = torch.Generator().manual_seed(2)
+  real = torch.randint(0, 256, (2, 16, 32, 32, 3), generator=gen,
+                       dtype=torch.uint8)
+  labels = torch.randint(0, 10, (2, 16), generator=gen)
+  noise = {"z_d": torch.randn((2, 16, 32), generator=gen),
+           "z_g": torch.randn((32, 32), generator=gen),
+           "y_d": torch.randint(0, 10, (2, 16), generator=gen),
+           "y_g": torch.randint(0, 10, (32,), generator=gen),
+           "gp_eps": torch.rand((2, 16), generator=gen)}
+  perm, gperm = torch.randperm(16, generator=gen), torch.randperm(
+      32, generator=gen)
+  reordered = (real[:, perm], labels[:, perm],
+               {k: v[gperm] if k in ("z_g", "y_g") else v[:, perm]
+                for k, v in noise.items()})
+  results = []
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  torch.backends.cudnn.deterministic = True
+  try:
+    for use_kernel, inputs in ((True, (real, labels, noise)),
+                               (False, (real, labels, noise)),
+                               (False, reordered)):
+      g_cfg = GeneratorConfig(z_dim=32, filters=(64, 64, 64),
+                              block_coloring="ucconv",
+                              last_coloring="ucconv", num_classes=10,
+                              use_kernel=use_kernel)
+      d_cfg = DiscriminatorConfig(filters=(64, 64, 64, 64), norm="d",
+                                  projection=True, num_classes=10,
+                                  use_kernel=use_kernel)
+      state = create_state(g_cfg, d_cfg, OptimConfig(), 2, dev, seed=3)
+      before = cuda_wc.MOMENTS_LAUNCHES
+      metrics = make_outer_step(gan)(state, *inputs[:2], noise=inputs[2])
+      results.append(({k: float(v) for k, v in metrics.items()},
+                      cuda_wc.MOMENTS_LAUNCHES - before))
+  finally:
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+  (m_k, n_k), (m_p, n_p), (m_r, _) = results
+  # 2 x (G 7 + D 3 passes x 6) + G 7 + D 6.
+  assert n_k == 2 * (7 + 3 * 6) + 7 + 6 and n_p == 0
+  for k in m_p:
+    assert np.isfinite(m_k[k])
+    scale = max(1.0, abs(m_p[k]))
+    spread = abs(m_r[k] - m_p[k]) / scale
+    assert abs(m_k[k] - m_p[k]) / scale <= max(1e-3, 2 * spread), k

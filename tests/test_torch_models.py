@@ -86,7 +86,7 @@ def test_norm_color_matches_jax(norm, rng):
 
 
 def test_norm_color_rejects_unported_codes():
-  for norm, coloring in (("b", "uconv"), ("d", "ucconv"), ("n", "cconv"),
+  for norm, coloring in (("b", "uconv"), ("b", "ucconv"), ("b", "cconv-sa"),
                          ("b", "s")):
     with pytest.raises(NotImplementedError):
       tlayers.NormColor(8, norm=norm, coloring=coloring)
@@ -181,8 +181,8 @@ def test_generator_and_discriminator_match_jax(jax_models):
   (score_j, _), d_mut = jd.apply({"params": d_params, **d_state},
                                  jnp.asarray(x), train=True, update_sn=True,
                                  mutable=["spectral"])
-  score_t = td(_nchw(x), update_sn=True)
-  assert score_t.shape == (4,)
+  score_t, logits_t = td(_nchw(x), update_sn=True)
+  assert score_t.shape == (4,) and logits_t is None
   np.testing.assert_allclose(score_t.detach().numpy(), np.asarray(score_j),
                              rtol=1e-4, atol=ATOL)
   _assert_tree_close(weights.to_jax(td)[1], d_mut, STATE_ATOL)
@@ -224,7 +224,7 @@ def test_bf16_generator_runs_in_bf16(jax_models):
   assert g16.nc_out.cov.dtype == torch.float32
   np.testing.assert_allclose(_nhwc(img16),
                              _nhwc(g32(torch.from_numpy(z))), atol=0.15)
-  assert torch.isfinite(d16(_nchw(x))).all()
+  assert torch.isfinite(d16(_nchw(x))[0]).all()
 
 
 @pytest.mark.parametrize("norm,coloring", [

@@ -1,8 +1,10 @@
 """Experiment entry point of the port: ``python -m wcgan_tpu_torch``.
 
 Counterpart of ``wcgan_tpu/cli/run.py`` for the slices ported so far: the
-unconditional ResNet WC-GAN (G with norm codes n/d/dr and coloring codes
-n/s/uconv, SN ResNet D), hinge/ns/wgan losses, Adam with the reference's
+ResNet WC-GAN (G with norm codes n/d/dr and every coloring code, the
+conditional ones with ``--conditional``; ResNet D with or without spectral
+normalization, optional WC layers, projection-D or the AC-GAN head by
+``--gan_type``), hinge/ns/wgan/wgan-gp losses, Adam with the reference's
 LR schedules, the reference's default run (device-resident data in
 chains of ``--steps_per_call``, the whitening probe and guard, full-state
 checkpoints every ``--checkpoint_ratio`` epochs, ``--resume``), EMA
@@ -17,6 +19,9 @@ Usage:
       --bf16 --number_of_epochs 2 --batches_per_epoch 3
   python -m wcgan_tpu_torch --device cuda --dataset synthetic --bf16 \\
       --number_of_epochs 4 --resume auto
+  python -m wcgan_tpu_torch --device cuda --dataset synthetic --bf16 \\
+      --conditional --gan_type PROJECTIVE --generator_block_coloring ucconv \\
+      --generator_last_coloring ucconv
   python -m wcgan_tpu_torch --device cpu --phase test \\
       --generator_checkpoint epoch_9_generator.npz
 """
@@ -40,22 +45,19 @@ from wcgan_tpu_torch.models.discriminator import DiscriminatorConfig
 from wcgan_tpu_torch.models.discriminator import preset_filters as d_presets
 from wcgan_tpu_torch.models.generator import GeneratorConfig
 from wcgan_tpu_torch.models.generator import preset_filters as g_presets
+from wcgan_tpu_torch.models.layers import COLORING_CODES
 from wcgan_tpu_torch.train.state import OptimConfig, create_state
 from wcgan_tpu_torch.train.step import GANConfig
 from wcgan_tpu_torch.train.trainer import Trainer, TrainerConfig
 
-# The norm and coloring codes of G that the port takes.
+# The norm codes the port takes ('b', BatchNorm, is not ported yet).
 NORM_CODES = ("n", "d", "dr")
-COLORING_CODES = ("n", "s", "uconv")
 
 # Flags of the JAX CLI (wcgan_tpu/cli/run.py) that this port does not take
 # yet; each is refused by name instead of being silently dropped.
 UNSUPPORTED_FLAGS = (
-    "--gan_type", "--gradient_penalty_weight", "--conditional",
-    "--generator_concat_cls", "--discriminator_norm",
-    "--discriminator_coloring", "--discriminator_spectral",
     "--spectral_iterations", "--fully_diff_spectral", "--conv_singular",
-    "--filters_emb", "--sn_update_on_g_step", "--whitening_precision",
+    "--sn_update_on_g_step", "--whitening_precision",
     "--compute_inception_score", "--compute_fid", "--score_every",
     "--samples_inception", "--samples_fid", "--inception_weights",
     "--platform", "--mesh", "--remat", "--profile_dir", "--debug_nans",
@@ -104,7 +106,15 @@ def build_parser() -> argparse.ArgumentParser:
   p.add_argument("--data_dir", default="data")
   p.add_argument("--synthetic_size", type=int, default=4096)
   p.add_argument("--arch", default="res", choices=["res"])
-  p.add_argument("--loss", default="hinge", choices=["hinge", "ns", "wgan"])
+  p.add_argument("--loss", default="hinge",
+                 choices=["hinge", "ns", "wgan", "wgan-gp"])
+  p.add_argument("--gan_type", default="GAN",
+                 choices=["GAN", "PROJECTIVE", "AC_GAN"])
+  p.add_argument("--gradient_penalty_weight", type=float, default=10.0,
+                 help="WGAN-GP penalty weight (only with --loss wgan-gp)")
+  p.add_argument("--conditional", action="store_true",
+                 help="class-conditional training (labels flow to G/D); "
+                      "implied by --gan_type PROJECTIVE or AC_GAN")
   p.add_argument("--generator_block_norm", default="d",
                  choices=list(NORM_CODES))
   p.add_argument("--generator_block_coloring", default="uconv",
@@ -115,8 +125,18 @@ def build_parser() -> argparse.ArgumentParser:
                  choices=list(COLORING_CODES))
   p.add_argument("--generator_filters", default=None,
                  help="comma-separated per-block widths (default preset)")
+  p.add_argument("--generator_concat_cls", action="store_true",
+                 help="concatenate the one-hot label to z")
+  p.add_argument("--filters_emb", type=int, default=10,
+                 help="basis filters of the '-sa' conditional colorings")
+  p.add_argument("--discriminator_norm", default="n",
+                 choices=list(NORM_CODES))
+  p.add_argument("--discriminator_coloring", default="n",
+                 choices=list(COLORING_CODES))
   p.add_argument("--discriminator_filters", default=None,
                  help="comma-separated per-block widths (default preset)")
+  p.add_argument("--discriminator_spectral", type=int, default=1,
+                 help="1 = spectral-normalize D kernels (default)")
   p.add_argument("--batch_size", type=int, default=64)
   p.add_argument("--training_ratio", type=int, default=5)
   p.add_argument("--generator_batch_multiple", type=int, default=2)
@@ -205,10 +225,14 @@ def set_precision() -> str:
 def build_experiment(args) -> Trainer:
   """args -> a Trainer with its state on ``args.device``."""
   device = resolve_device(args.device)
+  conditional = args.conditional or args.gan_type in ("PROJECTIVE",
+                                                      "AC_GAN")
   ds = get_dataset(args.dataset, batch_size=args.batch_size,
-                   data_dir=args.data_dir, conditional=False, seed=args.seed,
-                   z_dim=args.z_dim, synthetic_size=args.synthetic_size)
+                   data_dir=args.data_dir, conditional=conditional,
+                   seed=args.seed, z_dim=args.z_dim,
+                   synthetic_size=args.synthetic_size)
   res = ds.resolution
+  num_classes = ds.num_classes
   dtype = "bfloat16" if args.bf16 else "float32"
   g_filters = _parse_filters(args.generator_filters) or g_presets(res)
   g_cfg = GeneratorConfig(
@@ -217,9 +241,10 @@ def build_experiment(args) -> Trainer:
       block_norm=args.generator_block_norm,
       block_coloring=args.generator_block_coloring,
       last_norm=args.generator_last_norm,
-      last_coloring=args.generator_last_coloring, ns_iters=args.ns_iters,
-      ns_method=args.whitening_method, ns_scaling=args.ns_scaling,
-      wc_momentum=args.wc_momentum, dtype=dtype)
+      last_coloring=args.generator_last_coloring, num_classes=num_classes,
+      filters_emb=args.filters_emb, concat_cls=args.generator_concat_cls,
+      ns_iters=args.ns_iters, ns_method=args.whitening_method,
+      ns_scaling=args.ns_scaling, wc_momentum=args.wc_momentum, dtype=dtype)
   d_filters = _parse_filters(args.discriminator_filters)
   if d_filters is None:
     d_filters, d_down = d_presets(res)
@@ -230,11 +255,23 @@ def build_experiment(args) -> Trainer:
         len(d_filters) > 1)
   d_cfg = DiscriminatorConfig(
       resolution=res, input_channels=ds.channels, filters=d_filters,
-      downsample=d_down, dtype=dtype)
+      downsample=d_down, spectral=bool(args.discriminator_spectral),
+      norm=args.discriminator_norm, coloring=args.discriminator_coloring,
+      num_classes=num_classes, filters_emb=args.filters_emb,
+      projection=args.gan_type == "PROJECTIVE",
+      ac_gan=args.gan_type == "AC_GAN", ns_iters=args.ns_iters,
+      ns_method=args.whitening_method, wc_momentum=args.wc_momentum,
+      ns_scaling=args.ns_scaling, dtype=dtype)
   gan_cfg = GANConfig(
-      loss=args.loss, training_ratio=args.training_ratio,
+      loss=args.loss,
+      gan_type={"GAN": "gan", "PROJECTIVE": "projection",
+                "AC_GAN": "acgan"}[args.gan_type],
+      training_ratio=args.training_ratio,
       generator_batch_multiple=args.generator_batch_multiple,
-      z_dim=args.z_dim, g_ema_decay=args.generator_ema,
+      gradient_penalty_weight=(args.gradient_penalty_weight
+                               if args.loss == "wgan-gp" else 0.0),
+      num_classes=num_classes, z_dim=args.z_dim,
+      g_ema_decay=args.generator_ema,
       random_flip=(bool(args.random_flip) if args.random_flip is not None
                    else args.dataset not in ("mnist", "fashion-mnist",
                                              "digits")))
@@ -249,7 +286,8 @@ def build_experiment(args) -> Trainer:
                        seed=args.seed, g_ema_decay=args.generator_ema)
   name = args.name or (f"{args.dataset}_{args.arch}_{args.loss}"
                        f"_{args.generator_block_norm}-"
-                       f"{args.generator_block_coloring}")
+                       f"{args.generator_block_coloring}"
+                       + ("_cond" if conditional else ""))
   tcfg = TrainerConfig(
       name=name, output_dir=os.path.join(args.output_dir, name),
       checkpoints_dir=args.checkpoints_dir,

@@ -1,10 +1,11 @@
-"""ResNet building blocks of the generator and the SN discriminator.
+"""ResNet building blocks of the generator and the discriminator.
 
 Counterpart of the res blocks in ``wcgan_tpu/models/blocks.py``: the
-generator's up-block with WC layers, and the discriminator's
-spectral-normalized down-blocks. Submodule names follow the flax ones
-(``nc1``, ``conv1``, ``conv_sc``, ...) so weights map across by path
-(``wcgan_tpu_torch/weights.py``).
+generator's up-block with WC layers (class labels passed through to its
+conditional colorings), and the discriminator's down-blocks with
+spectral-normalized or plain convs and optional WC layers. Submodule names
+follow the flax ones (``nc1``, ``conv1``, ``conv_sc``, ...) so weights map
+across by path (``wcgan_tpu_torch/weights.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,16 @@ from torch import nn
 from wcgan_tpu_torch.models import layers as L
 
 
+def _disc_conv(in_channels: int, features: int, kernel_size: int,
+               generator: torch.Generator, spectral: bool, sn_iters: int,
+               fully_diff: bool) -> nn.Module:
+  """The spectral/plain conv switch of the discriminator blocks."""
+  if spectral:
+    return L.SNConv(in_channels, features, kernel_size, generator,
+                    sn_iters=sn_iters, fully_diff=fully_diff)
+  return L.PlainConv(in_channels, features, kernel_size, generator)
+
+
 class GenResBlock(nn.Module):
   """norm->color->ReLU->(up)->conv x2, plus a shortcut that is upsampled
   and passed through a learned 1x1 conv whenever the block upsamples or
@@ -25,7 +36,8 @@ class GenResBlock(nn.Module):
 
   def __init__(self, in_channels: int, filters: int,
                generator: torch.Generator, upsample: bool = True,
-               norm: str = "d", coloring: str = "uconv", ns_iters: int = 15,
+               norm: str = "d", coloring: str = "uconv", num_classes: int = 0,
+               filters_emb: int = 10, ns_iters: int = 15,
                ns_method: str = "newton_schulz", momentum: float = 0.99,
                ns_scaling: str = "trace", use_kernel: Optional[bool] = None,
                kernel_eval: Optional[bool] = None):
@@ -36,7 +48,9 @@ class GenResBlock(nn.Module):
       return L.NormColor(channels, norm=norm, coloring=coloring,
                          momentum=momentum, ns_iters=ns_iters,
                          method=ns_method, ns_scaling=ns_scaling,
-                         use_kernel=use_kernel, kernel_eval=kernel_eval)
+                         use_kernel=use_kernel, kernel_eval=kernel_eval,
+                         num_classes=num_classes, filters_emb=filters_emb,
+                         generator=generator)
 
     self.nc1 = norm_color(in_channels)
     self.conv1 = L.Conv(in_channels, filters, 3, generator)
@@ -45,13 +59,13 @@ class GenResBlock(nn.Module):
     self.conv_sc = (L.Conv(in_channels, filters, 1, generator)
                     if upsample or in_channels != filters else None)
 
-  def forward(self, x: torch.Tensor, train: bool = True,
-              update_stats: bool = True) -> torch.Tensor:
-    h = F.relu(self.nc1(x, train, update_stats))
+  def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None,
+              train: bool = True, update_stats: bool = True) -> torch.Tensor:
+    h = F.relu(self.nc1(x, labels, train, update_stats))
     if self.upsample:
       h = L.upsample_nearest(h)
     h = self.conv1(h)
-    h = F.relu(self.nc2(h, train, update_stats))
+    h = F.relu(self.nc2(h, labels, train, update_stats))
     h = self.conv2(h)
     sc = L.upsample_nearest(x) if self.upsample else x
     if self.conv_sc is not None:
@@ -60,23 +74,53 @@ class GenResBlock(nn.Module):
 
 
 class DiscResBlock(nn.Module):
-  """ReLU->SNconv->ReLU->SNconv->(down), plus a shortcut through a 1x1
-  SN conv (then down) when the block downsamples or changes channels.
-  Norm layers inside D are not ported."""
+  """(WC)->ReLU->conv->(WC)->ReLU->conv->(down), plus a shortcut through a
+  1x1 conv (then down) when the block downsamples or changes channels.
+  The convs are spectral-normalized unless ``spectral`` is off; the WC
+  layers ``nc1``/``nc2`` exist when a norm or coloring code is given
+  (``--discriminator_norm`` / ``--discriminator_coloring``)."""
 
   def __init__(self, in_channels: int, filters: int,
                generator: torch.Generator, downsample: bool = True,
-               sn_iters: int = 1, fully_diff: bool = False):
+               spectral: bool = True, sn_iters: int = 1,
+               fully_diff: bool = False, norm: str = "n", coloring: str = "n",
+               num_classes: int = 0, filters_emb: int = 10,
+               ns_iters: int = 15, ns_method: str = "newton_schulz",
+               momentum: float = 0.99, ns_scaling: str = "trace",
+               use_kernel: Optional[bool] = None):
     super().__init__()
     self.downsample = downsample
-    sn = dict(generator=generator, sn_iters=sn_iters, fully_diff=fully_diff)
-    self.conv1 = L.SNConv(in_channels, filters, 3, **sn)
-    self.conv2 = L.SNConv(filters, filters, 3, **sn)
-    self.conv_sc = (L.SNConv(in_channels, filters, 1, **sn)
+    conv = dict(generator=generator, spectral=spectral, sn_iters=sn_iters,
+                fully_diff=fully_diff)
+    self.has_norm = norm != "n" or coloring != "n"
+
+    def norm_color(channels):
+      return L.NormColor(channels, norm=norm, coloring=coloring,
+                         momentum=momentum, ns_iters=ns_iters,
+                         method=ns_method, ns_scaling=ns_scaling,
+                         use_kernel=use_kernel, num_classes=num_classes,
+                         filters_emb=filters_emb, generator=generator)
+
+    if self.has_norm:
+      self.nc1 = norm_color(in_channels)
+    self.conv1 = _disc_conv(in_channels, filters, 3, **conv)
+    if self.has_norm:
+      self.nc2 = norm_color(filters)
+    self.conv2 = _disc_conv(filters, filters, 3, **conv)
+    self.conv_sc = (_disc_conv(in_channels, filters, 1, **conv)
                     if downsample or in_channels != filters else None)
 
-  def forward(self, x: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
-    h = self.conv1(F.relu(x), update_sn)
+  def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None,
+              update_sn: bool = False,
+              update_stats: bool = False) -> torch.Tensor:
+    # D's WC layers always whiten with the batch statistics (train mode),
+    # as the reference applies D.
+    h = x
+    if self.has_norm:
+      h = self.nc1(h, labels, True, update_stats)
+    h = self.conv1(F.relu(h), update_sn)
+    if self.has_norm:
+      h = self.nc2(h, labels, True, update_stats)
     h = self.conv2(F.relu(h), update_sn)
     if self.downsample:
       h = L.downsample_avg(h)
@@ -93,13 +137,14 @@ class DiscOptimizedBlock(nn.Module):
   down->1x1 conv (SN-GAN's optimized block, no pre-activation)."""
 
   def __init__(self, in_channels: int, filters: int,
-               generator: torch.Generator, sn_iters: int = 1,
-               fully_diff: bool = False):
+               generator: torch.Generator, spectral: bool = True,
+               sn_iters: int = 1, fully_diff: bool = False):
     super().__init__()
-    sn = dict(generator=generator, sn_iters=sn_iters, fully_diff=fully_diff)
-    self.conv1 = L.SNConv(in_channels, filters, 3, **sn)
-    self.conv2 = L.SNConv(filters, filters, 3, **sn)
-    self.conv_sc = L.SNConv(in_channels, filters, 1, **sn)
+    conv = dict(generator=generator, spectral=spectral, sn_iters=sn_iters,
+                fully_diff=fully_diff)
+    self.conv1 = _disc_conv(in_channels, filters, 3, **conv)
+    self.conv2 = _disc_conv(filters, filters, 3, **conv)
+    self.conv_sc = _disc_conv(in_channels, filters, 1, **conv)
 
   def forward(self, x: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
     h = F.relu(self.conv1(x, update_sn))

@@ -1,15 +1,18 @@
-"""The SN-GAN ResNet discriminator.
+"""The ResNet discriminator: SN-GAN D, projection-D and the AC-GAN head.
 
 Counterpart of ``wcgan_tpu/models/discriminator.py`` for ``arch='res'``:
-spectral-normalized down-blocks -> ReLU -> global sum pool -> SN dense ->
-scalar score. Projection-D, the AC-GAN head, norm layers in D and the
-DCGAN arch are not ported.
+down-blocks (spectral-normalized convs unless ``spectral`` is off, with
+optional WC layers: ``norm``/``coloring``) -> ReLU -> global sum pool ->
+dense -> scalar score; with ``projection`` the score gains the inner
+product of the pooled features with a spectral-normalized class
+embedding, and with ``ac_gan`` a dense head gives class logits. The DCGAN
+arch is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,9 +32,22 @@ class DiscriminatorConfig:
   input_channels: int = 3
   filters: Tuple[int, ...] = (128, 128, 128, 128)
   downsample: Tuple[bool, ...] = (True, True, False, False)
+  spectral: bool = True                # --discriminator_spectral
   sn_iters: int = 1
   fully_diff: bool = False
+  norm: str = "n"                      # --discriminator_norm
+  coloring: str = "n"                  # --discriminator_coloring
+  num_classes: int = 0
+  filters_emb: int = 10
+  projection: bool = False             # projection-D (gan_type PROJECTIVE)
+  ac_gan: bool = False                 # AC-GAN auxiliary classifier head
+  ns_iters: int = 15
+  ns_method: str = "newton_schulz"
+  wc_momentum: float = 0.99
+  ns_scaling: str = "trace"
   dtype: str = "float32"
+  use_kernel: Optional[bool] = None    # K1 for the WC layers' moments:
+                                       # None = on CUDA
 
   def __post_init__(self):
     if self.arch != "res":
@@ -48,28 +64,61 @@ class DiscriminatorConfig:
 
 
 class Discriminator(nn.Module):
-  """Scores (N,) float32 of images (N, C, H, W), channels_last.
+  """(scores (N,) float32, class logits (N, num_classes) float32 or None)
+  of images (N, C, H, W), channels_last, and labels (N,) for projection-D
+  or conditional colorings.
 
-  ``update_sn`` advances every SN layer's ``u`` once in this forward."""
+  ``update_sn`` advances every SN layer's ``u`` once in this forward,
+  ``update_stats`` the running statistics of its WC layers."""
 
   def __init__(self, cfg: DiscriminatorConfig, generator: torch.Generator):
     super().__init__()
     self.cfg = cfg
-    sn = dict(sn_iters=cfg.sn_iters, fully_diff=cfg.fully_diff)
+    conv = dict(spectral=cfg.spectral, sn_iters=cfg.sn_iters,
+                fully_diff=cfg.fully_diff)
     self.block0 = B.DiscOptimizedBlock(cfg.input_channels, cfg.filters[0],
-                                       generator, **sn)
+                                       generator, **conv)
     for i in range(1, len(cfg.filters)):
       self.add_module(f"block{i}", B.DiscResBlock(
           cfg.filters[i - 1], cfg.filters[i], generator,
-          downsample=cfg.downsample[i], **sn))
-    self.fc_out = L.SNDense(cfg.filters[-1], 1, generator, **sn)
+          downsample=cfg.downsample[i], norm=cfg.norm, coloring=cfg.coloring,
+          num_classes=cfg.num_classes, filters_emb=cfg.filters_emb,
+          ns_iters=cfg.ns_iters, ns_method=cfg.ns_method,
+          momentum=cfg.wc_momentum, ns_scaling=cfg.ns_scaling,
+          use_kernel=cfg.use_kernel, **conv))
+    feat = cfg.filters[-1]
+    sn = dict(sn_iters=cfg.sn_iters, fully_diff=cfg.fully_diff)
 
-  def forward(self, x: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
-    h = x.to(DTYPES[self.cfg.dtype])
-    for i in range(len(self.cfg.filters)):
-      h = getattr(self, f"block{i}")(h, update_sn)
+    def dense(features):
+      if cfg.spectral:
+        return L.SNDense(feat, features, generator, **sn)
+      return L.PlainDense(feat, features, generator)
+
+    self.fc_out = dense(1)
+    if cfg.projection:
+      self.proj_emb = L.SNEmbed(cfg.num_classes, feat, generator, **sn)
+    if cfg.ac_gan:
+      self.fc_cls = dense(cfg.num_classes)
+    for name, m in self.named_modules():
+      if isinstance(m, L.NormColor):
+        m.layer_name = name
+
+  def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None,
+              update_sn: bool = False, update_stats: bool = False
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    cfg = self.cfg
+    h = self.block0(x.to(DTYPES[cfg.dtype]), update_sn)
+    for i in range(1, len(cfg.filters)):
+      h = getattr(self, f"block{i}")(h, labels, update_sn, update_stats)
     feat = L.global_sum_pool(F.relu(h)).float()
-    return self.fc_out(feat, update_sn)[:, 0]
+    score = self.fc_out(feat, update_sn)[:, 0]
+    if cfg.projection:
+      if labels is None:
+        raise ValueError("projection discriminator needs labels")
+      emb = self.proj_emb(labels, update_sn)
+      score = score + torch.sum(emb.float() * feat, dim=-1)
+    class_logits = self.fc_cls(feat, update_sn) if cfg.ac_gan else None
+    return score, class_logits
 
 
 def preset_filters(resolution: int

@@ -2,8 +2,10 @@
 
 Counterpart of ``wcgan_tpu/models/generator.py`` for ``arch='res'``:
 z -> Dense -> base x base x C -> up-blocks -> final WC layer -> ReLU ->
-3x3 conv -> tanh, with norm codes {n, d, dr} and coloring codes
-{n, s, uconv}. Conditional generation and the DCGAN arch are not ported.
+3x3 conv -> tanh, with norm codes {n, d, dr} and every coloring code.
+A conditional G (``num_classes`` > 0) takes one label per image, used by
+its conditional colorings and, with ``concat_cls``, as a one-hot
+concatenated to z. The DCGAN arch is not ported.
 """
 
 from __future__ import annotations
@@ -35,15 +37,20 @@ class GeneratorConfig:
   block_coloring: str = "uconv"
   last_norm: str = "d"
   last_coloring: str = "uconv"
+  num_classes: int = 0                 # 0 => unconditional
+  filters_emb: int = 10                # K basis filters of the '-sa' codes
+  concat_cls: bool = False             # one-hot labels concatenated to z
   ns_iters: int = 15
   ns_method: str = "newton_schulz"     # or 'cholesky' (the oracle)
   ns_scaling: str = "trace"
   wc_momentum: float = 0.99
   dtype: str = "float32"               # compute dtype: 'float32'|'bfloat16'
   use_kernel: Optional[bool] = None    # K1 for the moments: None = on CUDA
-  kernel_eval: Optional[bool] = None   # K2 for every eval-mode WC layer:
-                                       # None/False = the split path (the
-                                       # default, as in the JAX package)
+  kernel_eval: Optional[bool] = None   # K2 for every eval-mode 'uconv'
+                                       # WC layer (a conditional one
+                                       # raises): None/False = the split
+                                       # path (the default, as in the JAX
+                                       # package)
 
   def __post_init__(self):
     if self.arch != "res":
@@ -60,7 +67,8 @@ class GeneratorConfig:
 
 
 class Generator(nn.Module):
-  """Images (N, C, H, W), channels_last, float32 in [-1, 1] from z (N, z).
+  """Images (N, C, H, W), channels_last, float32 in [-1, 1] from z (N, z)
+  and, when conditional, labels (N,).
 
   ``train`` whitens with batch statistics; ``update_stats`` advances the
   running statistics (only meaningful in train mode)."""
@@ -70,10 +78,12 @@ class Generator(nn.Module):
     self.cfg = cfg
     f0 = cfg.filters[0]
     br = cfg.base_resolution
-    self.fc_in = L.Dense(cfg.z_dim, br * br * f0, generator)
+    z_in = cfg.z_dim + (cfg.num_classes if cfg.concat_cls else 0)
+    self.fc_in = L.Dense(z_in, br * br * f0, generator)
     wc = dict(ns_iters=cfg.ns_iters, momentum=cfg.wc_momentum,
               ns_scaling=cfg.ns_scaling, use_kernel=cfg.use_kernel,
-              kernel_eval=cfg.kernel_eval)
+              kernel_eval=cfg.kernel_eval, num_classes=cfg.num_classes,
+              filters_emb=cfg.filters_emb)
     in_ch = f0
     for i, f in enumerate(cfg.filters):
       self.add_module(f"block{i}", B.GenResBlock(
@@ -82,8 +92,11 @@ class Generator(nn.Module):
       in_ch = f
     self.nc_out = L.NormColor(in_ch, norm=cfg.last_norm,
                               coloring=cfg.last_coloring,
-                              method=cfg.ns_method, **wc)
+                              method=cfg.ns_method, generator=generator, **wc)
     self.conv_out = L.Conv(in_ch, cfg.output_channels, 3, generator)
+    for name, m in self.named_modules():
+      if isinstance(m, L.NormColor):
+        m.layer_name = name
 
   def reconfigure(self, **changes) -> None:
     """Change ``ns_iters`` or demote norm codes 'dr' -> 'd' (``block_norm``,
@@ -109,17 +122,24 @@ class Generator(nn.Module):
         nc.norm.code = nc.norm.wc.mode = code
         nc.norm.wc.ns_iters = cfg.ns_iters
 
-  def forward(self, z: torch.Tensor, train: bool = True,
-              update_stats: bool = True) -> torch.Tensor:
+  def forward(self, z: torch.Tensor, labels: Optional[torch.Tensor] = None,
+              train: bool = True, update_stats: bool = True) -> torch.Tensor:
     cfg = self.cfg
-    h = self.fc_in(z.to(DTYPES[cfg.dtype]))
+    dtype = DTYPES[cfg.dtype]
+    if cfg.num_classes > 0 and labels is None:
+      raise ValueError("conditional generator needs labels")
+    h = z.to(dtype)
+    if cfg.num_classes > 0 and cfg.concat_cls:
+      onehot = F.one_hot(labels.long(), cfg.num_classes).to(dtype)
+      h = torch.cat([h, onehot], dim=-1)
+    h = self.fc_in(h)
     br = cfg.base_resolution
     # The reference lays fc_in's output out as (N, br, br, C); keep that
     # order, then view it as NCHW, which is channels_last in memory.
     h = h.view(h.shape[0], br, br, cfg.filters[0]).permute(0, 3, 1, 2)
     for i in range(len(cfg.filters)):
-      h = getattr(self, f"block{i}")(h, train, update_stats)
-    h = F.relu(self.nc_out(h, train, update_stats))
+      h = getattr(self, f"block{i}")(h, labels, train, update_stats)
+    h = F.relu(self.nc_out(h, labels, train, update_stats))
     h = self.conv_out(h)
     return torch.tanh(h.float())
 

@@ -56,8 +56,16 @@ def glorot_uniform_(t: torch.Tensor, fan_in: int, fan_out: int,
   return nn.init.uniform_(t, -limit, limit, generator=generator)
 
 
-# Conditional coloring codes of the JAX package; not ported yet.
-_COND_CODES = ("cconv", "ucconv", "ccs", "ucs", "cconv-sa", "ucconv-sa")
+COLORING_CODES = ("n", "s", "ccs", "ucs", "uconv", "cconv", "ucconv",
+                  "cconv-sa", "ucconv-sa")
+# The conditional 1x1-conv codes that NormColor fuses with whitening.
+_FUSED_COND_CODES = ("cconv", "ucconv", "cconv-sa", "ucconv-sa")
+
+
+def _as_nsc(x2d: torch.Tensor, n: int) -> torch.Tensor:
+  """(N*S, C) rows -> (N, S, C): the per-image row blocks of the
+  conditional colorings (a view)."""
+  return x2d.view(n, -1, x2d.shape[-1])
 
 
 def _kernel_eval_ok(kernel_eval: Optional[bool], method: str) -> bool:
@@ -164,63 +172,137 @@ class NormLayer(nn.Module):
     return self.wc(x, train, update_stats)
 
 
-class Coloring(nn.Module):
-  """Unconditional coloring behind its code: 'n' (identity), 's'
-  (diagonal scale-shift ``gamma``, ``beta``) or 'uconv' (1x1 conv
-  ``gamma_a`` (C, C) from the identity, ``beta_a``). The conditional codes
-  are not ported yet."""
+def _normal_(shape, std: float, generator: torch.Generator) -> torch.Tensor:
+  return torch.randn(shape, generator=generator) * std
 
-  def __init__(self, channels: int, code: str = "uconv"):
+
+def _conditional_params(module: nn.Module, code: str, channels: int,
+                        num_classes: int, filters_emb: int,
+                        generator: Optional[torch.Generator]) -> None:
+  """The parameters of a conditional 1x1-conv code on ``module``, with the
+  JAX package's names and inits: the class-agnostic ``gamma_a`` (identity)
+  and ``beta_a`` for 'ucconv'/'ucconv-sa'; per-class filters ``gamma_c``
+  (normal, std 0.02) or, for '-sa', K = ``filters_emb`` basis filters
+  ``basis`` (normal, std 0.02) with the class weights ``embedding`` (ones);
+  the per-class bias ``beta_c`` (zeros)."""
+  if num_classes <= 0:
+    raise ValueError(f"conditional coloring {code!r} requires num_classes "
+                     "> 0")
+  gen = generator if generator is not None else torch.Generator()
+  if code in ("ucconv", "ucconv-sa"):
+    module.gamma_a = nn.Parameter(torch.eye(channels))
+    module.beta_a = nn.Parameter(torch.zeros(channels))
+  if code in ("cconv", "ucconv"):
+    module.gamma_c = nn.Parameter(
+        _normal_((num_classes, channels, channels), 0.02, gen))
+  else:
+    module.basis = nn.Parameter(
+        _normal_((filters_emb, channels, channels), 0.02, gen))
+    module.embedding = nn.Parameter(torch.ones(num_classes, filters_emb))
+  module.beta_c = nn.Parameter(torch.zeros(num_classes, channels))
+
+
+def _need_labels(code: str, labels: Optional[torch.Tensor]) -> torch.Tensor:
+  if labels is None:
+    raise ValueError(f"coloring code {code!r} requires labels")
+  return labels.long()
+
+
+class Coloring(nn.Module):
+  """Coloring behind its code, the JAX package's ``Coloring``: 'n'
+  (identity); 's' (diagonal ``gamma``, ``beta``); 'ccs' / 'ucs' (per-class
+  diagonal ``gamma_c``, ``beta_c``; 'ucs' sums the unconditional 's' onto
+  a zero-init class scale); 'uconv' (1x1 conv ``gamma_a`` (C, C) from the
+  identity, ``beta_a``); 'cconv' / 'ucconv' (per-class 1x1 conv; 'cconv'
+  adds an identity skip, 'ucconv' the 'uconv' branch); '-sa' (the class
+  filter from K shared basis filters). The conditional codes take one
+  label per image."""
+
+  def __init__(self, channels: int, code: str = "uconv", num_classes: int = 0,
+               filters_emb: int = 10,
+               generator: Optional[torch.Generator] = None):
     super().__init__()
-    if code in _COND_CODES:
-      raise NotImplementedError(
-          f"conditional coloring {code!r} is not ported yet")
+    if code not in COLORING_CODES:
+      raise ValueError(f"unknown coloring code {code!r}")
     self.code = code
-    if code == "s":
+    if code in ("s", "ucs"):
       self.gamma = nn.Parameter(torch.ones(channels))
       self.beta = nn.Parameter(torch.zeros(channels))
+    if code in ("ccs", "ucs"):
+      if num_classes <= 0:
+        raise ValueError(f"conditional coloring {code!r} requires "
+                         "num_classes > 0")
+      # 'ucs' sums both branches, so its class scale starts at 0 and the
+      # block is the identity at step 0; 'ccs' is the whole transform.
+      init = torch.zeros if code == "ucs" else torch.ones
+      self.gamma_c = nn.Parameter(init(num_classes, channels))
+      self.beta_c = nn.Parameter(torch.zeros(num_classes, channels))
     elif code == "uconv":
       self.gamma_a = nn.Parameter(torch.eye(channels))
       self.beta_a = nn.Parameter(torch.zeros(channels))
-    elif code != "n":
-      raise ValueError(f"unknown coloring code {code!r}")
+    elif code in _FUSED_COND_CODES:
+      _conditional_params(self, code, channels, num_classes, filters_emb,
+                          generator)
 
-  def forward(self, x: torch.Tensor) -> torch.Tensor:
-    if self.code == "n":
+  def forward(self, x: torch.Tensor,
+              labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+    code = self.code
+    if code == "n":
       return x
     x2d = _rows(x)
-    if self.code == "s":
-      out = coloring_ops.center_scale(x2d, self.gamma, self.beta)
+    if code == "s":
+      return _unrows(coloring_ops.center_scale(x2d, self.gamma, self.beta), x)
+    if code == "uconv":
+      return _unrows(
+          coloring_ops.color_uncond(x2d, self.gamma_a, self.beta_a), x)
+    labels = _need_labels(code, labels)
+    x3d = _as_nsc(x2d, x.shape[0])
+    if code in ("ccs", "ucs"):
+      out = coloring_ops.conditional_center_scale(x3d, labels, self.gamma_c,
+                                                  self.beta_c)
+      if code == "ucs":
+        out = out + coloring_ops.center_scale(x3d, self.gamma, self.beta)
+    elif code in ("cconv", "ucconv"):
+      cond = coloring_ops.color_cond(x3d, labels, self.gamma_c, self.beta_c)
+      out = (cond + x3d if code == "cconv" else
+             coloring_ops.color_uncond(x3d, self.gamma_a, self.beta_a) + cond)
     else:
-      out = coloring_ops.color_uncond(x2d, self.gamma_a, self.beta_a)
-    return _unrows(out, x)
+      cond = coloring_ops.color_cond_sa(x3d, labels, self.basis,
+                                        self.embedding, self.beta_c)
+      out = (cond + x3d if code == "cconv-sa" else
+             coloring_ops.color_uncond(x3d, self.gamma_a, self.beta_a) + cond)
+    return _unrows(out.reshape(-1, x2d.shape[1]), x)
 
 
 class NormColor(nn.Module):
-  """The WC block: a norm code {'n', 'd', 'dr'} and a coloring code
-  {'n', 's', 'uconv'}, the JAX package's ``NormColor``.
+  """The WC block: a norm code {'n', 'd', 'dr'} and a coloring code (any of
+  ``COLORING_CODES``), the JAX package's ``NormColor``.
 
   Whitening with 'uconv' coloring is fused (``_fused_wc_uconv``): W and
   Gamma fold into one C x C matrix M = Gamma W (float32) with bias
   beta - mu M^T, so the rows see a single matmul in the activation dtype:
-  out = x M^T + bias. Gamma starts at the identity. 'd' whitens with the
-  batch statistics, 'dr' with the running ones (buffers ``mean``,
-  ``cov``), which advance from the batch in train mode when
-  ``update_stats`` is set. In eval mode ``kernel_eval=True`` runs the
-  whole layer through K2. Every other pair of codes runs the general path:
+  out = x M^T + bias. Gamma starts at the identity. Whitening with a
+  conditional 1x1-conv coloring is fused per image (``_fused_wc_cond``).
+  'd' whitens with the batch statistics, 'dr' with the running ones
+  (buffers ``mean``, ``cov``), which advance from the batch in train mode
+  when ``update_stats`` is set. In eval mode ``kernel_eval=True`` runs the
+  'uconv' layer through K2; on a conditional layer it raises, naming the
+  layer (``layer_name``, set by the model that holds it): K2 has one
+  coloring for all rows. Every other pair of codes runs the general path:
   ``NormLayer`` (submodule ``norm``), then ``Coloring`` (``color``)."""
 
   def __init__(self, channels: int, norm: str = "d", coloring: str = "uconv",
                momentum: float = 0.99, eps: float = 1e-5, ns_iters: int = 15,
                method: str = "newton_schulz", ns_scaling: str = "trace",
                use_kernel: Optional[bool] = None,
-               kernel_eval: Optional[bool] = None):
+               kernel_eval: Optional[bool] = None, num_classes: int = 0,
+               filters_emb: int = 10,
+               generator: Optional[torch.Generator] = None):
     super().__init__()
-    if norm in ("d", "dr") and coloring in _COND_CODES:
-      raise NotImplementedError(
-          f"NormColor(norm={norm!r}, coloring={coloring!r}): conditional "
-          "coloring is not ported yet")
-    self.fused = norm in ("d", "dr") and coloring == "uconv"
+    self.fused = norm in ("d", "dr") and coloring in (
+        ("uconv",) + _FUSED_COND_CODES)
+    self.coloring = coloring
+    self.layer_name = "NormColor"
     self.norm_code = norm
     self.momentum = momentum
     self.eps = eps
@@ -231,8 +313,12 @@ class NormColor(nn.Module):
     self.kernel_eval = kernel_eval
     self.moments_sink: Optional[MomentsSink] = None
     if self.fused:
-      self.gamma = nn.Parameter(torch.eye(channels))
-      self.beta = nn.Parameter(torch.zeros(channels))
+      if coloring == "uconv":
+        self.gamma = nn.Parameter(torch.eye(channels))
+        self.beta = nn.Parameter(torch.zeros(channels))
+      else:
+        _conditional_params(self, coloring, channels, num_classes,
+                            filters_emb, generator)
       self.register_buffer("mean", torch.zeros(channels))
       self.register_buffer("cov", torch.eye(channels))
     else:
@@ -240,7 +326,8 @@ class NormColor(nn.Module):
                             ns_iters=ns_iters, method=method,
                             ns_scaling=ns_scaling, use_kernel=use_kernel,
                             kernel_eval=kernel_eval)
-      self.color = Coloring(channels, coloring)
+      self.color = Coloring(channels, coloring, num_classes, filters_emb,
+                            generator)
 
   def _wc_stats(self, x2d: torch.Tensor, train: bool, update_stats: bool):
     """(mean, stat_src) per the 'd'/'dr' contract, after advancing the
@@ -260,11 +347,18 @@ class NormColor(nn.Module):
       self.cov = new_cov.detach()
     return mean, stat_src
 
-  def forward(self, x: torch.Tensor, train: bool = True,
-              update_stats: bool = True) -> torch.Tensor:
+  def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None,
+              train: bool = True, update_stats: bool = True) -> torch.Tensor:
     if not self.fused:
-      return self.color(self.norm(x, train, update_stats))
-    return self._fused_wc_uconv(x, train, update_stats)
+      return self.color(self.norm(x, train, update_stats), labels)
+    if self.coloring == "uconv":
+      return self._fused_wc_uconv(x, train, update_stats)
+    return self._fused_wc_cond(x, labels, train, update_stats)
+
+  def _w(self, stat_src: torch.Tensor) -> torch.Tensor:
+    return whiten_ops.inv_sqrt(stat_src, num_iters=self.ns_iters,
+                               eps=self.eps, method=self.method,
+                               scaling=self.ns_scaling)
 
   def _fused_wc_uconv(self, x: torch.Tensor, train: bool,
                       update_stats: bool) -> torch.Tensor:
@@ -275,12 +369,57 @@ class NormColor(nn.Module):
           x2d, mean, stat_src, self.gamma, self.beta, ns_iters=self.ns_iters,
           eps=self.eps, scaling=self.ns_scaling)
       return _unrows(out, x)
-    w = whiten_ops.inv_sqrt(stat_src, num_iters=self.ns_iters, eps=self.eps,
-                            method=self.method, scaling=self.ns_scaling)
-    m = self.gamma @ w                                  # (C, C) fold, f32
+    m = self.gamma @ self._w(stat_src)                  # (C, C) fold, f32
     bias = self.beta - mean @ m.T
     out = x2d @ m.T.to(x.dtype) + bias.to(x.dtype)
     return _unrows(out, x)
+
+  def _fused_wc_cond(self, x: torch.Tensor, labels: Optional[torch.Tensor],
+                     train: bool, update_stats: bool) -> torch.Tensor:
+    """Whitening and a conditional 1x1-conv coloring, with the coloring
+    folded per image, the JAX package's ``_fused_wc_cond``.
+
+    G_i is image i's coloring matrix: its class filter ('-sa': the basis
+    mix) plus the agnostic ``gamma_a`` ('ucconv*') or the identity skip
+    ('cconv*'), b_i its bias. With S = H*W rows per image:
+    - S >= C: the fold M_i = G_i W and the bias b_i - mu M_i^T in float32,
+      then one row pass x M_i^T in the activation dtype;
+    - S < C (the fold would cost more than it saves): two row passes in
+      the activation dtype, W first with bias -mu W^T, then G_i."""
+    if not train and self.kernel_eval:
+      raise ValueError(
+          f"kernel_eval=True on the conditional WC layer {self.layer_name} "
+          f"(coloring {self.coloring!r}): the whiten_color_apply kernel "
+          "applies one coloring to every row, and this layer colors each "
+          "image with its class's filter; use kernel_eval=None")
+    labels = _need_labels(self.coloring, labels)
+    c = x.shape[1]
+    n = x.shape[0]
+    agnostic = self.coloring in ("ucconv", "ucconv-sa")
+    if self.coloring in ("cconv", "ucconv"):
+      g_img = self.gamma_c[labels]                         # (N, C, C)
+    else:
+      g_img = torch.einsum("nk,koc->noc", self.embedding[labels], self.basis)
+    g_img = g_img + (self.gamma_a if agnostic else
+                     torch.eye(c, device=g_img.device))
+    b_img = self.beta_c[labels]
+    if agnostic:
+      b_img = b_img + self.beta_a
+    x2d = _rows(x)
+    mean, stat_src = self._wc_stats(x2d, train, update_stats)
+    w = self._w(stat_src)
+    x3d = _as_nsc(x2d, n)
+    if x3d.shape[1] >= c:
+      m_img = torch.matmul(g_img, w)                      # per-image fold
+      bias = b_img - torch.einsum("c,noc->no", mean, m_img)
+      out = torch.bmm(x3d, m_img.transpose(1, 2).to(x.dtype))
+    else:
+      bias_w = -(mean @ w.T)
+      xh = x3d @ w.T.to(x.dtype) + bias_w.to(x.dtype)
+      out = torch.bmm(xh, g_img.transpose(1, 2).to(x.dtype))
+      bias = b_img
+    out = out + bias.to(x.dtype)[:, None, :]
+    return _unrows(out.view(-1, c), x)
 
 
 @contextlib.contextmanager
@@ -404,6 +543,64 @@ class SNDense(nn.Module):
     if update_sn:
       self.u = u_new.detach()
     return _add_bias(F.linear(x, w_bar.to(x.dtype)), self.bias)
+
+
+class SNEmbed(nn.Module):
+  """Spectral-normalized class embedding psi(y), projection-D's: the table
+  ``embedding`` (num_classes, features) divided by its sigma, with ``u``
+  over the features, as the JAX package takes sigma of the table's
+  (features, num_classes) transpose."""
+
+  def __init__(self, num_classes: int, features: int,
+               generator: torch.Generator, sn_iters: int = 1,
+               fully_diff: bool = False):
+    super().__init__()
+    self.sn_iters = sn_iters
+    self.fully_diff = fully_diff
+    self.embedding = nn.Parameter(glorot_uniform_(
+        torch.empty(num_classes, features), num_classes, features, generator))
+    self.register_buffer("u", torch.randn(features, generator=generator))
+
+  def forward(self, labels: torch.Tensor,
+              update_sn: bool = False) -> torch.Tensor:
+    w_bar_t, u_new = sn_ops.spectral_normalize(
+        self.embedding.T, self.u, n_iters=self.sn_iters,
+        fully_diff=self.fully_diff)
+    if update_sn:
+      self.u = u_new.detach()
+    return w_bar_t.T[labels.long()]
+
+
+class PlainConv(nn.Module):
+  """A conv without spectral normalization behind SNConv's call, the JAX
+  package's ``Conv`` wrapper (its flax conv sits in submodule ``conv``);
+  ``update_sn`` is ignored."""
+
+  def __init__(self, in_channels: int, features: int, kernel_size: int,
+               generator: torch.Generator):
+    super().__init__()
+    self.conv = Conv(in_channels, features, kernel_size, generator)
+    glorot_uniform_(self.conv.weight.data, in_channels * kernel_size ** 2,
+                    features * kernel_size ** 2, generator)
+
+  def forward(self, x: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
+    del update_sn
+    return self.conv(x)
+
+
+class PlainDense(nn.Module):
+  """A dense layer without spectral normalization behind SNDense's call
+  (submodule ``dense``, as the JAX package's ``Dense`` wrapper)."""
+
+  def __init__(self, in_features: int, features: int,
+               generator: torch.Generator):
+    super().__init__()
+    self.dense = Dense(in_features, features, generator)
+    glorot_uniform_(self.dense.weight.data, in_features, features, generator)
+
+  def forward(self, x: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
+    del update_sn
+    return self.dense(x)
 
 
 def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:

@@ -114,7 +114,11 @@ def _moments_forward(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 class MomentsFn(torch.autograd.Function):
-  """K1 with the analytic gradient of ``pallas_wc._moments_bwd``."""
+  """K1 with the analytic gradient of ``pallas_wc._moments_bwd``. The
+  backward is made of differentiable ops on the saved rows and mean (the
+  mean's own dependence on x reaches back through this function), so
+  autograd differentiates it again: WGAN-GP with WC layers in D takes the
+  gradient of an input gradient through it."""
 
   @staticmethod
   def forward(ctx, x2d):

@@ -1,17 +1,29 @@
 """The outer step: K discriminator updates, then one generator update.
 
-Counterpart of ``wcgan_tpu/train/step.py::make_outer_step`` for the
-unconditional GAN with a norm-free D. The reference compiles the outer step
-into one XLA program; here it runs eagerly and updates the state in place.
-Semantics kept from the reference:
+Counterpart of ``wcgan_tpu/train/step.py::make_outer_step``. The reference
+compiles the outer step into one XLA program; here it runs eagerly and
+updates the state in place. Semantics kept from the reference:
 
 - During the K D updates G is frozen and runs in train mode (batch-stat
   whitening), but its running statistics do not advance.
-- Real and fake images are scored in one concatenated D forward per D
-  update, which advances every SN ``u`` once.
+- A D without WC layers scores real and fake images in one concatenated
+  forward per D update, which advances every SN ``u`` once. A D with WC
+  layers scores them apart, so that each batch is whitened with its own
+  statistics; only the real pass advances D's statistics and ``u``.
+- WGAN-GP (``gradient_penalty_weight`` > 0) adds the penalty on
+  interpolates of the real and fake batch, scored with the real labels.
+- Conditional runs draw the fake labels uniformly per D update and per G
+  update; D sees labels when it projects, classifies or colors by class.
+  AC-GAN adds the auxiliary cross-entropy on real logits to the D loss and
+  on fake logits to the G loss.
 - The G update runs at ``generator_batch_multiple`` x B; it is the only
-  place G's running statistics advance, and D's ``u`` does not. With
-  ``g_ema_decay`` > 0 the EMA shadow follows each G update.
+  place G's running statistics advance, and D's ``u`` and statistics do
+  not. With ``g_ema_decay`` > 0 the EMA shadow follows each G update.
+
+The reference's scores of fake images, of interpolates and of the G update
+read D's pre-update ``u`` and statistics (its mutable collections are
+threaded through, not rebound). The port rebinds them in place, so every
+pass that must not see the update runs before the pass that makes it.
 
 ``make_dataset_step`` draws the real batches on the device from a
 dataset that lives there, and ``_multi`` chains outer steps, as the
@@ -29,17 +41,31 @@ import torch
 from wcgan_tpu_torch.ops import losses as loss_ops
 from wcgan_tpu_torch.train.state import GANTrainState
 
+GAN_TYPES = ("gan", "projection", "acgan")
+
 
 @dataclasses.dataclass(frozen=True)
 class GANConfig:
   """Objective and update schedule (the subset the port supports)."""
 
-  loss: str = "hinge"                 # hinge | ns | wgan
+  loss: str = "hinge"                 # hinge | ns | wgan | wgan-gp
+  gan_type: str = "gan"               # gan | projection | acgan
   training_ratio: int = 5
   generator_batch_multiple: int = 2
+  gradient_penalty_weight: float = 0.0
+  num_classes: int = 0                # 0 => unconditional
   z_dim: int = 128
   random_flip: bool = False
   g_ema_decay: float = 0.0            # EMA of G params for sampling (0 = off)
+
+  def __post_init__(self):
+    if self.gan_type not in GAN_TYPES:
+      raise ValueError(f"gan_type must be one of {GAN_TYPES}, got "
+                       f"{self.gan_type!r}")
+
+  @property
+  def conditional(self) -> bool:
+    return self.num_classes > 0
 
 
 def prepare_real(real: torch.Tensor, flip: Optional[torch.Tensor]
@@ -79,15 +105,19 @@ def make_outer_step(cfg: GANConfig) -> Callable[..., Dict[str, torch.Tensor]]:
 
   ``outer_step(state, real_u8, labels, noise=None)`` takes ``real_u8``
   (K, B, H, W, C) uint8 (numpy or tensor) with K = ``training_ratio``, and
-  ``labels`` (K, B), unused by the unconditional GAN. ``noise`` optionally
-  injects every random draw: ``{"z_d": (K, B, z), "z_g": (gB, z),
-  "flip": (K, B) bool}``; without it all are drawn from
-  ``state.generator``. Updates ``state`` in place and returns the metrics
-  d_loss and d_grad_norm (means over the K D updates), g_loss and
-  g_grad_norm as 0-d tensors on the state's device, without
-  synchronising."""
+  ``labels`` (K, B), the real images' classes (unused, and may be None,
+  when the run is unconditional). ``noise`` optionally injects every
+  random draw: ``{"z_d": (K, B, z), "z_g": (gB, z), "flip": (K, B) bool,
+  "y_d": (K, B), "y_g": (gB,), "gp_eps": (K, B)}`` (the labels when
+  conditional, the interpolation weights under WGAN-GP); without it all
+  are drawn from ``state.generator``, the unconditional draws first in the
+  order above. Updates ``state`` in place and returns the metrics d_loss
+  and d_grad_norm (means over the K D updates), g_loss and g_grad_norm as
+  0-d tensors on the state's device, without synchronising."""
   d_loss_fn, g_loss_fn = loss_ops.get_losses(cfg.loss)
   ratio = cfg.training_ratio
+  gp_weight = cfg.gradient_penalty_weight
+  acgan = cfg.gan_type == "acgan"
 
   def draw_noise(state: GANTrainState, b: int, device) -> Dict:
     gen = state.generator
@@ -101,23 +131,53 @@ def make_outer_step(cfg: GANConfig) -> Callable[..., Dict[str, torch.Tensor]]:
     if cfg.random_flip:
       noise["flip"] = torch.rand((ratio, b), generator=gen,
                                  device=device) < 0.5
+    if cfg.conditional:
+      noise["y_d"] = torch.randint(0, cfg.num_classes, (ratio, b),
+                                   generator=gen, device=device)
+      noise["y_g"] = torch.randint(0, cfg.num_classes, (g_batch,),
+                                   generator=gen, device=device)
+    if gp_weight > 0.0:
+      noise["gp_eps"] = torch.rand((ratio, b), generator=gen, device=device)
     return noise
 
-  def d_update(state: GANTrainState, x: torch.Tensor, z: torch.Tensor):
+  def d_update(state: GANTrainState, x, y, z, zy, eps, d_has_norm: bool,
+               d_takes_labels: bool):
     b = x.shape[0]
     with torch.no_grad():
-      fake = state.g(z, train=True, update_stats=False)
-    scores = state.d(torch.cat([x, fake]), update_sn=True)
-    loss = d_loss_fn(scores[:b], scores[b:])
-    params = list(state.d.parameters())
+      fake = state.g(z, zy, train=True, update_stats=False)
+    y_in = y if d_takes_labels else None
+    zy_in = zy if d_takes_labels else None
+    d = state.d
+    penalty = None
+    if gp_weight > 0.0:
+      penalty = loss_ops.gradient_penalty(
+          lambda xi: d(xi, y_in)[0], x, fake, eps, weight=gp_weight)
+    if d_has_norm:
+      fs, _ = d(fake, zy_in)
+      rs, rl = d(x, y_in, update_sn=True, update_stats=True)
+    else:
+      yy = torch.cat([y_in, zy_in]) if y_in is not None else None
+      scores, logits = d(torch.cat([x, fake]), yy, update_sn=True,
+                         update_stats=True)
+      rs, fs = scores[:b], scores[b:]
+      rl = logits[:b] if logits is not None else None
+    loss = d_loss_fn(rs, fs)
+    if penalty is not None:
+      loss = loss + penalty
+    if acgan and rl is not None:
+      loss = loss + loss_ops.ac_gan_aux_loss(rl, y)
+    params = list(d.parameters())
     grads = torch.autograd.grad(loss, params)
     gnorm = _global_norm(grads)
     _apply(params, grads, state.d_opt, state.d_sched)
     return loss.detach(), gnorm
 
-  def g_update(state: GANTrainState, z: torch.Tensor):
-    fake = state.g(z, train=True, update_stats=True)
-    loss = g_loss_fn(state.d(fake, update_sn=False))
+  def g_update(state: GANTrainState, z, zy, d_takes_labels: bool):
+    fake = state.g(z, zy, train=True, update_stats=True)
+    fs, fl = state.d(fake, zy if d_takes_labels else None)
+    loss = g_loss_fn(fs)
+    if acgan and fl is not None:
+      loss = loss + loss_ops.ac_gan_aux_loss(fl, zy)
     params = list(state.g.parameters())
     grads = torch.autograd.grad(loss, params)
     gnorm = _global_norm(grads)
@@ -134,24 +194,35 @@ def make_outer_step(cfg: GANConfig) -> Callable[..., Dict[str, torch.Tensor]]:
 
   def outer_step(state: GANTrainState, real_u8, labels,
                  noise: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
-    del labels  # unconditional
     device = state.generator.device
     real = as_tensor(real_u8, device)
     if real.shape[0] != ratio:
       raise ValueError(f"got {real.shape[0]} D batches, expected "
                        f"training_ratio={ratio}")
     b = real.shape[1]
+    d_cfg = state.d.cfg
+    d_has_norm = d_cfg.norm != "n"
+    d_takes_labels = cfg.conditional and (
+        d_cfg.projection or d_cfg.ac_gan or d_cfg.num_classes > 0)
     if noise is None:
       noise = draw_noise(state, b, device)
     noise = {k: as_tensor(v, device) for k, v in noise.items()}
     real = prepare_real(real, noise.get("flip") if cfg.random_flip else None)
+    y_real = y_d = y_g = None
+    if cfg.conditional:
+      y_real = as_tensor(labels, device).long()
+      y_d, y_g = noise["y_d"].long(), noise["y_g"].long()
 
     d_losses, d_gnorms = [], []
     for k in range(ratio):
-      loss, gnorm = d_update(state, real[k], noise["z_d"][k])
+      loss, gnorm = d_update(
+          state, real[k], None if y_real is None else y_real[k],
+          noise["z_d"][k], None if y_d is None else y_d[k],
+          noise["gp_eps"][k] if gp_weight > 0.0 else None, d_has_norm,
+          d_takes_labels)
       d_losses.append(loss)
       d_gnorms.append(gnorm)
-    g_loss, g_gnorm = g_update(state, noise["z_g"])
+    g_loss, g_gnorm = g_update(state, noise["z_g"], y_g, d_takes_labels)
     state.step += 1
     return {"d_loss": torch.stack(d_losses).mean(), "g_loss": g_loss,
             "d_grad_norm": torch.stack(d_gnorms).mean(),

@@ -20,14 +20,15 @@ and file names are the reference's):
 - sampling (``sample``, ``sample_u8``, ``save_sample_grid``, ``generate``)
   from ``sampling_state()``: G's EMA parameters, when the run keeps them,
   with standing statistics re-estimated under them; else the live G in
-  eval mode on its running statistics;
+  eval mode on its running statistics. A conditional run samples with
+  labels: the dataset's fixed test labels in grids, uniform draws in
+  ``generate`` and the standing statistics;
 - checkpoints: the full state under ``checkpoints_dir/name/epoch_{i}/``
   (``torch.save``, loadable with ``weights_only=True``) beside the
   weights-only ``epoch_{i}_{generator,discriminator}.npz`` in the JAX
   package's format.
 
-The scorer (``score_every``), data parallelism and the conditional models
-are not ported yet.
+The scorer (``score_every``) and data parallelism are not ported yet.
 """
 
 from __future__ import annotations
@@ -463,7 +464,8 @@ class Trainer:
     standing statistics; the EMA shadow covers only parameters, and the
     running statistics describe the raw trajectory): ``n_batches``
     train-mode forwards of ``ds.batch_size`` z from
-    ``np.random.default_rng(rng_seed)``, each layer's batch moments
+    ``np.random.default_rng(rng_seed)`` (then, for a conditional G, as many
+    uniform labels from it), each layer's batch moments
     captured as they are computed, averaged with equal weights. The live
     statistics do not move. With 'dr' codes the transform reads the live
     running statistics, so the estimate is one sweep, not a fixed
@@ -477,9 +479,8 @@ class Trainer:
     acc: Dict[str, torch.Tensor] = {}
     with L.capture_batch_moments(g) as moments:
       for _ in range(n_batches):
-        z = torch.from_numpy(rng.standard_normal(
-            (b, self.gan_cfg.z_dim)).astype(np.float32)).to(self.device)
-        functional_call(g, params, (z,),
+        z, labels = self._draw(rng, b)
+        functional_call(g, params, (z, labels),
                         {"train": True, "update_stats": False})
         acc = {k: acc[k] + v if k in acc else v for k, v in moments.items()}
     inv = 1.0 / n_batches
@@ -510,27 +511,43 @@ class Trainer:
 
   # -- sampling ---------------------------------------------------------------
 
+  def _draw(self, rng: np.random.Generator, b: int):
+    """(z (b, z_dim), labels (b,) or None) on the device from ``rng``: z,
+    then, when the run is conditional, the labels, uniform over the
+    classes, as the reference draws them."""
+    z = rng.standard_normal((b, self.gan_cfg.z_dim)).astype(np.float32)
+    labels = None
+    if self.gan_cfg.conditional:
+      labels = torch.from_numpy(rng.integers(
+          0, self.gan_cfg.num_classes, b).astype(np.int32)).to(self.device)
+    return torch.from_numpy(z).to(self.device), labels
+
   @torch.no_grad()
-  def sample(self, z) -> torch.Tensor:
+  def sample(self, z, labels=None) -> torch.Tensor:
     """Images (N, H, W, C), float32 in [-1, 1], on the device, from z
-    (N, z_dim): G in eval mode on ``sampling_state()``."""
+    (N, z_dim) and, when the run is conditional, labels (N,): G in eval
+    mode on ``sampling_state()``."""
     z = step_lib.as_tensor(z, self.device)
-    imgs = functional_call(self.state.g, self.sampling_state(), (z,),
+    if self.gan_cfg.conditional and labels is not None:
+      labels = step_lib.as_tensor(labels, self.device)
+    else:
+      labels = None
+    imgs = functional_call(self.state.g, self.sampling_state(), (z, labels),
                            {"train": False})
     return imgs.permute(0, 2, 3, 1)
 
-  def sample_u8(self, z) -> torch.Tensor:
+  def sample_u8(self, z, labels=None) -> torch.Tensor:
     """``sample`` clipped and converted to uint8 on the device, so that
     only a quarter of the bytes cross to the host."""
-    imgs = self.sample(z)
+    imgs = self.sample(z, labels)
     return (torch.clamp(imgs.float(), -1.0, 1.0) * 127.5 + 127.5).to(
         torch.uint8)
 
   def save_sample_grid(self, epoch: int) -> str:
     """The grid of ``grid_samples`` images from the dataset's fixed test
-    z, written to ``output_dir/epoch_{epoch:05d}.png``."""
-    z, _ = self.ds.test_batch(self.cfg.grid_samples)
-    imgs = self.sample(z).cpu().numpy()
+    z and labels, written to ``output_dir/epoch_{epoch:05d}.png``."""
+    z, labels = self.ds.test_batch(self.cfg.grid_samples)
+    imgs = self.sample(z, labels).cpu().numpy()
     path = os.path.join(self.cfg.output_dir, f"epoch_{epoch:05d}.png")
     save_png(path, make_grid(imgs))
     return path
@@ -538,14 +555,14 @@ class Trainer:
   def generate(self, n: int, batch: int = 256,
                rng_seed: int = 1234) -> np.ndarray:
     """n generated images as uint8 (N, H, W, C) (for IS/FID scoring).
-    Every batch is a full one, from a numpy generator seeded with
-    ``rng_seed``; the tail is sliced off."""
+    Every batch is a full one, its z (then, when conditional, its labels)
+    from a numpy generator seeded with ``rng_seed``; the tail is sliced
+    off."""
     rng = np.random.default_rng(rng_seed)
     out = []
     for i in range(0, n, batch):
       b = min(batch, n - i)
-      z = rng.standard_normal((batch, self.gan_cfg.z_dim)).astype(np.float32)
-      out.append(self.sample_u8(z)[:b].cpu().numpy())
+      out.append(self.sample_u8(*self._draw(rng, batch))[:b].cpu().numpy())
     return np.concatenate(out)
 
   # -- main loop --------------------------------------------------------------

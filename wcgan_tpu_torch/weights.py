@@ -7,7 +7,11 @@ a ``state_dict`` key; only layouts differ:
 
 - conv kernels: flax HWIO  <-> torch OIHW (``weight``);
 - dense kernels: flax (in, out) <-> torch (out, in) (``weight``);
-- everything else (NormColor gamma/beta, biases, wc_stats, u) as it is.
+- everything else as it is: NormColor's gamma/beta and its conditional
+  leaves (gamma_a, beta_a, gamma_c, beta_c, basis, embedding), biases,
+  projection-D's ``proj_emb/embedding`` (num_classes, features) and its
+  ``u``, wc_stats. A plain D's convs and dense layers sit one level down
+  (``conv1/conv/kernel``, ``fc_out/dense/kernel``), as flax nests them.
 
 Both directions take and give numpy arrays, so this module needs no JAX.
 
