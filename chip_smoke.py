@@ -57,6 +57,31 @@ busy share. Then the conditional slice (slice 6):
   with ``--conditional --gan_type PROJECTIVE``: labelled grids, then
   ``--phase test`` on the exported npz.
 
+Then slice 7, the DCGAN and the options of the step:
+
+- dcgan: BASELINE config 1 at full width (``python -m wcgan_tpu_torch
+  --preset cifar10_wc_dcgan --dataset synthetic --synthetic_resolution
+  32``: DCGAN G (256, 128, 64) from 4x4, SN DCGAN D (64, 128, 256), ns,
+  one D update, float32): 2 epochs of 8 outer steps with a checkpoint
+  each, ``--resume auto`` for a third, ``--phase test`` on its npz; K1
+  at the G's (C, R) within TOL and timed; 6 outer steps with 8 K1
+  launches each; one float32 step with K1 against plain moments;
+- dcgan-bn: the same G with 'b' norms: no K1 launch, finite losses;
+- dcgan-sampling: K2 against its plain version at C = 128 and 64, timed
+  per width against torch.addmm; the DCGAN G's ``generate(1024,
+  batch=256)`` with K2 forced (4 launches a forward) against K2's plain
+  version and the split path;
+- step-options: on the headline model, 2 bf16 outer steps and one float32
+  step (K1 against plain) each of ``batched_fake_gen`` (14 K1 launches a
+  step), ``d_fake_stats=running`` (7; 35 K2 launches with
+  kernel_eval=True), ``remat`` (48: the G update's 6 block WC layers run
+  again in the backward), ``sn_update_on_g_step`` and a D with
+  ``conv_singular`` (42 each); K1 at batched_fake_gen's 327,680 rows;
+- presets: every preset through ``--preset <name> --smoke`` on the card,
+  ``imagenet64_cwc_dp`` refused naming ``--mesh``, and
+  ``stl10_wc_resnet_sn`` at full width (48x48) for 2 outer steps (84 K1
+  launches).
+
 Every phase that fails stops the script with a non-zero exit. The last line is
 {"ok": true, "device": {...}}; the line before it lists each kernel with
 its launches on its path, error and times. Without a GPU it exits
@@ -82,13 +107,14 @@ import numpy as np
 import torch
 
 from wcgan_tpu_torch.cli import run as cli_run
+from wcgan_tpu_torch.cli.presets import PRESETS
 from wcgan_tpu_torch.data import get_dataset
 from wcgan_tpu_torch.device import place
 from wcgan_tpu_torch.models.discriminator import (Discriminator,
                                                   DiscriminatorConfig)
 from wcgan_tpu_torch.models import layers as L
 from wcgan_tpu_torch.models.generator import Generator, GeneratorConfig
-from wcgan_tpu_torch.ops import _build, cuda_wc, losses
+from wcgan_tpu_torch.ops import _build, cuda_wc, losses, whiten
 from wcgan_tpu_torch.train import step as step_lib
 from wcgan_tpu_torch.train.state import OptimConfig, create_state
 from wcgan_tpu_torch.train.step import GANConfig, make_outer_step
@@ -122,7 +148,9 @@ SAMPLE_P999_TOL = 4.0
 SAMPLE_MAX_TOL = 16
 # Peak rates of an H100 SXM at 700 W (NVIDIA's data sheet) for the floors:
 # float32 on the FFMA pipes, TF32 and bf16 on the tensor cores (dense),
-# HBM3.
+# HBM3. A product's operations floor takes the peak for its inputs' type:
+# bf16 rows at the bf16 rate, float32 rows at the TF32 rate (the card's
+# fastest for float32 inputs).
 FFMA_FLOPS = 67e12
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
@@ -290,6 +318,11 @@ def _in_turns(*calls):
   order = list(range(len(calls)))
   times = [_time_ms(calls[i][0], *calls[i][1]) for i in order + order[::-1]]
   return [(times[i] + times[-1 - i]) / 2 for i in order]
+
+
+def ops_rate(dtype: torch.dtype) -> float:
+  """Peak flop/s of a product of ``dtype`` inputs on the tensor cores."""
+  return BF16_FLOPS if dtype == torch.bfloat16 else TF32_FLOPS
 
 
 def k1_floors(rows: int, cols: int):
@@ -764,9 +797,12 @@ def phase_sampling(dev: torch.device, state, gan):
   return k2_k, npz
 
 
-def _run_cli(args, out_dir: str):
-  cmd = [sys.executable, "-m", "wcgan_tpu_torch", "--device", "cuda",
-         "--dataset", "synthetic", "--arch", "res", "--bf16",
+# The CLI runs of the res slices: synthetic data, bf16.
+RES_CLI = ("--dataset", "synthetic", "--arch", "res", "--bf16")
+
+
+def _run_cli(args, out_dir: str, base=RES_CLI):
+  cmd = [sys.executable, "-m", "wcgan_tpu_torch", "--device", "cuda", *base,
          "--output_dir", out_dir, "--name", "smoke", *args]
   t0 = time.perf_counter()
   proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
@@ -1023,6 +1059,46 @@ def _k1_yardstick(x):
   return mean, (x64 - mean).T @ (x64 - mean) / x64.shape[0]
 
 
+def _k1_held(shapes, gen, dev, what: str) -> float:
+  """K1 at each (C, R) of ``shapes``, f32 and bf16 rows, within TOL of its
+  yardstick, bitwise repeatable, cov == cov^T; the worst error."""
+  worst, errs = 0.0, []
+  for c, r in shapes:
+    for dtype in (torch.float32, torch.bfloat16):
+      x = (torch.randn((r, c), generator=gen, device=dev) * 2 + 3).to(dtype)
+      got, again = cuda_wc.moments_cuda(x), cuda_wc.moments_cuda(x)
+      torch.cuda.synchronize()
+      check(all(torch.equal(a, b) for a, b in zip(got, again))
+            and torch.equal(got[1], got[1].T), ("not repeatable", c, r))
+      err = max_err(got, _k1_yardstick(x))
+      check(err <= TOL, (what, c, r, dtype, err))
+      worst = max(worst, err)
+      errs.append(f"{c}/{r}/{'f32' if dtype == torch.float32 else 'bf16'}:"
+                  f"{err:.2e}")
+  log(what, "K1 per C/R/rows (plain below R=65536, float64 from it): "
+      + " ".join(errs) + "; bitwise repeatable, cov == cov^T")
+  return worst
+
+
+def _k1_timed(shapes, gen, dev, dtype=torch.bfloat16):
+  """{(C, R): (K1, plain, torch.cov, bound, bytes floor, operations
+  floor)} device ms, in turns. The floors count the rows' bytes in their
+  own type and the Gram's operations at that type's peak (``ops_rate``);
+  the bound is their larger."""
+  out = {}
+  for c, r in shapes:
+    x = torch.randn((r, c), generator=gen, device=dev).to(dtype)
+    xf = x.float()
+    k, p, lib = _in_turns((cuda_wc.moments_cuda, (x,)),
+                          (cuda_wc.moments_reference, (x,)),
+                          (_torch_cov, (xf,)))
+    flop = r * c * (c + 1)
+    hbm = (r * c * x.element_size() + 4 * (c + c * c)) / HBM_BYTES * 1e3
+    ops = flop / ops_rate(dtype) * 1e3
+    out[(c, r)] = (k, p, lib, max(hbm, ops), hbm, ops)
+  return out
+
+
 def phase_k1_widths(dev: torch.device):
   """K1 at C = 64, 128 and 512 (and 256 for the sums) at every R of the
   conditional models plus a ragged R, f32 and bf16 rows: within TOL of
@@ -1036,37 +1112,16 @@ def phase_k1_widths(dev: torch.device):
                    + D_WC_LAYERS + _doubled(D_WC_LAYERS) if c != 256})
   worst = 0.0
   for c in sorted({c for c, _ in shapes}):
-    errs = []
-    for r in [r for cc, r in shapes if cc == c] + [RAGGED_R]:
-      for dtype in (torch.float32, torch.bfloat16):
-        x = (torch.randn((r, c), generator=gen, device=dev) * 2 + 3).to(dtype)
-        got, again = cuda_wc.moments_cuda(x), cuda_wc.moments_cuda(x)
-        torch.cuda.synchronize()
-        check(all(torch.equal(a, b) for a, b in zip(got, again))
-              and torch.equal(got[1], got[1].T), ("not repeatable", c, r,
-                                                  dtype))
-        err = max_err(got, _k1_yardstick(x))
-        check(err <= TOL, (c, r, dtype, err))
-        worst = max(worst, err)
-        errs.append(f"{r}/{'f32' if dtype == torch.float32 else 'bf16'}:"
-                    f"{err:.2e}")
-    log("k1-widths", f"C={c}: max|d| per R/dtype (plain below R=65536, "
-        "float64 from it) " + " ".join(errs) + "; two calls bitwise equal, "
-        "cov == cov^T")
-  per = {}
-  timed = sorted(set(shapes) | {(256, 16384), (256, 32768)})
-  for c, r in timed:
-    x = torch.randn((r, c), generator=gen, device=dev).to(torch.bfloat16)
-    xf = x.float()
-    k, p, lib = _in_turns((cuda_wc.moments_cuda, (x,)),
-                          (cuda_wc.moments_reference, (x,)),
-                          (_torch_cov, (xf,)))
-    hbm, ops, _, _ = k1_floors(r, c)
-    per[(c, r)] = (k, p, lib, max(hbm, ops), hbm, ops)
+    worst = max(worst, _k1_held(
+        [(c, r) for cc, r in shapes if cc == c] + [(c, RAGGED_R)], gen, dev,
+        "k1-widths"))
+  per = _k1_timed(sorted(set(shapes) | {(256, 16384), (256, 32768)}), gen,
+                  dev)
+  for (c, r), (k, p, lib, bound, hbm, ops) in per.items():
     log("k1-widths", f"C={c} R={r}: K1 {k:.4f} ms, plain {p:.4f}, torch.cov "
-        f"{lib:.4f}; bound {max(hbm, ops):.4f} ("
+        f"{lib:.4f}; bound {bound:.4f} ("
         f"{'bytes' if hbm >= ops else 'operations'}: HBM {hbm:.4f}, bf16 "
-        f"operations {ops:.4f}); K1 at {max(hbm, ops) / k:.1%} of it")
+        f"operations {ops:.4f}); K1 at {bound / k:.1%} of it")
   sums = {}
   for name, layers, reps in (
       ("cWC-sa outer step, 54 calls", CWCSA_LAYERS, 5),
@@ -1084,12 +1139,33 @@ def phase_k1_widths(dev: torch.device):
 
 def _cond_cfgs(model: str, dtype: str, use_kernel=None):
   """(GeneratorConfig, DiscriminatorConfig, GANConfig, batch, resolution)
-  of the full-width conditional models: 'cwc' (preset
-  cifar10_cwc_resnet_proj: G 256x3 ucconv, 10 classes, SN D 128x4 with
-  projection, hinge), 'cwcsa' (preset tiny_imagenet_cwcsa's shape: G
-  (512, 256, 128, 64) ucconv-sa at 64x64, 200 classes, D (64, ..., 1024)
-  with projection), 'gp' (the cWC G, D 128x4 with WC layers 'd' and
-  projection, WGAN-GP weight 10)."""
+  of the full-width models: 'cwc' (preset cifar10_cwc_resnet_proj: G
+  256x3 ucconv, 10 classes, SN D 128x4 with projection, hinge), 'cwcsa'
+  (preset tiny_imagenet_cwcsa's shape: G (512, 256, 128, 64) ucconv-sa at
+  64x64, 200 classes, D (64, ..., 1024) with projection), 'gp' (the cWC
+  G, D 128x4 with WC layers 'd' and projection, WGAN-GP weight 10);
+  'dcgan' (preset cifar10_wc_dcgan: DCGAN G (256, 128, 64) from 4x4 with
+  'd'/'uconv', SN DCGAN D (64, 128, 256), ns, one D update) and 'dcgan-bn'
+  (its G with 'b' norms); and the headline model with one step option,
+  'opt:<name>' for a name of STEP_OPTIONS."""
+  if model.startswith("opt:"):
+    g_kw, d_kw, gan_kw = STEP_OPTIONS[model[4:]][:3]
+    g = GeneratorConfig(filters=(256, 256, 256), dtype=dtype,
+                        use_kernel=use_kernel, **g_kw)
+    d = DiscriminatorConfig(filters=(128, 128, 128, 128), dtype=dtype,
+                            use_kernel=use_kernel, **d_kw)
+    gan = GANConfig(loss="hinge", training_ratio=5, random_flip=True,
+                    **gan_kw)
+    return g, d, gan, 64, 32
+  if model in ("dcgan", "dcgan-bn"):
+    norm = "b" if model == "dcgan-bn" else "d"
+    g = GeneratorConfig(arch="dcgan", filters=(256, 128, 64), block_norm=norm,
+                        last_norm=norm, dtype=dtype, use_kernel=use_kernel)
+    d = DiscriminatorConfig(arch="dcgan", filters=(64, 128, 256),
+                            downsample=(True, True, True), dtype=dtype,
+                            use_kernel=use_kernel)
+    gan = GANConfig(loss="ns", training_ratio=1, random_flip=True)
+    return g, d, gan, 64, 32
   if model == "cwcsa":
     g = GeneratorConfig(resolution=64, filters=(512, 256, 128, 64),
                         block_coloring="ucconv-sa",
@@ -1116,11 +1192,18 @@ def _cond_cfgs(model: str, dtype: str, use_kernel=None):
 
 
 def _cond_inputs(dev, gan, b, res, seed):
-  """Real uint8 images, their labels and every draw of one outer step."""
+  """Real uint8 images, their labels (zeros when unconditional) and every
+  draw of one outer step."""
   gen = torch.Generator(device=dev).manual_seed(seed)
   k, nc, gb = gan.training_ratio, gan.num_classes, 2 * b
   real = torch.randint(0, 256, (k, b, res, res, 3), dtype=torch.uint8,
                        generator=gen, device=dev)
+  if not nc:
+    noise = {"z_d": torch.randn((k, b, gan.z_dim), generator=gen,
+                                device=dev),
+             "z_g": torch.randn((gb, gan.z_dim), generator=gen, device=dev),
+             "flip": torch.rand((k, b), generator=gen, device=dev) < 0.5}
+    return real, torch.zeros((k, b), dtype=torch.long, device=dev), noise
   labels = torch.randint(0, nc, (k, b), generator=gen, device=dev)
   noise = {"z_d": torch.randn((k, b, gan.z_dim), generator=gen, device=dev),
            "z_g": torch.randn((gb, gan.z_dim), generator=gen, device=dev),
@@ -1221,10 +1304,10 @@ def _f32_pair(dev, model: str):
           max(d_pr.values()))
 
 
-def _bf16_steps(dev, model: str, steps: int):
-  """``steps`` bf16 outer steps of ``model`` after one warm-up, counted
-  from 0: (K1 launches, seconds, metrics of the last, state)."""
-  g_cfg, d_cfg, gan, b, res = _cond_cfgs(model, "bfloat16")
+def _run_steps(dev, g_cfg, d_cfg, gan, b, res, steps: int):
+  """``steps`` outer steps after one warm-up, every count set to 0 just
+  before them: (K1 launches, K2 launches, seconds, metrics of the last,
+  state)."""
   opt = OptimConfig(lr_decay_schedule="linear", total_outer_steps=100)
   state = create_state(g_cfg, d_cfg, opt, gan.training_ratio, dev, seed=0)
   step = make_outer_step(gan)
@@ -1233,14 +1316,24 @@ def _bf16_steps(dev, model: str, steps: int):
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   cuda_wc.MOMENTS_LAUNCHES = 0
+  cuda_wc.WC_APPLY_LAUNCHES = 0
   t0 = time.perf_counter()
   metrics = [step(state, real, labels) for _ in range(steps)]
   torch.cuda.synchronize()
   dt = time.perf_counter() - t0
-  launches = cuda_wc.MOMENTS_LAUNCHES
+  launches = (cuda_wc.MOMENTS_LAUNCHES, cuda_wc.WC_APPLY_LAUNCHES)
   values = {k: float(metrics[-1][k]) for k in metrics[-1]}
   check(all(np.isfinite(v) for v in values.values()), values)
-  return launches, dt, values, state, gan
+  return launches + (dt, values, state)
+
+
+def _bf16_steps(dev, model: str, steps: int):
+  """``steps`` bf16 outer steps of ``model`` after one warm-up, counted
+  from 0: (K1 launches, seconds, metrics of the last, state, GANConfig)."""
+  g_cfg, d_cfg, gan, b, res = _cond_cfgs(model, "bfloat16")
+  k1, _, dt, values, state = _run_steps(dev, g_cfg, d_cfg, gan, b, res,
+                                        steps)
+  return k1, dt, values, state, gan
 
 
 def phase_cond_slice(dev: torch.device):
@@ -1453,6 +1546,347 @@ def phase_cond_sampling(dev: torch.device, state, gan):
   return k2
 
 
+# --- slice 7: the DCGAN (BASELINE config 1), BatchNorm, the step options and
+# the presets ---------------------------------------------------------------
+
+# (C, R) of the DCGAN G's 4 WC layers (block0-2 nc, nc_out) at batch 64
+# (the one D-phase forward of a step); the G update doubles R. In eval mode
+# at the generate batch 256.
+DCGAN_LAYERS = ((256, 1024), (256, 4096), (128, 16384), (64, 65536))
+DCGAN_GENERATE = ((256, 4096), (256, 16384), (128, 65536), (64, 262144))
+DCGAN_CLI = ("--preset", "cifar10_wc_dcgan", "--dataset", "synthetic",
+             "--synthetic_resolution", "32")
+# The headline model with one option of the reference's step:
+# (G, D and GAN config fields, K1 launches a step, K2 launches a step with
+# kernel_eval=True on the bf16 run). With remat the G update recomputes its
+# 3 blocks' 2 WC layers each in the backward: 7 x 5 + 7 + 6.
+STEP_OPTIONS = {
+    "batched_fake_gen": ({}, {}, dict(batched_fake_gen=True), 14, 0),
+    "d_fake_stats_running": ({}, {}, dict(d_fake_stats="running"), 7, 35),
+    "remat": (dict(remat=True), dict(remat=True), {}, 7 * 5 + 7 + 6, 0),
+    "sn_update_on_g_step": ({}, {}, dict(sn_update_on_g_step=True), 42, 0),
+    "conv_singular": ({}, dict(conv_singular=True), {}, 42, 0),
+}
+# K1 at the 5 x 64 rows of one batched_fake_gen forward's last layers.
+BATCHED_R = 5 * 65536
+
+
+def phase_dcgan(dev: torch.device):
+  """BASELINE config 1 (preset cifar10_wc_dcgan) at full width, float32 as
+  the preset runs it. The CLI as a user runs it: 2 epochs of 8 outer
+  steps with a checkpoint each, ``--resume auto`` for a third, then
+  ``--phase test`` on its npz. K1 at the G's (C, R), timed. A direct
+  step loop with K1 counted (8 a step: 4 WC layers in the D-phase G
+  forward at batch 64, 4 in the G update at 128), and one float32 step
+  with K1 against plain moments under ``_f32_pair``'s gates. Returns (K1
+  launches by path, the worst K1 error, the trained state and its
+  GANConfig)."""
+  out_dir = os.path.join("build", "chip_smoke_dcgan")
+  shutil.rmtree(out_dir, ignore_errors=True)
+  ck = os.path.join(out_dir, "ckpt")
+  base = ("--batches_per_epoch", "8", "--checkpoint_ratio", "1",
+          "--checkpoints_dir", ck)
+  cmd, dt1, _ = _run_cli(base + ("--number_of_epochs", "2"), out_dir,
+                         DCGAN_CLI)
+  cmd, dt2, lines = _run_cli(base + ("--number_of_epochs", "3", "--resume",
+                                     "auto"), out_dir, DCGAN_CLI)
+  counts = [sum(l.startswith(f"Epoch {i}:") for l in lines) for i in range(3)]
+  check(any("(start_epoch 2)" in l for l in lines) and counts == [1, 1, 1],
+        (counts, lines))
+  with open(os.path.join(out_dir, "smoke", "metrics.jsonl")) as f:
+    records = [json.loads(l) for l in f]
+  check([r["epoch"] for r in records] == [0, 1, 2]
+        and all(np.isfinite(r[k]) for r in records
+                for k in DIAG_KEYS + ("d_loss", "g_loss")), records)
+  log("dcgan", f"{' '.join(cmd[1:])}: rc 0, {dt1:.1f} s then {dt2:.1f} s "
+      f"(resumed at epoch 2); per epoch on {nvidia_smi()} (8 outer steps "
+      f"of 64 real images, host clock): " + "; ".join(
+          f"{r['epoch']}: {r['imgs_per_sec']:.1f} imgs/s, d_loss "
+          f"{r['d_loss']:.4f}, g_loss {r['g_loss']:.4f}, wc_cov_cond_max "
+          f"{r['wc_cov_cond_max']:.4g}" for r in records))
+  npz = os.path.join(ck, "smoke", "epoch_2_generator.npz")
+  with np.load(npz) as data:
+    check("['block0']/['deconv']/['kernel']" in data.files, data.files[:8])
+  test_dir = os.path.join("build", "chip_smoke_dcgan_test")
+  shutil.rmtree(test_dir, ignore_errors=True)
+  cmd, dt, lines = _run_cli(("--phase", "test", "--generator_checkpoint", npz,
+                             "--start_epoch", "3"), test_dir, DCGAN_CLI)
+  grid = os.path.join(test_dir, "smoke", "epoch_00003.png")
+  check(os.path.isfile(grid) and any("wrote sample grid" in l
+                                     for l in lines), lines)
+  log("dcgan", f"{' '.join(cmd[1:])}: rc 0 in {dt:.1f} s; wrote {grid}")
+
+  gen = torch.Generator(device=dev).manual_seed(21)
+  shapes = list(DCGAN_LAYERS) + list(_doubled(DCGAN_LAYERS))
+  worst = _k1_held(shapes, gen, dev, "dcgan")
+  timed = _k1_timed(shapes, gen, dev, torch.float32)
+  for (c, r), (k, p, lib, bound, hbm, ops) in timed.items():
+    log("dcgan", f"K1 C={c} R={r} float32 rows: {k:.4f} ms, plain {p:.4f}, "
+        f"torch.cov {lib:.4f}; bound {bound:.4f} "
+        f"({'bytes' if hbm >= ops else 'operations'}); K1 at "
+        f"{bound / k:.1%} of it")
+  sums = [sum(t[i] for t in timed.values()) for i in range(4)]
+  log("dcgan", f"the 8 K1 calls of one DCGAN outer step (device ms, float32 "
+      f"rows, on {nvidia_smi()}): K1 {sums[0]:.4f}, plain {sums[1]:.4f}, "
+      f"torch.cov {sums[2]:.4f}; bound {sums[3]:.4f}; K1 at "
+      f"{sums[3] / sums[0]:.1%} of it")
+
+  g_cfg, d_cfg, gan, b, res = _cond_cfgs("dcgan", "float32")
+  seen = []
+  plain_moments = whiten.batch_moments
+
+  def recorded(x2d, use_kernel=None):
+    seen.append((x2d.shape[1], x2d.shape[0]))
+    return plain_moments(x2d, use_kernel)
+
+  steps = 6
+  whiten.batch_moments = recorded
+  try:
+    k1, _, dt, last, state = _run_steps(dev, g_cfg, d_cfg, gan, b, res,
+                                        steps)
+  finally:
+    whiten.batch_moments = plain_moments
+  per_step = seen[-8:]
+  check(k1 == 8 * steps and sorted(per_step) == sorted(shapes),
+        (k1, per_step))
+  log("dcgan", f"G (256, 128, 64) + D (64, 128, 256) float32, b64 D + b128 "
+      f"G, {steps} outer steps in {dt:.3f} s = {steps * b / dt:.1f} imgs/s "
+      f"(host clock) on {nvidia_smi()}; K1 launches {k1} (8/step) at (C, R) "
+      f"{per_step}; peak memory "
+      f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; last "
+      + ", ".join(f"{k} {v:.4f}" for k, v in last.items()))
+  m_k, m_p, stats_err, n_k, dt32, _, kp, pr = _f32_pair(dev, "dcgan")
+  check(n_k == 8, n_k)
+  log("dcgan", "one float32 outer step, K1 vs plain moments: " + ", ".join(
+      f"{k} {m_k[k]:.6f}/{m_p[k]:.6f}" for k in m_p)
+      + f"; largest relative difference {kp:.2e} (plain vs reordered "
+      f"{pr:.2e}); wc_stats max|d| {stats_err:.2e}; K1 launches {n_k}")
+  paths = {f"dcgan: {steps} float32 outer steps": k1,
+           "dcgan: one float32 outer step": n_k}
+  return paths, worst, state, gan
+
+
+def phase_dcgan_bn(dev: torch.device) -> None:
+  """The DCGAN G with 'b' norms (BatchNorm, then 'uconv' coloring): no K1
+  launch, finite losses, its running statistics advanced."""
+  g_cfg, d_cfg, gan, b, res = _cond_cfgs("dcgan-bn", "float32")
+  steps = 3
+  k1, k2, dt, last, state = _run_steps(dev, g_cfg, d_cfg, gan, b, res, steps)
+  var = state.g.nc_out.norm.bn.var
+  check(k1 == 0 and k2 == 0 and not torch.equal(var, torch.ones_like(var)),
+        (k1, k2))
+  log("dcgan-bn", f"DCGAN G with 'b' norms + D, float32, {steps} outer steps "
+      f"in {dt:.3f} s = {steps * b / dt:.1f} imgs/s (host clock) on "
+      f"{nvidia_smi()}; K1 launches {k1}, K2 {k2}; last " + ", ".join(
+          f"{k} {v:.4f}" for k, v in last.items()))
+
+
+def phase_dcgan_sampling(dev: torch.device, state, gan):
+  """K2 on the DCGAN G: held against its plain version at C = 128 and 64
+  (f32 and bf16 rows, both scalings), timed per width at the R of a
+  batch-256 generate forward against torch.addmm and its bounds, then the
+  trained float32 G's ``generate(1024, batch=256)`` with kernel_eval=True
+  (4 K2 calls a forward), bitwise repeatable, against the same generate
+  with K2's plain version and with the split path. Returns (K2 launches,
+  the worst float32 error)."""
+  gen = torch.Generator(device=dev).manual_seed(22)
+  worst, errs = 0.0, []
+  for cols, rows in ((128, 65536), (64, 262144), (128, 1000), (64, 130)):
+    x, mean, cov, gamma, beta = _k2_inputs(rows, cols, gen, dev)
+    for dtype, scaling in ((torch.float32, "trace"), (torch.float32, "fro"),
+                           (torch.bfloat16, "trace"),
+                           (torch.bfloat16, "fro")):
+      xd = x.to(dtype)
+      got = cuda_wc.whiten_color_apply_cuda(xd, mean, cov, gamma, beta,
+                                            scaling=scaling)
+      ref = cuda_wc.whiten_color_apply_reference(xd, mean, cov, gamma, beta,
+                                                 scaling=scaling)
+      err = float((got.float() - ref.float()).abs().max())
+      gate = K2_F32_TOL if dtype == torch.float32 else _bf16_gate(ref)
+      check(got.dtype == dtype and err <= gate, (cols, rows, dtype, err))
+      if dtype == torch.float32:
+        worst = max(worst, err)
+      errs.append(f"{cols}/{rows}/{'f32' if dtype == torch.float32 else 'bf16'}"
+                  f"/{scaling}:{err:.2e}(<={gate:.1e})")
+  log("dcgan-sampling", "K2 vs plain, C/R/rows/scaling: " + " ".join(errs))
+  sums = np.zeros(4)
+  for cols, rows in DCGAN_GENERATE:
+    x, mean, cov, gamma, beta = _k2_inputs(rows, cols, gen, dev)
+    stats = (mean, cov, gamma, beta)
+    m, bias = cuda_wc.whiten_color_fold_reference(*stats)
+    mt = m.T.contiguous()
+    for dtype in (torch.float32, torch.bfloat16):
+      xd = x.to(dtype)
+      k2, plain, addmm = _in_turns(
+          (cuda_wc.whiten_color_apply_cuda, (xd,) + stats),
+          (cuda_wc.whiten_color_apply_reference, (xd,) + stats),
+          (torch.addmm, (bias, xd.float(), mt)))
+      # Bytes: rows read and written in their type, the statistics once.
+      # Operations: row apply and setup at the peak of the rows' type.
+      nbytes = (2 * rows * cols * xd.element_size()
+                + 4 * (2 * cols * cols + 2 * cols))
+      flop = 2 * rows * cols ** 2 + 3 * 15 * 2 * cols ** 3
+      hbm = nbytes / HBM_BYTES * 1e3
+      ops = flop / ops_rate(dtype) * 1e3
+      if dtype == torch.float32:
+        sums += (k2, plain, addmm, max(hbm, ops))
+      log("dcgan-sampling", f"K2 C={cols} R={rows} "
+          f"{'f32' if dtype == torch.float32 else 'bf16'} rows: {k2:.4f} ms, "
+          f"plain {plain:.4f}, torch.addmm (row apply alone, float32) "
+          f"{addmm:.4f}; bound {max(hbm, ops):.4f} "
+          f"({'bytes' if hbm >= ops else 'operations'}); K2 at "
+          f"{max(hbm, ops) / k2:.1%} of it (on {nvidia_smi()})")
+  log("dcgan-sampling", f"the 4 K2 calls of one batch-256 DCGAN forward "
+      f"(device ms, float32 rows as the preset runs, on {nvidia_smi()}): K2 "
+      f"{sums[0]:.4f}, plain {sums[1]:.4f}, torch.addmm {sums[2]:.4f}; bound "
+      f"{sums[3]:.4f}; K2 at {sums[3] / sums[0]:.1%} of it")
+  ds = get_dataset("synthetic", batch_size=64, seed=0, z_dim=gan.z_dim,
+                   synthetic_size=256)
+  out_dir = os.path.join("build", "chip_smoke_dcgan_sampling")
+  shutil.rmtree(out_dir, ignore_errors=True)
+  cfg = TrainerConfig(name="smoke", output_dir=out_dir,
+                      checkpoints_dir=os.path.join(out_dir, "ckpt"))
+  g_k = place(Generator(dataclasses.replace(state.g.cfg, kernel_eval=True),
+                        torch.Generator().manual_seed(0)), dev)
+  g_k.load_state_dict(state.g.state_dict())
+  fused = Trainer(ds, dataclasses.replace(state, g=g_k), gan, cfg)
+  split = Trainer(ds, state, gan, cfg)
+  n = 1024
+  for trainer in (fused, split):                     # warm-up
+    trainer.generate(256, batch=256)
+  runs = {name: _generate(trainer, n) for name, trainer in (
+      ("K2", fused), ("split", split), ("K2 again", fused))}
+  imgs_k, dt_k, mem_k, k1_k, k2_k = runs["K2"]
+  check(k2_k == 4 * (n // 256) and k1_k == 0 and runs["split"][4] == 0,
+        (k2_k, k1_k))
+  # cuDNN's transposed convs (the deconvs) may pick non-deterministic
+  # algorithms, so two runs of the same G differ by rounding: held to the
+  # sampling gates here, and bitwise below with deterministic algorithms.
+  repeat = _u8_diff(imgs_k, runs["K2 again"][0])
+  check(imgs_k.shape == (n, 32, 32, 3) and repeat[0] <= SAMPLE_MEAN_TOL
+        and repeat[1] <= SAMPLE_P999_TOL and repeat[2] <= SAMPLE_MAX_TOL,
+        ("DCGAN K2 repeat", repeat))
+  with _deterministic():
+    imgs_d = fused.generate(n, batch=256)
+    check(np.array_equal(imgs_d, fused.generate(n, batch=256)),
+          "DCGAN K2 repeat with deterministic algorithms")
+    with_k2 = cuda_wc.whiten_color_apply
+    cuda_wc.whiten_color_apply = cuda_wc.whiten_color_apply_reference
+    try:
+      imgs_p = fused.generate(n, batch=256)
+    finally:
+      cuda_wc.whiten_color_apply = with_k2
+    imgs_s = split.generate(n, batch=256)
+  diffs = {"plain": _u8_diff(imgs_d, imgs_p), "split": _u8_diff(imgs_d,
+                                                                imgs_s)}
+  mean, p999, top = diffs["plain"]
+  check(mean <= SAMPLE_MEAN_TOL and p999 <= SAMPLE_P999_TOL
+        and top <= SAMPLE_MAX_TOL, diffs)
+  log("dcgan-sampling", f"DCGAN G float32, generate({n}, batch=256) on "
+      f"{nvidia_smi()}: K2 {n / dt_k:.1f} / {n / runs['K2 again'][1]:.1f} "
+      f"imgs/s ({k2_k} K2 launches, 4/forward; peak {mem_k:.0f} MiB), split "
+      f"{n / runs['split'][1]:.1f} imgs/s; uint8 |K2 - K2 again| mean "
+      "{:.4f}, p99.9 {:.0f}, max {} (cuDNN's own algorithms); with "
+      "deterministic algorithms bitwise repeatable, |K2 - K2's plain "
+      "version| mean {:.4f}, p99.9 {:.0f}, max {} (gated), |K2 - split| "
+      "mean {:.4f}, p99.9 {:.0f}, max {}".format(
+          *repeat, *diffs["plain"], *diffs["split"]))
+  return k2_k, worst
+
+
+def phase_step_options(dev: torch.device):
+  """Each step option of STEP_OPTIONS on the headline model: 2 bf16 outer
+  steps with K1 (and K2) counted, then one float32 outer step with K1
+  against plain moments under ``_f32_pair``'s gates; K1 at batched_fake_gen's
+  327,680 rows. Returns (K1 launches by path, K2 launches by path, the
+  worst K1 error)."""
+  gen = torch.Generator(device=dev).manual_seed(23)
+  worst = _k1_held(((256, BATCHED_R), (256, BATCHED_R // 4)), gen, dev,
+                   "step-options")
+  (c, r), (k, p, lib, bound, hbm, ops) = next(iter(_k1_timed(
+      ((256, BATCHED_R),), gen, dev).items()))
+  log("step-options", f"K1 C={c} R={r} bf16 rows: {k:.4f} ms, plain "
+      f"{p:.4f}, torch.cov {lib:.4f}; bound {bound:.4f} "
+      f"({'bytes' if hbm >= ops else 'operations'}); K1 at "
+      f"{bound / k:.1%} of it")
+  k1_paths, k2_paths = {}, {}
+  for name, (_, _, _, k1_per, k2_per) in STEP_OPTIONS.items():
+    g_cfg, d_cfg, gan, b, res = _cond_cfgs(f"opt:{name}", "bfloat16")
+    if k2_per:
+      g_cfg = dataclasses.replace(g_cfg, kernel_eval=True)
+    steps = 2
+    k1, k2, dt, last, _ = _run_steps(dev, g_cfg, d_cfg, gan, b, res, steps)
+    check(k1 == k1_per * steps and k2 == k2_per * steps, (name, k1, k2))
+    k1_paths[f"step-options: {name}, {steps} bf16 outer steps"] = k1
+    if k2:
+      k2_paths[f"step-options: {name} with kernel_eval, {steps} bf16 outer "
+               "steps"] = k2
+    m_k, m_p, stats_err, n_k, dt32, _, kp, pr = _f32_pair(dev, f"opt:{name}")
+    check(n_k == k1_per, (name, n_k))
+    k1_paths[f"step-options: {name}, one float32 outer step"] = n_k
+    log("step-options", f"{name}: bf16, {steps} outer steps in {dt:.3f} s = "
+        f"{steps * 5 * b / dt:.1f} imgs/s (host clock) on {nvidia_smi()}; "
+        f"K1 launches {k1} ({k1_per}/step), K2 {k2}; last " + ", ".join(
+            f"{k} {v:.4f}" for k, v in last.items())
+        + f". float32, one outer step, K1 vs plain: largest relative "
+        f"difference {kp:.2e} (plain vs reordered {pr:.2e}); wc_stats "
+        f"max|d| {stats_err:.2e}; K1 launches {n_k}")
+    torch.cuda.empty_cache()
+  return k1_paths, k2_paths, worst
+
+
+def phase_presets(dev: torch.device):
+  """Every preset through ``--preset <name> --smoke`` in-process (the
+  CLI's ``main``), on the card; imagenet64_cwc_dp must be refused naming
+  --mesh. Then stl10_wc_resnet_sn at full width (48x48: G 512/256/128 from
+  6x6, D 64..1024, float32) for 2 outer steps through the CLI, K1 counted
+  (42 a step). Returns the K1 launches of that run."""
+  out_dir = os.path.join("build", "chip_smoke_presets")
+  shutil.rmtree(out_dir, ignore_errors=True)
+  done = []
+  for name in PRESETS:
+    argv = ["--preset", name, "--smoke", "--output_dir", out_dir,
+            "--checkpoints_dir", os.path.join(out_dir, "ckpt"), "--name", name]
+    t0 = time.perf_counter()
+    if name == "imagenet64_cwc_dp":
+      try:
+        cli_run.main(argv)
+        check(False, "imagenet64_cwc_dp was not refused")
+      except SystemExit as e:
+        check("--mesh not supported" in str(e), str(e))
+      done.append(f"{name}: refused naming --mesh")
+      continue
+    check(cli_run.main(argv) == 0, name)
+    with open(os.path.join(out_dir, name, "log.txt")) as f:
+      text = f.read()
+    check("Epoch 1:" in text and "nan" not in text.lower(), text)
+    done.append(f"{name}: rc 0 in {time.perf_counter() - t0:.1f} s")
+  log("presets", "--preset <name> --smoke on the card: " + "; ".join(done))
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  cuda_wc.MOMENTS_LAUNCHES = 0
+  t0 = time.perf_counter()
+  check(cli_run.main([
+      "--preset", "stl10_wc_resnet_sn", "--dataset", "synthetic",
+      "--synthetic_resolution", "48", "--number_of_epochs", "1",
+      "--batches_per_epoch", "2", "--steps_per_call", "2",
+      "--checkpoint_ratio", "0", "--output_dir", out_dir, "--name",
+      "stl10"]) == 0, "stl10 full width")
+  dt = time.perf_counter() - t0
+  launches = cuda_wc.MOMENTS_LAUNCHES
+  with open(os.path.join(out_dir, "stl10", "metrics.jsonl")) as f:
+    record = json.loads(f.readline())
+  check(launches == 2 * 42 and np.isfinite(record["d_loss"])
+        and np.isfinite(record["g_loss"]), (launches, record))
+  log("presets", f"stl10_wc_resnet_sn at full width (48x48, G 512/256/128, "
+      f"D 64..1024, float32), 2 outer steps of 5 x 64: {dt:.1f} s with the "
+      f"process's warm-up, epoch {record['imgs_per_sec']:.1f} imgs/s (host "
+      f"clock) on {nvidia_smi()}; K1 launches {launches} (42/step); peak "
+      f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; d_loss "
+      f"{record['d_loss']:.4f}, g_loss {record['g_loss']:.4f}")
+  return launches
+
+
 def main() -> int:
   dev = phase_device()
   phase_build()
@@ -1472,6 +1906,14 @@ def main() -> int:
   cond_paths, cwc_state, cwc_gan = phase_cond_slice(dev)
   gp_launches = phase_gp_dnorm(dev)
   cond_k2 = phase_cond_sampling(dev, cwc_state, cwc_gan)
+  del cwc_state
+  torch.cuda.empty_cache()
+  dcgan_paths, dcgan_err, dcgan_state, dcgan_gan = phase_dcgan(dev)
+  phase_dcgan_bn(dev)
+  dcgan_k2, dcgan_k2_err = phase_dcgan_sampling(dev, dcgan_state, dcgan_gan)
+  del dcgan_state
+  option_k1, option_k2, option_err = phase_step_options(dev)
+  stl10_launches = phase_presets(dev)
   loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
       "wcgan_tpu", "jax", "jaxlib", "flax", "optax", "orbax"))
   check(not loaded, f"chip_smoke imported {loaded}")
@@ -1490,24 +1932,29 @@ def main() -> int:
               "state": run_step_launches,
               "run: one standing-statistics recompute": standing_launches,
               **cond_paths,
-              "gp-dnorm: one float32 WGAN-GP outer step": gp_launches}
+              "gp-dnorm: one float32 WGAN-GP outer step": gp_launches,
+              **dcgan_paths, **option_k1,
+              "presets: stl10_wc_resnet_sn at full width, 2 outer steps":
+                  stl10_launches}
   k2_paths = {"sampling: generate(1024, batch=256)": k2_launches,
               "run: EMA generate(1024, batch=256)": run_k2_launches,
               "cond-sampling: conditional generate(1024, batch=256)":
-                  cond_k2}
+                  cond_k2,
+              "dcgan-sampling: generate(1024, batch=256)": dcgan_k2,
+              **option_k2}
   print(json.dumps({"kernels": [{
       "name": "moments", "route": "cuda",
       "source": "wcgan_tpu_torch/csrc/moments.cu",
       "replaces": "wcgan_tpu/ops/pallas_wc.py:56",
       "launches": sum(k1_paths.values()), "launches_by_path": k1_paths,
-      "max_abs_err": max(err, widths_err),
+      "max_abs_err": max(err, widths_err, dcgan_err, option_err),
       "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
       "bound_by": k1_bound_by, "library_ms": k1_lib_ms}, {
       "name": "whiten_color_apply", "route": "cuda",
       "source": "wcgan_tpu_torch/csrc/wc_apply.cu",
       "replaces": "wcgan_tpu/ops/pallas_wc.py:195",
       "launches": sum(k2_paths.values()), "launches_by_path": k2_paths,
-      "max_abs_err": k2_err,
+      "max_abs_err": max(k2_err, dcgan_k2_err),
       "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
       "bound_by": k2_bound_by, "library_ms": k2_lib_ms}]}), flush=True)
   print(json.dumps({"ok": True, "device": {

@@ -120,7 +120,7 @@ def test_cli_takes_the_ported_flags():
     assert defaults_t[key] == defaults_j[key], flag
 
 
-@pytest.mark.parametrize("flag", ["--mesh", "--remat"])
+@pytest.mark.parametrize("flag", ["--mesh", "--score_every"])
 def test_cli_still_refuses_by_name(flag):
   from wcgan_tpu_torch.cli import run as trun
   with pytest.raises(SystemExit, match=f"{flag} not supported"):

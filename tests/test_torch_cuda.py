@@ -570,3 +570,105 @@ def test_wgan_gp_with_wc_in_d_on_card(dev):
     scale = max(1.0, abs(m_p[k]))
     spread = abs(m_r[k] - m_p[k]) / scale
     assert abs(m_k[k] - m_p[k]) / scale <= max(1e-3, 2 * spread), k
+
+
+# --- slice 7: the DCGAN's widths, K2 at C = 128 and 64, remat ---------------
+
+# (C, R) of the DCGAN G's 4 WC layers at batch 64 and the G update's 128,
+# and batched_fake_gen's 5 x 64-row forward at its last layer.
+@pytest.mark.parametrize("rows,cols", [(1024, 256), (4096, 256),
+                                       (16384, 128), (65536, 64),
+                                       (2048, 256), (8192, 256),
+                                       (32768, 128), (131072, 64),
+                                       (327680, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_dcgan_widths(rows, cols, dtype, dev):
+  gen = torch.Generator(device=dev).manual_seed(5 * rows + cols)
+  x = (torch.randn((rows, cols), generator=gen, device=dev) * 2 + 3).to(dtype)
+  mean, cov = cuda_wc.moments_cuda(x)
+  mean2, cov2 = cuda_wc.moments_cuda(x)
+  torch.cuda.synchronize()
+  assert torch.equal(mean, mean2) and torch.equal(cov, cov2)
+  assert torch.equal(cov, cov.T)
+  assert _max_err((mean, cov), _k1_reference(x)) <= ATOL
+
+
+# The DCGAN G's eval-mode layers at C = 128 and 64 (a batch-256 generate
+# forward, and a ragged R).
+@pytest.mark.parametrize("rows,cols", [(65536, 128), (262144, 64),
+                                       (1000, 128), (130, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scaling", ["trace", "fro"])
+def test_k2_dcgan_widths(rows, cols, dtype, scaling, dev):
+  gen = torch.Generator(device=dev).manual_seed(rows + 7 * cols)
+  x, mean, cov, gamma, beta = _wc_inputs(rows, cols, gen, dev)
+  xd = x.to(dtype)
+  before = cuda_wc.WC_APPLY_LAUNCHES
+  got = cuda_wc.whiten_color_apply_cuda(xd, mean, cov, gamma, beta,
+                                        scaling=scaling)
+  torch.cuda.synchronize()
+  assert cuda_wc.WC_APPLY_LAUNCHES == before + 1
+  ref = cuda_wc.whiten_color_apply_reference(xd, mean, cov, gamma, beta,
+                                             scaling=scaling)
+  assert got.dtype == dtype
+  gate = 5e-4 if dtype == torch.float32 else _bf16_gate(ref)
+  assert float((got.float() - ref.float()).abs().max()) <= gate
+
+
+def test_dcgan_generate_launches_k2_per_layer(dev):
+  """A DCGAN G in eval mode with kernel_eval=True: 4 K2 calls a forward
+  (its 3 blocks' ``nc`` and ``nc_out``), no K1."""
+  from wcgan_tpu_torch.device import place
+  from wcgan_tpu_torch.models.generator import Generator, GeneratorConfig
+  g = place(Generator(GeneratorConfig(arch="dcgan", z_dim=16,
+                                      filters=(64, 64, 32), kernel_eval=True),
+                      torch.Generator().manual_seed(0)), dev)
+  z = torch.randn((32, 16), device=dev)
+  k1, k2 = cuda_wc.MOMENTS_LAUNCHES, cuda_wc.WC_APPLY_LAUNCHES
+  with torch.no_grad():
+    out = g(z, train=False)
+  torch.cuda.synchronize()
+  assert out.shape == (32, 3, 32, 32) and bool(torch.isfinite(out).all())
+  assert cuda_wc.WC_APPLY_LAUNCHES == k2 + 4
+  assert cuda_wc.MOMENTS_LAUNCHES == k1
+
+
+def test_remat_g_update_counts_the_recompute(dev):
+  """One float32 outer step with remat in G: K1 runs 7 x 2 times in the D
+  phase (2 D updates), 7 in the G update's forward and 6 more in its
+  backward, where the 3 blocks' 2 WC layers each run again; the metrics
+  agree with the step without remat (deterministic kernels) within
+  chip_smoke.py's STEP_RTOL."""
+  from wcgan_tpu_torch.models.discriminator import DiscriminatorConfig
+  from wcgan_tpu_torch.models.generator import GeneratorConfig
+  from wcgan_tpu_torch.train.state import OptimConfig, create_state
+  from wcgan_tpu_torch.train.step import GANConfig, make_outer_step
+  gan = GANConfig(training_ratio=2, z_dim=32)
+  gen = torch.Generator().manual_seed(4)
+  real = torch.randint(0, 256, (2, 16, 32, 32, 3), generator=gen,
+                       dtype=torch.uint8)
+  noise = {"z_d": torch.randn((2, 16, 32), generator=gen),
+           "z_g": torch.randn((32, 32), generator=gen)}
+  results = []
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  torch.backends.cudnn.deterministic = True
+  try:
+    for remat in (True, False):
+      g_cfg = GeneratorConfig(z_dim=32, filters=(64, 64, 64), remat=remat)
+      state = create_state(g_cfg, DiscriminatorConfig(filters=(64,) * 4),
+                           OptimConfig(), 2, dev, seed=3)
+      before = cuda_wc.MOMENTS_LAUNCHES
+      metrics = make_outer_step(gan)(state, real, None, noise=noise)
+      results.append(({k: float(v) for k, v in metrics.items()},
+                      cuda_wc.MOMENTS_LAUNCHES - before,
+                      {n: b.clone() for n, b in state.g.named_buffers()}))
+  finally:
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+  (m_r, n_r, s_r), (m_p, n_p, s_p) = results
+  assert n_p == 2 * 7 + 7 and n_r == n_p + 6
+  for k in m_p:
+    assert np.isfinite(m_r[k])
+    assert abs(m_r[k] - m_p[k]) <= 1e-3 * max(1.0, abs(m_p[k])), k
+  for n in s_p:
+    assert float((s_r[n] - s_p[n]).abs().max()) <= 1e-4, n

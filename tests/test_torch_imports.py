@@ -2,10 +2,10 @@
 package's numpy modules behave exactly as the originals.
 
 The port (``wcgan_tpu_torch/`` and ``chip_smoke.py``) runs where there is
-no JAX. It keeps its own copies of ``wcgan_tpu.data``, ``wcgan_tpu.utils``
-and the two functions of ``wcgan_tpu.tools.h5_convert`` it calls; these
-tests import both sides and compare them (the tests may import JAX's
-package, the port may not)."""
+no JAX. It keeps its own copies of ``wcgan_tpu.data``, ``wcgan_tpu.utils``,
+``wcgan_tpu.cli.presets`` and the two functions of
+``wcgan_tpu.tools.h5_convert`` it calls; these tests import both sides and
+compare them (the tests may import JAX's package, the port may not)."""
 
 import ast
 import json
@@ -18,10 +18,12 @@ import numpy as np
 import pytest
 
 from wcgan_tpu import data as j_data
+from wcgan_tpu.cli import presets as j_presets
 from wcgan_tpu.tools import h5_convert as j_h5
 from wcgan_tpu.utils import images as j_images
 from wcgan_tpu.utils import logging as j_logging
 from wcgan_tpu_torch import data as t_data
+from wcgan_tpu_torch.cli import presets as t_presets
 from wcgan_tpu_torch.tools import h5_convert as t_h5
 from wcgan_tpu_torch.utils import images as t_images
 from wcgan_tpu_torch.utils import logging as t_logging
@@ -65,6 +67,7 @@ def test_the_walk_sees_every_import_form():
 def test_entry_points_load_no_jax_package_module():
   code = ("import sys\n"
           "import wcgan_tpu_torch.cli.run, wcgan_tpu_torch.train.trainer\n"
+          "import wcgan_tpu_torch.cli.presets\n"
           "import wcgan_tpu_torch.data, wcgan_tpu_torch.utils\n"
           "import wcgan_tpu_torch.tools.h5_convert\n"
           "print(sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -183,3 +186,17 @@ def test_h5_flat_copy_matches(tmp_path, rng):
     assert sorted(a) == sorted(b)
     for k in a:
       np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_presets_copy_matches():
+  """The BASELINE presets: the same names and argv, and preset_argv
+  appends the extra flags and refuses an unknown name alike."""
+  assert t_presets.PRESETS == j_presets.PRESETS
+  assert list(t_presets.PRESETS) == list(j_presets.PRESETS)
+  extra = ["--smoke", "--batch_size", "8"]
+  for name in j_presets.PRESETS:
+    assert t_presets.preset_argv(name, extra) == j_presets.preset_argv(
+        name, extra)
+  for mod in (j_presets, t_presets):
+    with pytest.raises(KeyError, match="unknown preset 'nope'"):
+      mod.preset_argv("nope")

@@ -86,10 +86,16 @@ def test_norm_color_matches_jax(norm, rng):
 
 
 def test_norm_color_rejects_unported_codes():
+  """Every norm code of the JAX package is ported ('b', BatchNorm, with
+  the DCGAN slice), with every coloring; a code the reference does not
+  know is refused."""
   for norm, coloring in (("b", "uconv"), ("b", "ucconv"), ("b", "cconv-sa"),
                          ("b", "s")):
-    with pytest.raises(NotImplementedError):
-      tlayers.NormColor(8, norm=norm, coloring=coloring)
+    nc = tlayers.NormColor(8, norm=norm, coloring=coloring, num_classes=3)
+    assert isinstance(nc.norm.bn, tlayers.BatchNorm)
+  for norm in ("x", "bn", "D"):
+    with pytest.raises(ValueError, match="unknown norm code"):
+      tlayers.NormColor(8, norm=norm, coloring="s")
 
 
 def test_norm_color_rows_are_a_free_view(rng):

@@ -1,20 +1,29 @@
 """Experiment entry point of the port: ``python -m wcgan_tpu_torch``.
 
-Counterpart of ``wcgan_tpu/cli/run.py`` for the slices ported so far: the
-ResNet WC-GAN (G with norm codes n/d/dr and every coloring code, the
-conditional ones with ``--conditional``; ResNet D with or without spectral
-normalization, optional WC layers, projection-D or the AC-GAN head by
-``--gan_type``), hinge/ns/wgan/wgan-gp losses, Adam with the reference's
-LR schedules, the reference's default run (device-resident data in
-chains of ``--steps_per_call``, the whitening probe and guard, full-state
+Counterpart of ``wcgan_tpu/cli/run.py`` on one device: the ResNet and
+DCGAN WC-GANs (G with norm codes n/b/d/dr and every coloring code, the
+conditional ones with ``--conditional``; D with or without spectral
+normalization, by the kernel matrix or by the conv operator
+(``--conv_singular``), optional WC layers in the ResNet D, projection-D or
+the AC-GAN head by ``--gan_type``), hinge/ns/wgan/wgan-gp losses, Adam
+with the reference's LR schedules, the step's options
+(``--batched_fake_gen``, ``--d_fake_stats``, ``--sn_update_on_g_step``,
+``--remat``), the reference's default run (device-resident data in chains
+of ``--steps_per_call``, the whitening probe and guard, full-state
 checkpoints every ``--checkpoint_ratio`` epochs, ``--resume``), EMA
 weights with standing statistics (``--generator_ema``), sample grids, and
 ``--phase test``, which writes one grid from the restored state or from
-weights-only ``.npz`` (or ``.h5``) files. Flag names and defaults are the
-JAX CLI's. A flag of the JAX CLI that the port does not support yet is
-rejected with an error, never ignored.
+weights-only ``.npz`` (or ``.h5``) files. ``--preset <name>`` expands to a
+BASELINE configuration's flags (``cli/presets.py``), and ``--smoke``
+shrinks any run to a few seconds on synthetic data of the dataset's
+resolution, keeping its architecture and codes. Flag names and defaults
+are the JAX CLI's. A flag of the JAX CLI that the port does not take is
+refused by name with the reason, never ignored.
 
 Usage:
+  python -m wcgan_tpu_torch --preset cifar10_wc_dcgan --dataset synthetic \\
+      --synthetic_resolution 32 --number_of_epochs 2
+  python -m wcgan_tpu_torch --preset stl10_wc_resnet_sn --smoke --device cpu
   python -m wcgan_tpu_torch --device cuda --dataset synthetic --arch res \\
       --bf16 --number_of_epochs 2 --batches_per_epoch 3
   python -m wcgan_tpu_torch --device cuda --dataset synthetic --bf16 \\
@@ -37,6 +46,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from wcgan_tpu_torch.cli.presets import preset_argv
 from wcgan_tpu_torch.data import DATASETS, get_dataset
 from wcgan_tpu_torch.tools.h5_convert import apply_key_map, h5_flat
 from wcgan_tpu_torch import weights
@@ -50,19 +60,22 @@ from wcgan_tpu_torch.train.state import OptimConfig, create_state
 from wcgan_tpu_torch.train.step import GANConfig
 from wcgan_tpu_torch.train.trainer import Trainer, TrainerConfig
 
-# The norm codes the port takes ('b', BatchNorm, is not ported yet).
-NORM_CODES = ("n", "d", "dr")
+NORM_CODES = ("n", "b", "d", "dr")
 
-# Flags of the JAX CLI (wcgan_tpu/cli/run.py) that this port does not take
-# yet; each is refused by name instead of being silently dropped.
-UNSUPPORTED_FLAGS = (
-    "--spectral_iterations", "--fully_diff_spectral", "--conv_singular",
-    "--sn_update_on_g_step", "--whitening_precision",
-    "--compute_inception_score", "--compute_fid", "--score_every",
-    "--samples_inception", "--samples_fid", "--inception_weights",
-    "--platform", "--mesh", "--remat", "--profile_dir", "--debug_nans",
-    "--synthetic_resolution", "--smoke", "--batched_fake_gen",
-    "--d_fake_stats", "--compilation_cache_dir", "--preset")
+_SCORING = ("evaluation (IS/FID) is not ported yet; it needs InceptionV3 "
+            "weights the repository does not have")
+# Flags of the JAX CLI (wcgan_tpu/cli/run.py) that this port does not take,
+# and why; each is refused by name instead of being silently dropped.
+UNSUPPORTED_FLAGS = {
+    "--mesh": "data parallelism is not ported yet (the port runs on one "
+              "device)",
+    "--compute_inception_score": _SCORING, "--compute_fid": _SCORING,
+    "--score_every": _SCORING, "--samples_inception": _SCORING,
+    "--samples_fid": _SCORING, "--inception_weights": _SCORING,
+    "--platform": "it picks a JAX/XLA platform; the port takes --device",
+    "--compilation_cache_dir": "it is XLA's compile cache; the port "
+                               "compiles its kernels into build/kernels/",
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -105,7 +118,13 @@ def build_parser() -> argparse.ArgumentParser:
   p.add_argument("--dataset", default="cifar10", choices=sorted(DATASETS))
   p.add_argument("--data_dir", default="data")
   p.add_argument("--synthetic_size", type=int, default=4096)
-  p.add_argument("--arch", default="res", choices=["res"])
+  p.add_argument("--synthetic_resolution", type=int, default=None,
+                 help="override the synthetic dataset's resolution")
+  p.add_argument("--smoke", action="store_true",
+                 help="smoke mode: synthetic data at the dataset's "
+                      "resolution, widths 16, 2 epochs of 2 outer steps; "
+                      "architecture, loss and codes kept")
+  p.add_argument("--arch", default="res", choices=["res", "dcgan"])
   p.add_argument("--loss", default="hinge",
                  choices=["hinge", "ns", "wgan", "wgan-gp"])
   p.add_argument("--gan_type", default="GAN",
@@ -137,6 +156,15 @@ def build_parser() -> argparse.ArgumentParser:
                  help="comma-separated per-block widths (default preset)")
   p.add_argument("--discriminator_spectral", type=int, default=1,
                  help="1 = spectral-normalize D kernels (default)")
+  p.add_argument("--spectral_iterations", type=int, default=1,
+                 help="power-iteration steps per SN forward")
+  p.add_argument("--fully_diff_spectral", action="store_true",
+                 help="backpropagate through the power iteration")
+  p.add_argument("--conv_singular", action="store_true",
+                 help="SN convs by the operator norm of the convolution "
+                      "(power iteration through conv and its transpose)")
+  p.add_argument("--sn_update_on_g_step", action="store_true",
+                 help="the G update's D forward advances the SN vectors")
   p.add_argument("--batch_size", type=int, default=64)
   p.add_argument("--training_ratio", type=int, default=5)
   p.add_argument("--generator_batch_multiple", type=int, default=2)
@@ -155,8 +183,30 @@ def build_parser() -> argparse.ArgumentParser:
                  choices=["newton_schulz", "cholesky"])
   p.add_argument("--ns_scaling", default="trace", choices=["trace", "fro"])
   p.add_argument("--wc_momentum", type=float, default=0.99)
+  p.add_argument("--whitening_precision", default="highest",
+                 choices=["highest", "high"],
+                 help="'highest' = true float32 whitening matmuls (TF32 "
+                      "off), what the port runs; 'high' (the JAX CLI's "
+                      "3-pass bf16 TPU mode) is refused")
   p.add_argument("--bf16", action="store_true",
                  help="bfloat16 compute in G/D (whitening stays float32)")
+  p.add_argument("--remat", action="store_true",
+                 help="recompute G's blocks (and a ResNet D's) in the "
+                      "backward: memory for time")
+  p.add_argument("--batched_fake_gen", type=int, default=0,
+                 help="1 = one G forward for all training_ratio fake "
+                      "batches of an outer step (whitening statistics "
+                      "over ratio x batch rows)")
+  p.add_argument("--d_fake_stats", default="batch",
+                 choices=["batch", "running"],
+                 help="statistics of the D-phase fake forwards: 'batch' "
+                      "(the reference's) or 'running' (G in eval mode)")
+  p.add_argument("--profile_dir", default=None,
+                 help="write a torch.profiler Chrome trace of a few step "
+                      "calls here")
+  p.add_argument("--debug_nans", action="store_true",
+                 help="torch.autograd anomaly detection, and raise at the "
+                      "first step call with a non-finite metric")
   p.add_argument("--random_flip", type=int, default=None,
                  help="1/0 horizontal flip of real images (default: on for "
                       "natural-image datasets)")
@@ -199,9 +249,39 @@ def _reject_unsupported(argv: List[str]) -> None:
   given = sorted({a.split("=", 1)[0] for a in argv
                   if a.split("=", 1)[0] in UNSUPPORTED_FLAGS})
   if given:
-    raise SystemExit(
-        f"wcgan_tpu_torch: {', '.join(given)} not supported by the PyTorch "
-        "port yet (the JAX CLI, python run.py, has them)")
+    raise SystemExit("wcgan_tpu_torch: " + "; ".join(
+        f"{flag} not supported by the PyTorch port: {UNSUPPORTED_FLAGS[flag]}"
+        for flag in given) + " (the JAX CLI, python run.py, has them)")
+
+
+def expand_preset(argv: List[str]) -> List[str]:
+  """``--preset <name>`` replaced by the preset's flags; flags given after
+  it override them (argparse keeps the last), as in the JAX CLI."""
+  if "--preset" not in argv:
+    return argv
+  i = argv.index("--preset")
+  if i + 1 >= len(argv):
+    raise SystemExit("wcgan_tpu_torch: --preset needs a name")
+  return preset_argv(argv[i + 1], argv[:i] + argv[i + 2:])
+
+
+def _apply_smoke(args) -> None:
+  """Shrink a run to smoke size in place, keeping its semantics (arch,
+  loss, norm/coloring codes, conditionality, resolution): the JAX CLI's
+  ``_apply_smoke`` on one device."""
+  res, _, _ = DATASETS[args.dataset]
+  args.synthetic_resolution = args.synthetic_resolution or res
+  args.dataset = "synthetic"
+  args.synthetic_size = min(args.synthetic_size, 64)
+  args.batch_size = 8
+  args.generator_filters = args.generator_filters or "16,16"
+  args.discriminator_filters = args.discriminator_filters or "16,16"
+  args.ns_iters = min(args.ns_iters, 6)
+  args.number_of_epochs = 2
+  args.batches_per_epoch = 2
+  args.checkpoint_ratio = 2
+  args.display_ratio = 1
+  args.steps_per_call = 1
 
 
 def _parse_filters(spec: Optional[str]):
@@ -224,19 +304,30 @@ def set_precision() -> str:
 
 def build_experiment(args) -> Trainer:
   """args -> a Trainer with its state on ``args.device``."""
+  if args.smoke:
+    _apply_smoke(args)
+  if args.whitening_precision != "highest":
+    raise SystemExit(
+        f"wcgan_tpu_torch: --whitening_precision {args.whitening_precision} "
+        "not supported by the PyTorch port: it is the JAX package's 3-pass "
+        "bf16 TPU mode, with no measured GPU counterpart; the port's "
+        "whitening runs in true float32 ('highest')")
   device = resolve_device(args.device)
   conditional = args.conditional or args.gan_type in ("PROJECTIVE",
                                                       "AC_GAN")
   ds = get_dataset(args.dataset, batch_size=args.batch_size,
                    data_dir=args.data_dir, conditional=conditional,
                    seed=args.seed, z_dim=args.z_dim,
-                   synthetic_size=args.synthetic_size)
+                   synthetic_size=args.synthetic_size,
+                   synthetic_resolution=args.synthetic_resolution)
   res = ds.resolution
   num_classes = ds.num_classes
   dtype = "bfloat16" if args.bf16 else "float32"
-  g_filters = _parse_filters(args.generator_filters) or g_presets(res)
+  g_filters = (_parse_filters(args.generator_filters)
+               or g_presets(args.arch, res))
   g_cfg = GeneratorConfig(
-      z_dim=args.z_dim, resolution=res, output_channels=ds.channels,
+      arch=args.arch, z_dim=args.z_dim, resolution=res,
+      output_channels=ds.channels,
       filters=g_filters, base_resolution=res // (2 ** len(g_filters)),
       block_norm=args.generator_block_norm,
       block_coloring=args.generator_block_coloring,
@@ -244,18 +335,23 @@ def build_experiment(args) -> Trainer:
       last_coloring=args.generator_last_coloring, num_classes=num_classes,
       filters_emb=args.filters_emb, concat_cls=args.generator_concat_cls,
       ns_iters=args.ns_iters, ns_method=args.whitening_method,
-      ns_scaling=args.ns_scaling, wc_momentum=args.wc_momentum, dtype=dtype)
+      ns_scaling=args.ns_scaling, wc_momentum=args.wc_momentum, dtype=dtype,
+      remat=args.remat)
   d_filters = _parse_filters(args.discriminator_filters)
   if d_filters is None:
-    d_filters, d_down = d_presets(res)
+    d_filters, d_down = d_presets(args.arch, res)
   else:
-    # All blocks but the last downsample; block 0 (the optimized block)
-    # always does.
-    d_down = (True,) + (True,) * (len(d_filters) - 2) + (False,) * (
-        len(d_filters) > 1)
+    # All blocks but the last downsample; block 0 of the res D (the
+    # optimized block) always does. The DCGAN D's blocks all stride 2.
+    d_down = (True,) * (len(d_filters) - 1) + (False,)
+    if args.arch == "res":
+      d_down = (True,) + d_down[1:]
   d_cfg = DiscriminatorConfig(
-      resolution=res, input_channels=ds.channels, filters=d_filters,
-      downsample=d_down, spectral=bool(args.discriminator_spectral),
+      arch=args.arch, resolution=res, input_channels=ds.channels,
+      filters=d_filters, downsample=d_down,
+      spectral=bool(args.discriminator_spectral),
+      sn_iters=args.spectral_iterations, fully_diff=args.fully_diff_spectral,
+      conv_singular=args.conv_singular, remat=args.remat,
       norm=args.discriminator_norm, coloring=args.discriminator_coloring,
       num_classes=num_classes, filters_emb=args.filters_emb,
       projection=args.gan_type == "PROJECTIVE",
@@ -271,7 +367,9 @@ def build_experiment(args) -> Trainer:
       gradient_penalty_weight=(args.gradient_penalty_weight
                                if args.loss == "wgan-gp" else 0.0),
       num_classes=num_classes, z_dim=args.z_dim,
-      g_ema_decay=args.generator_ema,
+      sn_update_on_g_step=args.sn_update_on_g_step,
+      batched_fake_gen=bool(args.batched_fake_gen),
+      d_fake_stats=args.d_fake_stats, g_ema_decay=args.generator_ema,
       random_flip=(bool(args.random_flip) if args.random_flip is not None
                    else args.dataset not in ("mnist", "fashion-mnist",
                                              "digits")))
@@ -301,7 +399,8 @@ def build_experiment(args) -> Trainer:
       wc_residual_action=args.wc_residual_action,
       fallback_cooldown=args.fallback_cooldown,
       residual_probe_every=args.residual_probe_every,
-      ema_standing_batches=args.ema_standing_stats)
+      ema_standing_batches=args.ema_standing_stats,
+      profile_dir=args.profile_dir, debug_nans=args.debug_nans)
   return Trainer(ds, state, gan_cfg, tcfg)
 
 
@@ -346,9 +445,12 @@ def _load_weights_npz(module, path: str, key_map_path: Optional[str] = None,
 
 def main(argv=None) -> int:
   argv = list(sys.argv[1:]) if argv is None else list(argv)
+  argv = expand_preset(argv)
   _reject_unsupported(argv)
   args = build_parser().parse_args(argv)
   print(set_precision(), flush=True)
+  if args.debug_nans:
+    torch.autograd.set_detect_anomaly(True)
   trainer = build_experiment(args)
   device = trainer.state.generator.device
   trainer.logger.line(f"wcgan_tpu_torch on {device}"

@@ -1,12 +1,16 @@
-"""The ResNet discriminator: SN-GAN D, projection-D and the AC-GAN head.
+"""The discriminator, ResNet or DCGAN: SN-GAN D, projection-D and the
+AC-GAN head.
 
-Counterpart of ``wcgan_tpu/models/discriminator.py`` for ``arch='res'``:
+Counterpart of ``wcgan_tpu/models/discriminator.py``. ``arch='res'``:
 down-blocks (spectral-normalized convs unless ``spectral`` is off, with
-optional WC layers: ``norm``/``coloring``) -> ReLU -> global sum pool ->
-dense -> scalar score; with ``projection`` the score gains the inner
-product of the pooled features with a spectral-normalized class
-embedding, and with ``ac_gan`` a dense head gives class logits. The DCGAN
-arch is not ported.
+optional WC layers: ``norm``/``coloring``) -> ReLU -> global sum pool;
+``'dcgan'``: 4x4 stride-2 convs with LeakyReLU -> the features flattened
+in NHWC order. Then dense -> scalar score; with ``projection`` the score
+gains the inner product of the features with a spectral-normalized class
+embedding, and with ``ac_gan`` a dense head gives class logits.
+``conv_singular`` normalizes each conv by the operator norm of the
+convolution (``layers.SNConv``); ``remat`` recomputes the res blocks in
+the backward and is a no-op for the DCGAN D, as in the reference.
 """
 
 from __future__ import annotations
@@ -25,9 +29,10 @@ from wcgan_tpu_torch.models.generator import DTYPES
 
 @dataclasses.dataclass(frozen=True)
 class DiscriminatorConfig:
-  """Static discriminator hyperparameters (the subset the port supports)."""
+  """Static discriminator hyperparameters (the JAX package's, without
+  ``axis_name``)."""
 
-  arch: str = "res"
+  arch: str = "res"                    # 'res' | 'dcgan'
   resolution: int = 32
   input_channels: int = 3
   filters: Tuple[int, ...] = (128, 128, 128, 128)
@@ -35,6 +40,7 @@ class DiscriminatorConfig:
   spectral: bool = True                # --discriminator_spectral
   sn_iters: int = 1
   fully_diff: bool = False
+  conv_singular: bool = False          # --conv_singular
   norm: str = "n"                      # --discriminator_norm
   coloring: str = "n"                  # --discriminator_coloring
   num_classes: int = 0
@@ -48,19 +54,27 @@ class DiscriminatorConfig:
   dtype: str = "float32"
   use_kernel: Optional[bool] = None    # K1 for the WC layers' moments:
                                        # None = on CUDA
+  remat: bool = False                  # recompute res blocks in backward
 
   def __post_init__(self):
-    if self.arch != "res":
-      raise NotImplementedError(f"discriminator arch {self.arch!r}: only "
-                                "'res' is ported")
+    if self.arch not in ("res", "dcgan"):
+      raise ValueError(f"discriminator arch must be 'res' or 'dcgan', got "
+                       f"{self.arch!r}")
     if self.dtype not in DTYPES:
       raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got "
                        f"{self.dtype!r}")
     if len(self.downsample) != len(self.filters):
       raise ValueError("downsample and filters must align per block")
-    if not self.downsample[0]:
+    if self.arch == "res" and self.downsample and not self.downsample[0]:
       raise ValueError("downsample[0] must be True: the first res block "
                        "(optimized block) always downsamples")
+    if self.arch == "dcgan" and (self.norm != "n" or self.coloring != "n"):
+      # The DCGAN D has no place for norm or coloring layers; dropping
+      # them unseen would run another experiment. remat is accepted: the
+      # CLI shares one --remat with G, and the DCGAN D has nothing to
+      # recompute.
+      raise ValueError("discriminator norm/coloring are not supported "
+                       "for the dcgan arch")
 
 
 class Discriminator(nn.Module):
@@ -75,18 +89,30 @@ class Discriminator(nn.Module):
     super().__init__()
     self.cfg = cfg
     conv = dict(spectral=cfg.spectral, sn_iters=cfg.sn_iters,
-                fully_diff=cfg.fully_diff)
-    self.block0 = B.DiscOptimizedBlock(cfg.input_channels, cfg.filters[0],
-                                       generator, **conv)
-    for i in range(1, len(cfg.filters)):
-      self.add_module(f"block{i}", B.DiscResBlock(
-          cfg.filters[i - 1], cfg.filters[i], generator,
-          downsample=cfg.downsample[i], norm=cfg.norm, coloring=cfg.coloring,
-          num_classes=cfg.num_classes, filters_emb=cfg.filters_emb,
-          ns_iters=cfg.ns_iters, ns_method=cfg.ns_method,
-          momentum=cfg.wc_momentum, ns_scaling=cfg.ns_scaling,
-          use_kernel=cfg.use_kernel, **conv))
-    feat = cfg.filters[-1]
+                fully_diff=cfg.fully_diff, conv_singular=cfg.conv_singular)
+    size = cfg.resolution
+    if cfg.arch == "dcgan":
+      in_ch = cfg.input_channels
+      for i, f in enumerate(cfg.filters):
+        self.add_module(f"block{i}", B.DCGANDiscBlock(
+            in_ch, f, generator, size=size, **conv))
+        in_ch, size = f, -(-size // 2)     # 'SAME' stride 2: ceil
+      feat = size * size * in_ch
+    else:
+      self.block0 = B.DiscOptimizedBlock(cfg.input_channels, cfg.filters[0],
+                                         generator, size=size, **conv)
+      size //= 2
+      for i in range(1, len(cfg.filters)):
+        self.add_module(f"block{i}", B.DiscResBlock(
+            cfg.filters[i - 1], cfg.filters[i], generator,
+            downsample=cfg.downsample[i], norm=cfg.norm,
+            coloring=cfg.coloring, num_classes=cfg.num_classes,
+            filters_emb=cfg.filters_emb, ns_iters=cfg.ns_iters,
+            ns_method=cfg.ns_method, momentum=cfg.wc_momentum,
+            ns_scaling=cfg.ns_scaling, use_kernel=cfg.use_kernel,
+            size=size, **conv))
+        size //= 2 if cfg.downsample[i] else 1
+      feat = cfg.filters[-1]
     sn = dict(sn_iters=cfg.sn_iters, fully_diff=cfg.fully_diff)
 
     def dense(features):
@@ -107,10 +133,25 @@ class Discriminator(nn.Module):
               update_sn: bool = False, update_stats: bool = False
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     cfg = self.cfg
-    h = self.block0(x.to(DTYPES[cfg.dtype]), update_sn)
-    for i in range(1, len(cfg.filters)):
-      h = getattr(self, f"block{i}")(h, labels, update_sn, update_stats)
-    feat = L.global_sum_pool(F.relu(h)).float()
+    h = x.to(DTYPES[cfg.dtype])
+    if cfg.arch == "dcgan":
+      for i in range(len(cfg.filters)):
+        h = getattr(self, f"block{i}")(h, update_sn)
+      # The reference flattens NHWC activations; these are NCHW views of
+      # NHWC memory, so the NHWC order is a permute away (and a free view).
+      feat = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1).float()
+    else:
+      h = self.block0(h, update_sn)
+      for i in range(1, len(cfg.filters)):
+        block = getattr(self, f"block{i}")
+        if cfg.remat:
+          h = L.remat_call(block, (h, labels),
+                           dict(update_sn=update_sn,
+                                update_stats=update_stats),
+                           dict(update_sn=False, update_stats=False))
+        else:
+          h = block(h, labels, update_sn, update_stats)
+      feat = L.global_sum_pool(F.relu(h)).float()
     score = self.fc_out(feat, update_sn)[:, 0]
     if cfg.projection:
       if labels is None:
@@ -121,9 +162,13 @@ class Discriminator(nn.Module):
     return score, class_logits
 
 
-def preset_filters(resolution: int
+def preset_filters(arch: str, resolution: int
                    ) -> Tuple[Tuple[int, ...], Tuple[bool, ...]]:
-  """Per-dataset default D widths and per-block downsampling (ResNet)."""
+  """Per-dataset default D widths and per-block downsampling."""
+  if arch == "dcgan":
+    f = {16: (64, 128), 32: (64, 128, 256), 48: (64, 128, 256),
+         64: (64, 128, 256, 512)}[resolution]
+    return f, tuple(True for _ in f)
   if resolution == 16:
     return (64, 128, 128), (True, True, False)
   if resolution == 32:

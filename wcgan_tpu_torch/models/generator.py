@@ -1,11 +1,13 @@
-"""The ResNet WC generator.
+"""The WC generator, ResNet or DCGAN.
 
-Counterpart of ``wcgan_tpu/models/generator.py`` for ``arch='res'``:
-z -> Dense -> base x base x C -> up-blocks -> final WC layer -> ReLU ->
-3x3 conv -> tanh, with norm codes {n, d, dr} and every coloring code.
-A conditional G (``num_classes`` > 0) takes one label per image, used by
-its conditional colorings and, with ``concat_cls``, as a one-hot
-concatenated to z. The DCGAN arch is not ported.
+Counterpart of ``wcgan_tpu/models/generator.py``: z -> Dense -> base x
+base x C -> up-blocks (``arch='res'``: residual blocks; ``'dcgan'``:
+norm/color, ReLU, 4x4 stride-2 transposed conv) -> final WC layer -> ReLU
+-> 3x3 conv -> tanh, with norm codes {n, b, d, dr} and every coloring
+code. A conditional G (``num_classes`` > 0) takes one label per image,
+used by its conditional colorings and, with ``concat_cls``, as a one-hot
+concatenated to z. ``remat`` recomputes each block's activations in the
+backward (``layers.remat_call``).
 """
 
 from __future__ import annotations
@@ -25,9 +27,10 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 @dataclasses.dataclass(frozen=True)
 class GeneratorConfig:
-  """Static generator hyperparameters (the subset the port supports)."""
+  """Static generator hyperparameters (the JAX package's, without
+  ``axis_name``)."""
 
-  arch: str = "res"
+  arch: str = "res"                    # 'res' | 'dcgan'
   z_dim: int = 128
   resolution: int = 32
   output_channels: int = 3
@@ -51,11 +54,12 @@ class GeneratorConfig:
                                        # raises): None/False = the split
                                        # path (the default, as in the JAX
                                        # package)
+  remat: bool = False                  # recompute blocks in the backward
 
   def __post_init__(self):
-    if self.arch != "res":
-      raise NotImplementedError(f"generator arch {self.arch!r}: only 'res' "
-                                "is ported")
+    if self.arch not in ("res", "dcgan"):
+      raise ValueError(f"generator arch must be 'res' or 'dcgan', got "
+                       f"{self.arch!r}")
     if self.dtype not in DTYPES:
       raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got "
                        f"{self.dtype!r}")
@@ -86,9 +90,16 @@ class Generator(nn.Module):
               filters_emb=cfg.filters_emb)
     in_ch = f0
     for i, f in enumerate(cfg.filters):
-      self.add_module(f"block{i}", B.GenResBlock(
-          in_ch, f, generator, upsample=True, norm=cfg.block_norm,
-          coloring=cfg.block_coloring, ns_method=cfg.ns_method, **wc))
+      if cfg.arch == "res":
+        block = B.GenResBlock(in_ch, f, generator, upsample=True,
+                              norm=cfg.block_norm,
+                              coloring=cfg.block_coloring,
+                              ns_method=cfg.ns_method, **wc)
+      else:
+        block = B.DCGANGenBlock(in_ch, f, generator, norm=cfg.block_norm,
+                                coloring=cfg.block_coloring,
+                                ns_method=cfg.ns_method, **wc)
+      self.add_module(f"block{i}", block)
       in_ch = f
     self.nc_out = L.NormColor(in_ch, norm=cfg.last_norm,
                               coloring=cfg.last_coloring,
@@ -103,7 +114,8 @@ class Generator(nn.Module):
     ``last_norm``) on the live module, as the whitening fallback ladder
     does. 'dr' and 'd' hold the same parameters and statistics and differ
     only in which statistics the train-mode transform reads, so both carry
-    over unchanged."""
+    over unchanged. Every WC layer is reached: the res blocks' ``nc1`` and
+    ``nc2``, the DCGAN blocks' ``nc``, and ``nc_out``."""
     cfg = dataclasses.replace(self.cfg, **changes)
     for old, new in ((self.cfg.block_norm, cfg.block_norm),
                      (self.cfg.last_norm, cfg.last_norm)):
@@ -111,14 +123,14 @@ class Generator(nn.Module):
         raise ValueError(f"cannot change norm code {old!r} -> {new!r} in "
                          "place; only 'd' and 'dr' share their state")
     self.cfg = cfg
-    layers = [(cfg.block_norm, self.get_submodule(f"block{i}.{name}"))
-              for i in range(len(cfg.filters)) for name in ("nc1", "nc2")]
-    layers.append((cfg.last_norm, self.nc_out))
+    layers = [(cfg.last_norm if name == "nc_out" else cfg.block_norm, m)
+              for name, m in self.named_modules()
+              if isinstance(m, L.NormColor)]
     for code, nc in layers:
       nc.ns_iters = cfg.ns_iters
       if nc.fused:
         nc.norm_code = code
-      elif code != "n":
+      elif code in ("d", "dr"):
         nc.norm.code = nc.norm.wc.mode = code
         nc.norm.wc.ns_iters = cfg.ns_iters
 
@@ -138,13 +150,22 @@ class Generator(nn.Module):
     # order, then view it as NCHW, which is channels_last in memory.
     h = h.view(h.shape[0], br, br, cfg.filters[0]).permute(0, 3, 1, 2)
     for i in range(len(cfg.filters)):
-      h = getattr(self, f"block{i}")(h, labels, train, update_stats)
+      block = getattr(self, f"block{i}")
+      if cfg.remat:
+        h = L.remat_call(block, (h, labels),
+                         dict(train=train, update_stats=update_stats),
+                         dict(update_stats=False))
+      else:
+        h = block(h, labels, train, update_stats)
     h = F.relu(self.nc_out(h, labels, train, update_stats))
     h = self.conv_out(h)
     return torch.tanh(h.float())
 
 
-def preset_filters(resolution: int) -> Tuple[int, ...]:
-  """Per-dataset default G widths of the ResNet (paper section 5)."""
+def preset_filters(arch: str, resolution: int) -> Tuple[int, ...]:
+  """Per-dataset default G widths (paper section 5)."""
+  if arch == "dcgan":
+    return {16: (128, 64), 32: (256, 128, 64), 48: (256, 128, 64),
+            64: (512, 256, 128, 64)}[resolution]
   return {16: (128, 128), 32: (256, 256, 256), 48: (512, 256, 128),
           64: (512, 256, 128, 64)}[resolution]

@@ -1,4 +1,5 @@
-"""PyTorch layers: the WC layers, SN conv/dense, plain conv/dense.
+"""PyTorch layers: the WC layers, BatchNorm, SN conv/dense, plain
+conv/dense/transposed conv.
 
 Counterpart of ``wcgan_tpu/models/layers.py``. Activations are NCHW tensors
 in channels_last memory format, which is NHWC in memory: a WC layer's
@@ -7,7 +8,8 @@ in channels_last memory format, which is NHWC in memory: a WC layer's
 
 State the reference keeps in flax collections is kept in buffers here:
 ``wc_stats`` mean/cov in ``NormColor`` or ``DecorrelationNorm``,
-``spectral`` ``u`` in the SN wrappers. Parameters stay float32; each layer
+``batch_stats`` mean/var in ``BatchNorm``, ``spectral`` ``u`` (``u_map``
+with ``conv_singular``) in the SN wrappers. Parameters stay float32; each layer
 casts them to the activation dtype where it uses them, as flax's ``dtype=``
 does.
 """
@@ -16,11 +18,13 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Callable, Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from wcgan_tpu_torch.ops import coloring as coloring_ops
 from wcgan_tpu_torch.ops import cuda_wc
@@ -85,7 +89,8 @@ def _kernel_eval_ok(kernel_eval: Optional[bool], method: str) -> bool:
   return False
 
 
-# Receives a train-mode whitening layer's batch (mean, cov), float32.
+# Receives a train-mode normalization layer's batch statistics, float32:
+# (mean, cov) of a whitening layer, (mean, var) of a BatchNorm.
 MomentsSink = Callable[[torch.Tensor, torch.Tensor], None]
 
 
@@ -97,6 +102,8 @@ class DecorrelationNorm(nn.Module):
   Eval mode whitens with the running statistics: through K2 with
   Gamma = I, beta = 0 when ``kernel_eval`` forces it, else the split
   path."""
+
+  STAT_NAMES = ("mean", "cov")
 
   def __init__(self, channels: int, momentum: float = 0.99, eps: float = 1e-5,
                ns_iters: int = 15, mode: str = "d",
@@ -148,27 +155,74 @@ class DecorrelationNorm(nn.Module):
     return _unrows(out, x)
 
 
-class NormLayer(nn.Module):
-  """Dispatch on the norm code: 'n' (identity) or 'd'/'dr' (whitening, in
-  submodule ``wc``). BatchNorm 'b' is not ported: flax's momentum and
-  variance conventions differ from torch's, so it waits for the DCGAN
-  slice."""
+class BatchNorm(nn.Module):
+  """Affine-less BatchNorm, flax's ``nn.BatchNorm(use_scale=False,
+  use_bias=False)`` as the JAX package's ``NormLayer`` 'b' builds it, with
+  flax's conventions rather than ``nn.BatchNorm2d``'s:
 
-  def __init__(self, channels: int, code: str = "d", **wc):
+  - the batch variance is the biased one, E[x^2] - E[x]^2 clipped at 0
+    (flax's ``use_fast_variance``), in float32; it normalizes the batch
+    and is what the buffer ``var`` averages;
+  - the running statistics advance as ra = m ra + (1 - m) batch, m the
+    momentum (torch's ``momentum`` is 1 - m), and only in train mode with
+    ``update_stats`` set.
+
+  Train mode normalizes with the batch statistics, eval mode with the
+  running ones (buffers ``mean``, ``var``); the output has the input's
+  dtype."""
+
+  STAT_NAMES = ("mean", "var")
+
+  def __init__(self, channels: int, momentum: float = 0.99,
+               eps: float = 1e-5):
     super().__init__()
-    if code == "b":
-      raise NotImplementedError(
-          "norm code 'b' (BatchNorm) is not ported yet")
-    if code not in ("n", "d", "dr"):
+    self.momentum = momentum
+    self.eps = eps
+    self.moments_sink: Optional[MomentsSink] = None
+    self.register_buffer("mean", torch.zeros(channels))
+    self.register_buffer("var", torch.ones(channels))
+
+  def forward(self, x: torch.Tensor, train: bool = True,
+              update_stats: bool = True) -> torch.Tensor:
+    x2d = _rows(x).float()
+    if train:
+      mean = x2d.mean(dim=0)
+      var = torch.clamp((x2d * x2d).mean(dim=0) - mean * mean, min=0.0)
+      if self.moments_sink is not None:
+        self.moments_sink(mean, var)
+      if update_stats:
+        m = self.momentum
+        self.mean = (m * self.mean + (1 - m) * mean).detach()
+        self.var = (m * self.var + (1 - m) * var).detach()
+    else:
+      mean, var = self.mean, self.var
+    out = (x2d - mean) * torch.rsqrt(var + self.eps)
+    return _unrows(out.to(x.dtype), x)
+
+
+class NormLayer(nn.Module):
+  """Dispatch on the norm code: 'n' (identity), 'b' (affine-less
+  BatchNorm, submodule ``bn``) or 'd'/'dr' (whitening, submodule ``wc``),
+  the JAX package's ``NormLayer``."""
+
+  def __init__(self, channels: int, code: str = "d", momentum: float = 0.99,
+               eps: float = 1e-5, **wc):
+    super().__init__()
+    if code not in ("n", "b", "d", "dr"):
       raise ValueError(f"unknown norm code {code!r}")
     self.code = code
-    if code != "n":
-      self.wc = DecorrelationNorm(channels, mode=code, **wc)
+    if code == "b":
+      self.bn = BatchNorm(channels, momentum=momentum, eps=eps)
+    elif code != "n":
+      self.wc = DecorrelationNorm(channels, mode=code, momentum=momentum,
+                                  eps=eps, **wc)
 
   def forward(self, x: torch.Tensor, train: bool = True,
               update_stats: bool = True) -> torch.Tensor:
     if self.code == "n":
       return x
+    if self.code == "b":
+      return self.bn(x, train, update_stats)
     return self.wc(x, train, update_stats)
 
 
@@ -275,8 +329,8 @@ class Coloring(nn.Module):
 
 
 class NormColor(nn.Module):
-  """The WC block: a norm code {'n', 'd', 'dr'} and a coloring code (any of
-  ``COLORING_CODES``), the JAX package's ``NormColor``.
+  """The WC block: a norm code {'n', 'b', 'd', 'dr'} and a coloring code
+  (any of ``COLORING_CODES``), the JAX package's ``NormColor``.
 
   Whitening with 'uconv' coloring is fused (``_fused_wc_uconv``): W and
   Gamma fold into one C x C matrix M = Gamma W (float32) with bias
@@ -290,6 +344,8 @@ class NormColor(nn.Module):
   layer (``layer_name``, set by the model that holds it): K2 has one
   coloring for all rows. Every other pair of codes runs the general path:
   ``NormLayer`` (submodule ``norm``), then ``Coloring`` (``color``)."""
+
+  STAT_NAMES = ("mean", "cov")
 
   def __init__(self, channels: int, norm: str = "d", coloring: str = "uconv",
                momentum: float = 0.99, eps: float = 1e-5, ns_iters: int = 15,
@@ -422,35 +478,77 @@ class NormColor(nn.Module):
     return _unrows(out.view(-1, c), x)
 
 
+def _stat_layers(model: nn.Module):
+  """(name, layer) of every layer of ``model`` that keeps running
+  statistics: BatchNorms and whitening layers."""
+  return [(name, m) for name, m in model.named_modules()
+          if isinstance(m, (BatchNorm, DecorrelationNorm, NormColor))
+          and "mean" in m._buffers]
+
+
 @contextlib.contextmanager
 def capture_batch_moments(model: nn.Module
                           ) -> Iterator[Dict[str, torch.Tensor]]:
-  """Inside the block, each train-mode forward of a whitening layer of
-  ``model`` records its batch moments into the yielded dict, keyed like the
-  layer's running-statistics buffers (``<layer>.mean``, ``<layer>.cov``);
-  a later forward overwrites an earlier one. The moments come straight
-  from the batch, not from the running statistics' update, so they are
-  exact whatever the momentum, and they are seen even where the buffers
-  are not rebound (``update_stats=False``, ``torch.func.functional_call``).
-  """
+  """Inside the block, each train-mode forward of a normalization layer of
+  ``model`` records its batch statistics into the yielded dict, keyed like
+  the layer's running-statistics buffers (``<layer>.mean`` and
+  ``<layer>.cov`` of a whitening layer, ``<layer>.mean`` and
+  ``<layer>.var`` of a BatchNorm, the biased variance); a later forward
+  overwrites an earlier one. The statistics come straight from the batch,
+  not from the running statistics' update, so they are exact whatever the
+  momentum, and they are seen even where the buffers are not rebound
+  (``update_stats=False``, ``torch.func.functional_call``)."""
   out: Dict[str, torch.Tensor] = {}
-  layers = [(name, m) for name, m in model.named_modules()
-            if isinstance(m, (DecorrelationNorm, NormColor))
-            and "mean" in m._buffers]
+  layers = _stat_layers(model)
 
-  def sink(prefix: str) -> MomentsSink:
-    def record(mean: torch.Tensor, cov: torch.Tensor) -> None:
-      out[f"{prefix}.mean"] = mean.detach()
-      out[f"{prefix}.cov"] = cov.detach()
+  def sink(prefix: str, names: Tuple[str, str]) -> MomentsSink:
+    def record(mean: torch.Tensor, second: torch.Tensor) -> None:
+      out[f"{prefix}.{names[0]}"] = mean.detach()
+      out[f"{prefix}.{names[1]}"] = second.detach()
     return record
 
   for name, m in layers:
-    m.moments_sink = sink(name)
+    m.moments_sink = sink(name, m.STAT_NAMES)
   try:
     yield out
   finally:
     for _, m in layers:
       m.moments_sink = None
+
+
+def remat_call(module: nn.Module, args: Tuple, kwargs: Dict[str, Any],
+               quiet: Dict[str, Any]) -> torch.Tensor:
+  """``module(*args, **kwargs)`` under ``torch.utils.checkpoint``: its
+  activations are recomputed in the backward instead of kept, the
+  reference's ``nn.remat``. Where grad is off it is a plain call.
+
+  The recomputation must repeat the forward, not advance it a second time:
+  it runs on the buffers the first call read (running statistics, SN
+  vectors: the first call rebinds them, so the tensors it read are intact),
+  with ``quiet`` merged into ``kwargs`` (the flags that advance them off),
+  and records no batch statistics (``capture_batch_moments``). Its K1
+  launches are real launches and are counted as such."""
+  if not torch.is_grad_enabled():
+    return module(*args, **kwargs)
+  read = dict(module.named_buffers())
+  calls = [0]
+
+  def run(*inputs):
+    calls[0] += 1
+    if calls[0] == 1:
+      return module(*inputs, **kwargs)
+    layers = _stat_layers(module)
+    sinks = [m.moments_sink for _, m in layers]
+    for _, m in layers:
+      m.moments_sink = None
+    try:
+      return functional_call(module, read, inputs, {**kwargs, **quiet})
+    finally:
+      for (_, m), sink in zip(layers, sinks):
+        m.moments_sink = sink
+
+  return checkpoint(run, *args, use_reentrant=False,
+                    preserve_rng_state=False)
 
 
 def _add_bias(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -463,20 +561,44 @@ def _add_bias(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
 
 
 class Conv(nn.Conv2d):
-  """'SAME'-padded conv (odd kernels) computing in the input's dtype, with
-  flax's default init (lecun_normal kernel, zero bias)."""
+  """'SAME'-padded conv computing in the input's dtype, with flax's default
+  init (lecun_normal kernel, zero bias)."""
 
   def __init__(self, in_channels: int, features: int, kernel_size: int,
-               generator: torch.Generator):
-    super().__init__(in_channels, features, kernel_size,
-                     padding=kernel_size // 2)
+               generator: torch.Generator, stride: int = 1):
+    super().__init__(in_channels, features, kernel_size, stride=stride)
     lecun_normal_(self.weight.data, in_channels * kernel_size ** 2,
                   generator)
     nn.init.zeros_(self.bias)
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    return _add_bias(self._conv_forward(x, self.weight.to(x.dtype), None),
-                     self.bias)
+    return _add_bias(sn_ops.conv2d_same(x, self.weight.to(x.dtype),
+                                        self.stride[0]), self.bias)
+
+
+class ConvTranspose(nn.Module):
+  """flax's ``nn.ConvTranspose(features, (4, 4), strides=(2, 2),
+  padding="SAME")``, the DCGAN generator's up-conv: twice the input in
+  each spatial dim ('SAME' is a padding of 1 on each side), computing in
+  the input's dtype, flax's init (lecun_normal over 16 * in, zero bias).
+
+  ``weight`` is (in, out, 4, 4), as ``F.conv_transpose2d`` takes it, and
+  holds flax's HWIO kernel with both spatial dims flipped: flax applies
+  the kernel as it stands to the dilated input, torch's transposed conv
+  applies the adjoint of a conv, which is the flipped kernel
+  (``weights.py`` maps the two)."""
+
+  def __init__(self, in_channels: int, features: int,
+               generator: torch.Generator):
+    super().__init__()
+    self.weight = nn.Parameter(lecun_normal_(
+        torch.empty(in_channels, features, 4, 4), in_channels * 16,
+        generator))
+    self.bias = nn.Parameter(torch.zeros(features))
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    return _add_bias(F.conv_transpose2d(x, self.weight.to(x.dtype), stride=2,
+                                        padding=1), self.bias)
 
 
 class Dense(nn.Linear):
@@ -493,31 +615,62 @@ class Dense(nn.Linear):
 
 
 class SNConv(nn.Module):
-  """'SAME'-padded 2-D conv with a spectral-normalized kernel; ``u``
-  advances only when ``update_sn`` is set (the reference's ``SNConv``
-  without ``conv_singular``)."""
+  """'SAME'-padded 2-D conv with a spectral-normalized kernel, the
+  reference's ``SNConv``; the power-iteration state advances only when
+  ``update_sn`` is set.
+
+  sigma is that of the kernel reshaped to (out, rest), with the vector
+  ``u`` (out,); with ``conv_singular`` it is that of the convolution
+  operator at the layer's input size, with the input-shaped map ``u_map``
+  (1, in, H, W). flax creates ``u_map`` from the first input; here
+  ``input_size`` (H, W) fixes it at construction, so that the state's
+  shapes do not depend on a first call."""
 
   def __init__(self, in_channels: int, features: int, kernel_size: int,
                generator: torch.Generator, sn_iters: int = 1,
-               fully_diff: bool = False):
+               fully_diff: bool = False, stride: int = 1,
+               conv_singular: bool = False,
+               input_size: Optional[Tuple[int, int]] = None):
     super().__init__()
-    self.padding = kernel_size // 2
+    self.stride = stride
     self.sn_iters = sn_iters
     self.fully_diff = fully_diff
+    self.conv_singular = conv_singular
     self.weight = nn.Parameter(glorot_uniform_(
         torch.empty(features, in_channels, kernel_size, kernel_size),
         in_channels * kernel_size ** 2, features * kernel_size ** 2,
         generator))
     self.bias = nn.Parameter(torch.zeros(features))
-    self.register_buffer("u", torch.randn(features, generator=generator))
+    if conv_singular:
+      if input_size is None:
+        raise ValueError("SNConv with conv_singular needs input_size (H, W)")
+      self.register_buffer("u_map", torch.randn(
+          (1, in_channels) + tuple(input_size), generator=generator))
+    else:
+      self.register_buffer("u", torch.randn(features, generator=generator))
 
-  def forward(self, x: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
-    w_bar, u_new = sn_ops.spectral_normalize(
-        self.weight, self.u, n_iters=self.sn_iters,
+  def _normalized(self, x: torch.Tensor, update_sn: bool) -> torch.Tensor:
+    if not self.conv_singular:
+      w_bar, u_new = sn_ops.spectral_normalize(
+          self.weight, self.u, n_iters=self.sn_iters,
+          fully_diff=self.fully_diff)
+      if update_sn:
+        self.u = u_new.detach()
+      return w_bar
+    if tuple(x.shape[2:]) != tuple(self.u_map.shape[2:]):
+      raise ValueError(f"SNConv(conv_singular) was built for inputs of "
+                       f"{tuple(self.u_map.shape[2:])}, got "
+                       f"{tuple(x.shape[2:])}")
+    sigma, u_new = sn_ops.conv_power_iteration(
+        self.weight, self.u_map, stride=self.stride, n_iters=self.sn_iters,
         fully_diff=self.fully_diff)
     if update_sn:
-      self.u = u_new.detach()
-    return _add_bias(F.conv2d(x, w_bar.to(x.dtype), padding=self.padding),
+      self.u_map = u_new.detach()
+    return self.weight / sigma.to(self.weight.dtype)
+
+  def forward(self, x: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
+    w_bar = self._normalized(x, update_sn)
+    return _add_bias(sn_ops.conv2d_same(x, w_bar.to(x.dtype), self.stride),
                      self.bias)
 
 
@@ -577,9 +730,9 @@ class PlainConv(nn.Module):
   ``update_sn`` is ignored."""
 
   def __init__(self, in_channels: int, features: int, kernel_size: int,
-               generator: torch.Generator):
+               generator: torch.Generator, stride: int = 1):
     super().__init__()
-    self.conv = Conv(in_channels, features, kernel_size, generator)
+    self.conv = Conv(in_channels, features, kernel_size, generator, stride)
     glorot_uniform_(self.conv.weight.data, in_channels * kernel_size ** 2,
                     features * kernel_size ** 2, generator)
 

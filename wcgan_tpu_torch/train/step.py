@@ -17,8 +17,19 @@ updates the state in place. Semantics kept from the reference:
   AC-GAN adds the auxiliary cross-entropy on real logits to the D loss and
   on fake logits to the G loss.
 - The G update runs at ``generator_batch_multiple`` x B; it is the only
-  place G's running statistics advance, and D's ``u`` and statistics do
-  not. With ``g_ema_decay`` > 0 the EMA shadow follows each G update.
+  place G's running statistics advance, and D's statistics do not. D's
+  ``u`` advances there only with ``sn_update_on_g_step``. With
+  ``g_ema_decay`` > 0 the EMA shadow follows each G update.
+
+Options of the reference's step:
+
+- ``batched_fake_gen``: one G forward over the K per-update z batches
+  concatenated (K x B rows, so a WC G whitens them with K x B-row
+  statistics), its K chunks going to the D updates in order;
+- ``d_fake_stats='running'``: the D-phase fakes come from G in eval mode,
+  on its running statistics (the split path, or K2 under ``kernel_eval``),
+  so the moments kernel K1 runs only in the G update;
+- ``sn_update_on_g_step``: the G update's D forward advances D's ``u``.
 
 The reference's scores of fake images, of interpolates and of the G update
 read D's pre-update ``u`` and statistics (its mutable collections are
@@ -57,11 +68,18 @@ class GANConfig:
   z_dim: int = 128
   random_flip: bool = False
   g_ema_decay: float = 0.0            # EMA of G params for sampling (0 = off)
+  sn_update_on_g_step: bool = False   # the G update's D pass advances u
+  batched_fake_gen: bool = False      # one G forward for the K fake batches
+  d_fake_stats: str = "batch"         # 'batch' | 'running' (eval-mode G in
+                                      # the D phase)
 
   def __post_init__(self):
     if self.gan_type not in GAN_TYPES:
       raise ValueError(f"gan_type must be one of {GAN_TYPES}, got "
                        f"{self.gan_type!r}")
+    if self.d_fake_stats not in ("batch", "running"):
+      raise ValueError(f"d_fake_stats must be 'batch' or 'running', "
+                       f"got {self.d_fake_stats!r}")
 
   @property
   def conditional(self) -> bool:
@@ -118,6 +136,7 @@ def make_outer_step(cfg: GANConfig) -> Callable[..., Dict[str, torch.Tensor]]:
   ratio = cfg.training_ratio
   gp_weight = cfg.gradient_penalty_weight
   acgan = cfg.gan_type == "acgan"
+  d_fake_train = cfg.d_fake_stats == "batch"
 
   def draw_noise(state: GANTrainState, b: int, device) -> Dict:
     gen = state.generator
@@ -140,11 +159,14 @@ def make_outer_step(cfg: GANConfig) -> Callable[..., Dict[str, torch.Tensor]]:
       noise["gp_eps"] = torch.rand((ratio, b), generator=gen, device=device)
     return noise
 
-  def d_update(state: GANTrainState, x, y, z, zy, eps, d_has_norm: bool,
+  def fakes(state: GANTrainState, z, zy):
+    """D-phase fakes of a frozen G: its statistics do not advance."""
+    with torch.no_grad():
+      return state.g(z, zy, train=d_fake_train, update_stats=False)
+
+  def d_update(state: GANTrainState, x, y, fake, zy, eps, d_has_norm: bool,
                d_takes_labels: bool):
     b = x.shape[0]
-    with torch.no_grad():
-      fake = state.g(z, zy, train=True, update_stats=False)
     y_in = y if d_takes_labels else None
     zy_in = zy if d_takes_labels else None
     d = state.d
@@ -174,7 +196,9 @@ def make_outer_step(cfg: GANConfig) -> Callable[..., Dict[str, torch.Tensor]]:
 
   def g_update(state: GANTrainState, z, zy, d_takes_labels: bool):
     fake = state.g(z, zy, train=True, update_stats=True)
-    fs, fl = state.d(fake, zy if d_takes_labels else None)
+    # D's only pass here, so advancing u in it reads the old u first.
+    fs, fl = state.d(fake, zy if d_takes_labels else None,
+                     update_sn=cfg.sn_update_on_g_step)
     loss = g_loss_fn(fs)
     if acgan and fl is not None:
       loss = loss + loss_ops.ac_gan_aux_loss(fl, zy)
@@ -213,11 +237,18 @@ def make_outer_step(cfg: GANConfig) -> Callable[..., Dict[str, torch.Tensor]]:
       y_real = as_tensor(labels, device).long()
       y_d, y_g = noise["y_d"].long(), noise["y_g"].long()
 
+    if cfg.batched_fake_gen:
+      z_all = noise["z_d"].reshape(ratio * b, -1)
+      y_all = None if y_d is None else y_d.reshape(ratio * b)
+      fake_all = fakes(state, z_all, y_all)
+      fake_all = fake_all.view((ratio, b) + tuple(fake_all.shape[1:]))
     d_losses, d_gnorms = [], []
     for k in range(ratio):
+      zy = None if y_d is None else y_d[k]
+      fake = (fake_all[k] if cfg.batched_fake_gen
+              else fakes(state, noise["z_d"][k], zy))
       loss, gnorm = d_update(
-          state, real[k], None if y_real is None else y_real[k],
-          noise["z_d"][k], None if y_d is None else y_d[k],
+          state, real[k], None if y_real is None else y_real[k], fake, zy,
           noise["gp_eps"][k] if gp_weight > 0.0 else None, d_has_norm,
           d_takes_labels)
       d_losses.append(loss)

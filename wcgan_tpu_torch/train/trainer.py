@@ -26,7 +26,16 @@ and file names are the reference's):
 - checkpoints: the full state under ``checkpoints_dir/name/epoch_{i}/``
   (``torch.save``, loadable with ``weights_only=True``) beside the
   weights-only ``epoch_{i}_{generator,discriminator}.npz`` in the JAX
-  package's format.
+  package's format. G's statistics are its WC layers' ``wc_stats`` and its
+  BatchNorms' ``batch_stats``, everywhere (checkpoint, standing
+  statistics, the sampling cache); ``diagnostics()`` reads the WC layers
+  only, since a BatchNorm has no covariance;
+- debugging: ``profile_dir`` writes a ``torch.profiler`` Chrome trace of
+  the run's first few step calls after the first (the reference traces
+  with ``jax.profiler``); ``debug_nans`` checks each step call's metrics
+  and raises at the first non-finite one (the CLI also turns on
+  ``torch.autograd`` anomaly detection, the reference's
+  ``jax_debug_nans``).
 
 The scorer (``score_every``) and data parallelism are not ported yet.
 """
@@ -87,6 +96,9 @@ class TrainerConfig:
                                   # the epoch (in whole chains); 0 = off
   ema_standing_batches: int = 16  # batches of standing statistics under
                                   # the EMA params; 0 = the live statistics
+  profile_dir: Optional[str] = None  # Chrome trace of a few step calls
+  debug_nans: bool = False        # raise at a step call's first
+                                  # non-finite metric
 
 
 class Trainer:
@@ -109,6 +121,8 @@ class Trainer:
     self._window_next: Optional[Staged] = None
     self._stage_stream = None
     self._steps_per_call = 1
+    self._step_calls = 0            # monotone; profiler window
+    self._profiler = None
     if cfg.device_data:
       # A chain longer than the epoch would run more outer steps than
       # configured, so it is clamped to the epoch.
@@ -122,15 +136,22 @@ class Trainer:
         self._window_elems = min(max(
             (cfg.device_data_limit // 2) // bytes_per, dataset.batch_size),
             n_total)
-      self.step_fn = step_lib._multi(
-          step_lib.make_dataset_step(gan_cfg, dataset.batch_size),
-          self._steps_per_call)
       if self._window_elems:
         self._window_next = self._make_window()
       else:
         self._device_data = self._take(self._stage(np.arange(n_total)))
-    else:
-      self.step_fn = step_lib.make_outer_step(gan_cfg)
+    self.step_fn = self._make_step_fn()
+
+  def _make_step_fn(self):
+    """The step function for the current ``gan_cfg``: chains of
+    ``steps_per_call`` dataset steps with device data, else one outer step
+    on host-fed batches. The fallback ladder rebuilds it after changing
+    ``gan_cfg``."""
+    if self.cfg.device_data:
+      return step_lib._multi(
+          step_lib.make_dataset_step(self.gan_cfg, self.ds.batch_size),
+          self._steps_per_call)
+    return step_lib.make_outer_step(self.gan_cfg)
 
   @property
   def device(self) -> torch.device:
@@ -317,6 +338,9 @@ class Trainer:
       res.append(float(np.max(np.abs(w @ cov @ w.T - ident))))
     return res
 
+  # Step calls a profile_dir trace holds.
+  PROFILE_CALLS = 3
+
   # The reference's threshold: an order of magnitude past a healthy run's
   # residual, well before the ns12 blow-up plateau (~0.3) it measured.
   RESIDUAL_THRESHOLD = 1e-2
@@ -376,13 +400,22 @@ class Trainer:
     """One rung of the reference's ladder, after a checkpoint of the
     breached state; False when none is left.
 
-    The reference's first rung (``d_fake_stats`` running -> batch) cannot
-    fire here: the port's D phase always uses batch statistics. Then:
+    The reference's ladder:
+      1. ``d_fake_stats`` running -> batch (the step function is rebuilt);
       2. 'dr' norm codes -> 'd';
       3. ns_iters x2, once.
-    Both change the live G in place (``Generator.reconfigure``); its state
-    carries over unchanged, and the eager step reads the new settings at
-    its next call."""
+    Rungs 2 and 3 change the live G in place (``Generator.reconfigure``);
+    its state carries over unchanged, and the eager step reads the new
+    settings at its next call."""
+    if self.gan_cfg.d_fake_stats == "running":
+      self.save_checkpoint(epoch)
+      self.gan_cfg = dataclasses.replace(self.gan_cfg, d_fake_stats="batch")
+      self.step_fn = self._make_step_fn()
+      self.logger.line(
+          f"Epoch {epoch}: --wc_residual_action fallback — demoting "
+          "d_fake_stats running -> batch (exact per-forward moments; "
+          "docs/SOAK.md r4/r5); training continues")
+      return True
     g = self.state.g
     g_cfg = g.cfg
     if "dr" in (g_cfg.block_norm, g_cfg.last_norm):
@@ -465,7 +498,8 @@ class Trainer:
     running statistics describe the raw trajectory): ``n_batches``
     train-mode forwards of ``ds.batch_size`` z from
     ``np.random.default_rng(rng_seed)`` (then, for a conditional G, as many
-    uniform labels from it), each layer's batch moments
+    uniform labels from it), each layer's batch statistics (a WC layer's
+    mean and covariance, a BatchNorm's mean and biased variance)
     captured as they are computed, averaged with equal weights. The live
     statistics do not move. With 'dr' codes the transform reads the live
     running statistics, so the estimate is one sweep, not a fixed
@@ -580,7 +614,49 @@ class Trainer:
     try:
       return self._train_epochs(batches)
     finally:
+      self._stop_profiler()
       self._drop_pending_window()
+
+  def _call_step(self, *batches) -> Dict[str, torch.Tensor]:
+    """One ``step_fn`` call. With ``profile_dir`` the ``PROFILE_CALLS``
+    calls after the first (which warms up) run under ``torch.profiler``;
+    with ``debug_nans`` the call's metrics are checked at once."""
+    cfg = self.cfg
+    if cfg.profile_dir and self._step_calls == 1 and self._profiler is None:
+      from torch.profiler import ProfilerActivity, profile
+      activities = [ProfilerActivity.CPU]
+      if self.device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+      self._profiler = profile(activities=activities)
+      self._profiler.start()
+    metrics = self.step_fn(self.state, *batches)
+    self._step_calls += 1
+    if (self._profiler is not None
+        and self._step_calls > self.PROFILE_CALLS):
+      self._stop_profiler()
+    if cfg.debug_nans:
+      bad = {k: float(v) for k, v in metrics.items()
+             if not math.isfinite(float(v))}
+      if bad:
+        raise FloatingPointError(
+            f"non-finite metrics at step call {self._step_calls} (outer "
+            f"step {self.state.step}): {bad}")
+    return metrics
+
+  def _stop_profiler(self) -> None:
+    """End the trace, if one runs, and write it to ``profile_dir`` as a
+    Chrome trace."""
+    prof, self._profiler = self._profiler, None
+    if prof is None:
+      return
+    if self.device.type == "cuda":
+      torch.cuda.synchronize(self.device)
+    prof.stop()
+    os.makedirs(self.cfg.profile_dir, exist_ok=True)
+    path = os.path.join(self.cfg.profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    self.logger.line(f"wrote profiler trace {path} "
+                     f"({self._step_calls - 1} step calls)")
 
   def _train_epochs(self, batches: int) -> Dict[str, float]:
     cfg, ds = self.cfg, self.ds
@@ -598,7 +674,7 @@ class Trainer:
         # The probe cadence counts whole chains.
         probe_calls = max(probe_n // spc, 1) if probe_n else 0
         for ci in range(calls):
-          accum.append(self.step_fn(self.state, *self._device_data))
+          accum.append(self._call_step(*self._device_data))
           self._outer_steps_done += spc
           if probe_calls and (ci + 1) % probe_calls == 0 and ci + 1 < calls:
             self._intra_epoch_probe(epoch, (ci + 1) * spc)
@@ -606,7 +682,7 @@ class Trainer:
         steps_done = batches
         for bi in range(batches):
           real, labels = ds.next_batches(ratio)
-          accum.append(self.step_fn(self.state, real, labels))
+          accum.append(self._call_step(real, labels))
           self._outer_steps_done += 1
           if probe_n and (bi + 1) % probe_n == 0 and bi + 1 < batches:
             self._intra_epoch_probe(epoch, bi + 1)

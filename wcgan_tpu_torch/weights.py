@@ -1,16 +1,22 @@
 """Weights between the JAX package's flax trees and the port's modules.
 
 flax keeps a model as nested dicts: ``params`` plus the mutable collections
-(``wc_stats`` mean/cov of the WC layers, ``spectral`` u of the SN layers).
-The port's modules use the same submodule names, so a leaf's path maps to
-a ``state_dict`` key; only layouts differ:
+(``wc_stats`` mean/cov of the WC layers, ``batch_stats`` mean/var of the
+BatchNorms, ``spectral`` u or u_map of the SN layers). The port's modules
+use the same submodule names, so a leaf's path maps to a ``state_dict``
+key; only layouts differ:
 
 - conv kernels: flax HWIO  <-> torch OIHW (``weight``);
+- transposed-conv kernels (the DCGAN G's ``deconv``): flax HWIO <-> torch
+  (I, O, H, W) with both spatial dims flipped, as
+  ``layers.ConvTranspose`` applies them;
 - dense kernels: flax (in, out) <-> torch (out, in) (``weight``);
+- ``conv_singular``'s ``u_map``: flax NHWC (1, H, W, C) <-> NCHW;
 - everything else as it is: NormColor's gamma/beta and its conditional
   leaves (gamma_a, beta_a, gamma_c, beta_c, basis, embedding), biases,
   projection-D's ``proj_emb/embedding`` (num_classes, features) and its
-  ``u``, wc_stats. A plain D's convs and dense layers sit one level down
+  ``u``, wc_stats and batch_stats (a BatchNorm sits in ``.../norm/bn``).
+  A plain D's convs and dense layers sit one level down
   (``conv1/conv/kernel``, ``fc_out/dense/kernel``), as flax nests them.
 
 Both directions take and give numpy arrays, so this module needs no JAX.
@@ -36,8 +42,11 @@ from wcgan_tpu_torch.models.discriminator import (Discriminator,
                                                   DiscriminatorConfig)
 from wcgan_tpu_torch.models.generator import Generator, GeneratorConfig
 
-# flax collection <-> the buffer name it becomes in the port.
-_COLLECTIONS = {"wc_stats": ("mean", "cov"), "spectral": ("u",)}
+# flax collection <-> the buffer names it becomes in the port.
+_COLLECTIONS = {"wc_stats": ("mean", "cov"), "batch_stats": ("mean", "var"),
+                "spectral": ("u", "u_map")}
+# The module name of a transposed conv (flax's name in DCGANGenBlock).
+_DECONV = "deconv"
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()) -> Iterator[Tuple[tuple, Any]]:
@@ -48,7 +57,10 @@ def _flatten(tree: Mapping[str, Any], prefix=()) -> Iterator[Tuple[tuple, Any]]:
       yield prefix + (k,), v
 
 
-def _kernel_to_torch(kernel: np.ndarray) -> np.ndarray:
+def _kernel_to_torch(kernel: np.ndarray, path: tuple = ()) -> np.ndarray:
+  if kernel.ndim == 4 and _DECONV in path[-2:-1]:
+    # HWIO -> (I, O, H, W), flipped in H and W
+    return kernel.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
   if kernel.ndim == 4:
     return kernel.transpose(3, 2, 0, 1)        # HWIO -> OIHW
   if kernel.ndim == 2:
@@ -56,12 +68,22 @@ def _kernel_to_torch(kernel: np.ndarray) -> np.ndarray:
   raise ValueError(f"unexpected kernel rank {kernel.ndim}")
 
 
-def _weight_to_jax(weight: np.ndarray) -> np.ndarray:
+def _weight_to_jax(weight: np.ndarray, path: tuple = ()) -> np.ndarray:
+  if weight.ndim == 4 and _DECONV in path[-2:-1]:
+    return weight[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
   if weight.ndim == 4:
     return weight.transpose(2, 3, 1, 0)        # OIHW -> HWIO
   if weight.ndim == 2:
     return weight.T
   raise ValueError(f"unexpected weight rank {weight.ndim}")
+
+
+def _collection(path: tuple) -> str:
+  """The flax collection of a port buffer: a BatchNorm's (module ``bn``)
+  statistics are ``batch_stats``, the rest goes by the buffer's name."""
+  if path[-2:-1] == ("bn",):
+    return "batch_stats"
+  return next(c for c, leaves in _COLLECTIONS.items() if path[-1] in leaves)
 
 
 def state_dict_from_jax(params: Mapping[str, Any],
@@ -71,15 +93,17 @@ def state_dict_from_jax(params: Mapping[str, Any],
   for path, leaf in _flatten(params):
     leaf = np.asarray(leaf, np.float32)
     if path[-1] == "kernel":
-      path, leaf = path[:-1] + ("weight",), _kernel_to_torch(leaf)
+      path, leaf = path[:-1] + ("weight",), _kernel_to_torch(leaf, path)
     out[".".join(path)] = torch.from_numpy(np.array(leaf, copy=True))
   for coll, tree in state.items():
     if coll not in _COLLECTIONS:
       raise ValueError(f"flax collection {coll!r} has no counterpart in "
                        "the port")
     for path, leaf in _flatten(tree):
-      out[".".join(path)] = torch.from_numpy(
-          np.array(leaf, np.float32, copy=True))
+      leaf = np.asarray(leaf, np.float32)
+      if path[-1] == "u_map":
+        leaf = leaf.transpose(0, 3, 1, 2)      # NHWC -> NCHW
+      out[".".join(path)] = torch.from_numpy(np.array(leaf, copy=True))
   return out
 
 
@@ -101,7 +125,7 @@ def params_to_jax(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     path = tuple(name.split("."))
     arr = t.detach().float().cpu().numpy()
     if path[-1] == "weight":
-      path, arr = path[:-1] + ("kernel",), _weight_to_jax(arr)
+      path, arr = path[:-1] + ("kernel",), _weight_to_jax(arr, path)
     flat[path] = np.ascontiguousarray(arr)
   return _nest(flat)
 
@@ -112,8 +136,10 @@ def to_jax(module: nn.Module) -> Tuple[Dict[str, Any], Dict[str, Any]]:
   colls: Dict[str, Dict[tuple, np.ndarray]] = {}
   for name, buf in module.named_buffers():
     path = tuple(name.split("."))
-    coll = next(c for c, leaves in _COLLECTIONS.items() if path[-1] in leaves)
-    colls.setdefault(coll, {})[path] = buf.detach().float().cpu().numpy()
+    arr = buf.detach().float().cpu().numpy()
+    if path[-1] == "u_map":
+      arr = np.ascontiguousarray(arr.transpose(0, 2, 3, 1))   # NCHW -> NHWC
+    colls.setdefault(_collection(path), {})[path] = arr
   return params, {c: _nest(flat) for c, flat in colls.items()}
 
 
@@ -155,7 +181,8 @@ def load_npz(module: nn.Module, loaded: Mapping[str, np.ndarray],
   ``missing='init'`` keeps its value and is listed (with the entries left
   unused) through ``log``. A shape that differs raises a ValueError.
   Nothing is copied unless every parameter checks out. Buffers
-  (``wc_stats``, SN ``u``) are not in the format and stay as they are."""
+  (``wc_stats``, ``batch_stats``, SN ``u``/``u_map``) are not in the
+  format and stay as they are."""
   if missing not in ("error", "init"):
     raise ValueError(f"missing must be 'error' or 'init', got {missing!r}")
   named = dict(module.named_parameters())
@@ -174,7 +201,7 @@ def load_npz(module: nn.Module, loaded: Mapping[str, np.ndarray],
     if arr.shape != leaf.shape:
       raise ValueError(f"{key}: shape {arr.shape} != {leaf.shape}")
     if path[-1] == "kernel":
-      path, arr = path[:-1] + ("weight",), _kernel_to_torch(arr)
+      path, arr = path[:-1] + ("weight",), _kernel_to_torch(arr, path)
     updates[".".join(path)] = torch.from_numpy(np.array(arr, np.float32))
   with torch.no_grad():
     for name, value in updates.items():
