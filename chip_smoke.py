@@ -78,9 +78,23 @@ Then slice 7, the DCGAN and the options of the step:
   again in the backward), ``sn_update_on_g_step`` and a D with
   ``conv_singular`` (42 each); K1 at batched_fake_gen's 327,680 rows;
 - presets: every preset through ``--preset <name> --smoke`` on the card,
-  ``imagenet64_cwc_dp`` refused naming ``--mesh``, and
+  ``imagenet64_cwc_dp`` (``--mesh 8``) stopped on the GPU count, and
   ``stl10_wc_resnet_sn`` at full width (48x48) for 2 outer steps (84 K1
   launches).
+
+Then slice 8, data parallelism (``dp``): BASELINE config 5 (preset
+``imagenet64_cwc_dp``: cWC-sa G (512, 256, 128, 64) at 64x64, 1,000
+classes, projection-D, hinge, bf16, ratio 5) on synthetic data of
+imagenet64's shape, as 2 ranks sharing the one card over gloo with 64
+images a rank (a global batch of 128 in place of 512): 3 outer steps
+through the trainer's dataset chain after a warm-up epoch (K1 54 a rank a
+step, as one process; all-reduce calls and bytes a step; wall time; the
+state bit-equal on both ranks); float32 at full width against one process
+on the global batch (the G forward within 2e-5, one outer step within
+STEP_RTOL, K1 route and plain route, each or twice the process's own
+spread on a reordered batch); ``dryrun_multichip`` on the two ranks; and
+``--mesh 1 --device cuda`` through the CLI, a one-rank NCCL group, with a
+checkpoint and ``--resume auto``.
 
 Every phase that fails stops the script with a non-zero exit. The last line is
 {"ok": true, "device": {...}}; the line before it lists each kernel with
@@ -115,6 +129,7 @@ from wcgan_tpu_torch.models.discriminator import (Discriminator,
 from wcgan_tpu_torch.models import layers as L
 from wcgan_tpu_torch.models.generator import Generator, GeneratorConfig
 from wcgan_tpu_torch.ops import _build, cuda_wc, losses, whiten
+from wcgan_tpu_torch.parallel import dryrun, launch, mesh
 from wcgan_tpu_torch.train import step as step_lib
 from wcgan_tpu_torch.train.state import OptimConfig, create_state
 from wcgan_tpu_torch.train.step import GANConfig, make_outer_step
@@ -846,19 +861,8 @@ DIAG_KEYS = ("wc_cov_cond_max", "wc_whiten_residual_max", "d_sigma_max")
 
 def _bit_equal(a, b, where="state") -> None:
   """Nested dicts and lists of tensors and numbers, equal bit for bit."""
-  if isinstance(a, dict):
-    check(isinstance(b, dict) and a.keys() == b.keys(), where)
-    for k in a:
-      _bit_equal(a[k], b[k], f"{where}/{k}")
-  elif isinstance(a, (list, tuple)):
-    check(len(a) == len(b), where)
-    for i, (x, y) in enumerate(zip(a, b)):
-      _bit_equal(x, y, f"{where}/{i}")
-  elif torch.is_tensor(a):
-    check(torch.is_tensor(b) and a.dtype == b.dtype and a.shape == b.shape
-          and torch.equal(a.cpu(), b.cpu()), where)
-  else:
-    check(a == b, (where, a, b))
+  bad = dryrun.replication_errors(a, b, where)
+  check(not bad, ("not bit-equal", bad[:5]))
 
 
 def _count(tensors) -> int:
@@ -1635,9 +1639,9 @@ def phase_dcgan(dev: torch.device):
   seen = []
   plain_moments = whiten.batch_moments
 
-  def recorded(x2d, use_kernel=None):
+  def recorded(x2d, use_kernel=None, group=None):
     seen.append((x2d.shape[1], x2d.shape[0]))
-    return plain_moments(x2d, use_kernel)
+    return plain_moments(x2d, use_kernel, group)
 
   steps = 6
   whiten.batch_moments = recorded
@@ -1837,10 +1841,10 @@ def phase_step_options(dev: torch.device):
 
 def phase_presets(dev: torch.device):
   """Every preset through ``--preset <name> --smoke`` in-process (the
-  CLI's ``main``), on the card; imagenet64_cwc_dp must be refused naming
-  --mesh. Then stl10_wc_resnet_sn at full width (48x48: G 512/256/128 from
-  6x6, D 64..1024, float32) for 2 outer steps through the CLI, K1 counted
-  (42 a step). Returns the K1 launches of that run."""
+  CLI's ``main``), on the card; imagenet64_cwc_dp (--mesh 8) must fail on
+  the GPU count. Then stl10_wc_resnet_sn at full width (48x48: G
+  512/256/128 from 6x6, D 64..1024, float32) for 2 outer steps through the
+  CLI, K1 counted (42 a step). Returns the K1 launches of that run."""
   out_dir = os.path.join("build", "chip_smoke_presets")
   shutil.rmtree(out_dir, ignore_errors=True)
   done = []
@@ -1849,12 +1853,14 @@ def phase_presets(dev: torch.device):
             "--checkpoints_dir", os.path.join(out_dir, "ckpt"), "--name", name]
     t0 = time.perf_counter()
     if name == "imagenet64_cwc_dp":
+      # --mesh 8 wants a GPU a rank (the dp phase runs it on one card).
       try:
         cli_run.main(argv)
-        check(False, "imagenet64_cwc_dp was not refused")
+        check(False, "imagenet64_cwc_dp ran --mesh 8 on one GPU")
       except SystemExit as e:
-        check("--mesh not supported" in str(e), str(e))
-      done.append(f"{name}: refused naming --mesh")
+        refusal = str(e)
+      check("--mesh 8 --device cuda needs 8 CUDA GPUs" in refusal, refusal)
+      done.append(f"{name}: {refusal}")
       continue
     check(cli_run.main(argv) == 0, name)
     with open(os.path.join(out_dir, name, "log.txt")) as f:
@@ -1887,6 +1893,182 @@ def phase_presets(dev: torch.device):
   return launches
 
 
+# BASELINE config 5 (preset imagenet64_cwc_dp) on one card: 2 ranks over
+# gloo, 64 images a rank (a global batch of 128 in place of 512), synthetic
+# data of imagenet64's shape and 1,000 classes.
+DP_RANKS, DP_B = 2, 64
+DP_DEVICES = ["cuda:0"] * DP_RANKS
+DP_SYNTHETIC = {"resolution": 64, "classes": 1000, "n": 1024, "seed": 0}
+DP_OUT = os.path.join("build", "chip_smoke_dp")
+DP_ARGV = ["--preset", "imagenet64_cwc_dp", "--dataset", "synthetic",
+           "--batch_size", str(DP_RANKS * DP_B), "--mesh", str(DP_RANKS),
+           "--batches_per_epoch", "3", "--steps_per_call", "3",
+           "--display_ratio", "0", "--checkpoint_ratio", "0",
+           "--output_dir", DP_OUT, "--name", "dp"]
+
+
+def _dp_cfgs(dtype: str, use_kernel=None):
+  """Config 5's models: the cWC-sa G (512, 256, 128, 64) at 64x64 and the
+  projection-D (64, ..., 1024), 1,000 classes, hinge, ratio 5."""
+  g, d, gan, _, res = _cond_cfgs("cwcsa", dtype, use_kernel)
+  return (dataclasses.replace(g, num_classes=1000),
+          dataclasses.replace(d, num_classes=1000),
+          dataclasses.replace(gan, num_classes=1000), res)
+
+
+def _split(a: torch.Tensor, axis: int):
+  """``a`` cut into the ranks' contiguous blocks along ``axis``, numpy."""
+  return [c.cpu().numpy() for c in torch.chunk(a, DP_RANKS, dim=axis)]
+
+
+def phase_dp(dev: torch.device):
+  """Data parallelism on the one card: two ranks over gloo, CUDA tensors.
+
+  1. Config 5 through the CLI's experiment: one epoch of 3 outer steps to
+     warm up, then one call of the trainer's dataset chain of 3, counted:
+     K1 launches a rank and a step (the single-process count), all-reduce
+     calls and bytes a step (moments and gradients), wall time a step
+     (two ranks on one card: not a scaling number), the state bit-equal
+     on both ranks.
+  2. float32 at full width, deterministic kernels: the global-batch G
+     forward (ranks' images against one process on the 128, within 2e-5
+     or twice that process's own spread under a reordered batch); one
+     outer step on the ranks (K1 route, and plain route) against one
+     process on the global batch with the same draws, within STEP_RTOL or
+     twice the reordered step's spread; the two routes against each
+     other likewise.
+  3. ``dryrun_multichip`` on the two ranks.
+  4. ``--mesh 1 --device cuda`` through the CLI: a one-rank NCCL group
+     (G and D 64 wide), one epoch with a checkpoint, then ``--resume
+     auto``.
+  Returns K1's launches on both ranks in the counted steps."""
+  torch.cuda.empty_cache()      # the ranks share this card
+  shutil.rmtree(DP_OUT, ignore_errors=True)
+  t0 = time.perf_counter()
+  ranks = launch.launch("wcgan_tpu_torch.parallel.dryrun:trainer_rank",
+                        DP_DEVICES, (DP_ARGV, DP_SYNTHETIC), timeout=600)
+  dt_job = time.perf_counter() - t0
+  r0, steps = ranks[0], ranks[0]["steps"]
+  for r in range(1, DP_RANKS):
+    _bit_equal(r0["state"], ranks[r]["state"], f"dp rank {r}")
+  where = (f"{DP_RANKS} ranks on {len(set(DP_DEVICES))} card(s) over "
+           f"{mesh.backend_for([torch.device(d) for d in DP_DEVICES])}")
+  check(r0["state"]["step"] == 2 * steps and all(
+      np.isfinite(v) for v in r0["metrics"].values()), r0["metrics"])
+  per = {k: (r0["calls"].get(k, 0) / steps, r0["bytes"].get(k, 0) / steps)
+         for k in ("moments", "grads")}
+  log("dp", f"config 5 (cWC-sa G 512..64 at 64x64, 1,000 classes, "
+      f"projection-D 64..1024, hinge, bf16, ratio 5) on {where}, {DP_B} "
+      f"images a rank: a chain of {steps} outer steps after a warm-up "
+      f"epoch, {r0['seconds'] / steps * 1e3:.1f} ms a step (host clock; "
+      f"not a scaling number where ranks share a card) on "
+      f"{nvidia_smi()}; K1 a rank a step "
+      f"{[r['k1'] / steps for r in ranks]}; all-reduce a step: moments "
+      f"{per['moments'][0]:.0f} calls {per['moments'][1] / 2**20:.2f} MiB, "
+      f"gradients and losses {per['grads'][0]:.0f} calls "
+      f"{per['grads'][1] / 2**20:.2f} MiB; {len(r0['state']['g'])} + "
+      f"{len(r0['state']['d'])} tensors of G and D, Adam and schedules "
+      f"bit-equal on all ranks; metrics {r0['metrics']}; job "
+      f"{dt_job:.1f} s")
+
+  # float32 at full width against one process on the global batch.
+  g_k, d_k, gan, res = _dp_cfgs("float32")
+  g_p, d_p, _, _ = _dp_cfgs("float32", use_kernel=False)
+  gb = DP_RANKS * DP_B
+  real, labels, noise = _cond_inputs(dev, gan, gb, res, seed=21)
+  axes = {"z_g": 0, "y_g": 0}
+  cut = {k: _split(v, axes.get(k, 1)) for k, v in noise.items()}
+  noises = [{k: cut[k][r] for k in cut} for r in range(DP_RANKS)]
+  z = torch.randn((gb, gan.z_dim), generator=torch.Generator().manual_seed(
+      5)).numpy()
+  y = np.arange(gb, dtype=np.int64) % gan.num_classes
+  g_weights = Generator(g_k, torch.Generator().manual_seed(6)).state_dict()
+  real_np, labels_np = real.cpu().numpy(), labels.cpu().numpy()
+  t0 = time.perf_counter()
+  fwd, dp_k, dp_p = list(zip(*launch.launch(
+      "wcgan_tpu_torch.parallel.dryrun:batch_rank", DP_DEVICES, ([
+          ("deterministic_rank", ()),
+          ("forward_rank", (g_k, g_weights, z, y, True)),
+          ("step_rank", (g_k, d_k, gan, None, [real_np], [labels_np],
+                         [noises], 3)),
+          ("step_rank", (g_p, d_p, gan, None, [real_np], [labels_np],
+                         [noises], 3))],), timeout=600)))[1:]
+  dt_job = time.perf_counter() - t0
+  out = np.concatenate([f["out"] for f in fwd])
+  f_dev = float(np.max(np.abs(out - fwd[0]["reference"])))
+  f_spread = float(np.max(np.abs(fwd[0]["reordered"] - fwd[0]["reference"])))
+  check(f_dev <= max(2e-5, 2 * f_spread), ("dp forward", f_dev, f_spread))
+  one = []
+  with _deterministic():
+    for reorder in (False, True):
+      st = create_state(g_k, d_k, OptimConfig(), gan.training_ratio, dev,
+                        seed=3)
+      inputs = (real, labels, noise)
+      if reorder:
+        g = torch.Generator(device=dev).manual_seed(14)
+        inputs = _permuted(torch.randperm(gb, generator=g, device=dev),
+                           torch.randperm(2 * gb, generator=g, device=dev),
+                           *inputs)
+      torch.cuda.synchronize()
+      cuda_wc.MOMENTS_LAUNCHES = 0
+      m = make_outer_step(gan)(st, *inputs[:2], noise=inputs[2])
+      one.append(({k: float(v) for k, v in m.items()},
+                  cuda_wc.MOMENTS_LAUNCHES))
+      del st
+  (m_1, n_single), (m_r, _) = one
+  check(all(r["k1"] == steps * n_single for r in ranks),
+        ("K1 a rank a step", [r["k1"] for r in ranks], n_single))
+  spread = _rel(m_r, m_1)
+  m_k, m_p = dp_k[0]["metrics"][0], dp_p[0]["metrics"][0]
+  for name, got, want in (("K1 route vs one process", m_k, m_1),
+                          ("plain route vs one process", m_p, m_1),
+                          ("K1 route vs plain route", m_k, m_p)):
+    rel = _rel(got, want)
+    for k in want:
+      check(np.isfinite(got[k]) and rel[k] <= max(STEP_RTOL, 2 * spread[k]),
+            ("dp step", name, k, got[k], want[k], spread[k]))
+    log("dp-f32", f"{name}: relative metric differences "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+  for dp in (dp_k, dp_p):
+    for r in range(1, DP_RANKS):
+      _bit_equal(dp[0]["state"], dp[r]["state"], f"dp float32 rank {r}")
+  log("dp-f32", f"one process vs the same on the reordered batch (the "
+      f"gate's spread): " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                      spread.items())
+      + f"; K1 {n_single} a step on one process; global-batch G forward "
+      f"(float32, {gb} images): max|ranks - one process| {f_dev:.3e}, "
+      f"reordered spread {f_spread:.3e}, gate "
+      f"{max(2e-5, 2 * f_spread):.3e}; job {dt_job:.1f} s")
+
+  t0 = time.perf_counter()
+  report = dryrun.dryrun_multichip(devices=DP_DEVICES, timeout=600)
+  log("dp-dryrun", f"dryrun_multichip on {where}, "
+      f"{time.perf_counter() - t0:.1f} s: " + " | ".join(
+          f"[{k}] metrics {v['metrics']}, max|d| {v['max_dev']} (gates "
+          f"{v['gate']})" for k, v in report.items()))
+
+  out_dir = os.path.join("build", "chip_smoke_mesh1")
+  shutil.rmtree(out_dir, ignore_errors=True)
+  base = ["--mesh", "1", "--batches_per_epoch", "1", "--steps_per_call",
+          "1", "--checkpoint_ratio", "1", "--generator_filters", "64,64,64",
+          "--discriminator_filters", "64,64,64,64", "--checkpoints_dir",
+          os.path.join(out_dir, "ckpt")]
+  cmd, dt1, lines = _run_cli(base + ["--number_of_epochs", "1"], out_dir)
+  check(any("rank 0 of 1 (nccl)" in l for l in lines), lines)
+  cmd, dt2, lines = _run_cli(base + ["--number_of_epochs", "2", "--resume",
+                                     "auto"], out_dir)
+  ckpt = os.path.join(out_dir, "ckpt", "smoke")
+  check(any("(start_epoch 1)" in l for l in lines)
+        and [l.split(":")[0] for l in lines if l.startswith("Epoch ")]
+        == ["Epoch 0", "Epoch 1"]
+        and all(os.path.isfile(os.path.join(ckpt, f"epoch_{i}", CKPT_FILE))
+                for i in (0, 1)), lines)
+  log("dp-mesh1", f"{' '.join(cmd[1:])}: a one-rank NCCL group, rc 0 in "
+      f"{dt1:.1f} s, then --resume auto in {dt2:.1f} s; "
+      + "; ".join(l for l in lines if l.startswith(("resumed", "Epoch 1"))))
+  return sum(r["k1"] for r in ranks)
+
+
 def main() -> int:
   dev = phase_device()
   phase_build()
@@ -1914,6 +2096,7 @@ def main() -> int:
   del dcgan_state
   option_k1, option_k2, option_err = phase_step_options(dev)
   stl10_launches = phase_presets(dev)
+  dp_launches = phase_dp(dev)
   loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
       "wcgan_tpu", "jax", "jaxlib", "flax", "optax", "orbax"))
   check(not loaded, f"chip_smoke imported {loaded}")
@@ -1935,7 +2118,8 @@ def main() -> int:
               "gp-dnorm: one float32 WGAN-GP outer step": gp_launches,
               **dcgan_paths, **option_k1,
               "presets: stl10_wc_resnet_sn at full width, 2 outer steps":
-                  stl10_launches}
+                  stl10_launches,
+              "dp": dp_launches}
   k2_paths = {"sampling: generate(1024, batch=256)": k2_launches,
               "run: EMA generate(1024, batch=256)": run_k2_launches,
               "cond-sampling: conditional generate(1024, batch=256)":

@@ -70,10 +70,67 @@ def test_cli_cuda_without_gpu_fails(tmp_path):
 
 
 def test_cli_rejects_unported_flags(tmp_path):
-  proc = _run(["--device", "cpu", "--output_dir", str(tmp_path), "--mesh",
-               "2", *TINY])
+  proc = _run(["--device", "cpu", "--output_dir", str(tmp_path),
+               "--compute_inception_score", "1", *TINY])
   assert proc.returncode != 0
-  assert "--mesh not supported by the PyTorch port" in proc.stderr
+  assert ("--compute_inception_score not supported by the PyTorch port"
+          in proc.stderr)
+  assert not (tmp_path / "tiny").exists()
+
+
+def test_cli_trains_with_mesh_2_and_resumes(tmp_path):
+  """--mesh 2 --device cpu: two gloo ranks, in fresh interpreters that
+  never import JAX. Rank 0 alone writes: one log with one line per epoch,
+  one grid and one checkpoint per epoch; --resume auto restores the same
+  file on both ranks and runs the third epoch."""
+  base = ["--device", "cpu", "--output_dir", str(tmp_path), *TINY,
+          "--mesh", "2", "--checkpoints_dir", str(tmp_path / "ck"),
+          "--checkpoint_ratio", "1"]
+  proc = _run(base)
+  assert proc.returncode == 0, proc.stdout + proc.stderr
+  assert "NO_JAX_IMPORTED" in proc.stdout
+  log = (tmp_path / "tiny" / "log.txt").read_text()
+  assert log.count("rank 0 of 2") == 1
+  assert [l.split(":")[0] for l in log.splitlines()
+          if l.startswith("Epoch ")] == ["Epoch 0", "Epoch 1"]
+  assert sorted(p.name for p in (tmp_path / "tiny").glob("*.png")) == [
+      "epoch_00000.png", "epoch_00001.png"]
+  ck = tmp_path / "ck" / "tiny"
+  assert sorted(p.name for p in ck.iterdir()) == [
+      "epoch_0", "epoch_0_discriminator.npz", "epoch_0_generator.npz",
+      "epoch_1", "epoch_1_discriminator.npz", "epoch_1_generator.npz"]
+  state = torch.load(ck / "epoch_1" / "state.pt", weights_only=True)
+  assert state["step"] == 4
+  proc = _run(base + ["--resume", "auto", "--number_of_epochs", "3"])
+  assert proc.returncode == 0, proc.stdout + proc.stderr
+  log = (tmp_path / "tiny" / "log.txt").read_text()
+  assert f"resumed from {ck / 'epoch_1'} (start_epoch 2)" in log
+  assert log.count("Epoch 2:") == 1
+  assert torch.load(ck / "epoch_2" / "state.pt",
+                    weights_only=True)["step"] == 6
+
+
+def test_cli_mesh_needs_a_divisible_batch(tmp_path):
+  """--mesh 3 with --batch_size 8: every rank refuses to build its step,
+  and the run fails with the reference's message."""
+  from wcgan_tpu_torch.cli import run as trun
+  from wcgan_tpu_torch.parallel import launch
+  with pytest.raises(launch.RankFailed, match="batch_size 8 must be "
+                     "divisible by the mesh size 3"):
+    trun.main(["--device", "cpu", "--output_dir", str(tmp_path), *TINY,
+               "--mesh", "3"])
+
+
+def test_cli_mesh_beyond_the_gpus_raises(tmp_path):
+  """--mesh N --device cuda starts one rank per GPU and never shares a
+  card or moves to the CPU: more ranks than GPUs is refused."""
+  from wcgan_tpu_torch.cli import run as trun
+  n = torch.cuda.device_count() + 1
+  with pytest.raises(SystemExit, match=f"--mesh {n} --device cuda needs {n} "
+                     f"CUDA GPUs, one per rank, but torch sees {n - 1}"):
+    trun.main(["--device", "cuda", "--output_dir", str(tmp_path), *TINY,
+               "--mesh", str(n)])
+  assert not (tmp_path / "tiny").exists()
 
 
 def test_cli_phase_test_writes_a_grid_without_jax(tmp_path):
@@ -120,7 +177,8 @@ def test_cli_takes_the_ported_flags():
     assert defaults_t[key] == defaults_j[key], flag
 
 
-@pytest.mark.parametrize("flag", ["--mesh", "--score_every"])
+@pytest.mark.parametrize("flag", ["--compute_inception_score",
+                                  "--score_every"])
 def test_cli_still_refuses_by_name(flag):
   from wcgan_tpu_torch.cli import run as trun
   with pytest.raises(SystemExit, match=f"{flag} not supported"):

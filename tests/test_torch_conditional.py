@@ -302,11 +302,14 @@ def test_projection_needs_labels():
 # --- one outer step -----------------------------------------------------------
 
 
-def replay_jax_noise(state_rng, cfg: JGANConfig, b: int):
+def replay_jax_noise(state_rng, cfg: JGANConfig, b: int, axis_index=None):
   """Every draw of wcgan_tpu's outer_step for one call, as numpy arrays:
   z, labels and the penalty's eps per D update (``draw_fake_inputs``),
-  z and labels of the G update, the flips."""
+  z and labels of the G update, the flips. With ``axis_index``, the draws
+  of that replica of the sharded step, which folds it into its key."""
   _, use_rng = jax.random.split(state_rng)
+  if axis_index is not None:
+    use_rng = jax.random.fold_in(use_rng, axis_index)
   noise = {k: [] for k in ("z_d", "y_d", "gp_eps")}
   for k in range(cfg.training_ratio):
     rz, ry, rgp = jax.random.split(jax.random.fold_in(use_rng, k), 3)

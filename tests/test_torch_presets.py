@@ -4,9 +4,9 @@ with them, against the JAX CLI.
 Every preset builds the same configuration as the JAX CLI builds from the
 same argv (synthetic data at the preset's resolution, width 16), runs end
 to end under ``--smoke --device cpu`` as ``tests/test_presets.py`` runs it
-in JAX, except ``imagenet64_cwc_dp``, which needs ``--mesh`` (data
-parallelism) and is refused naming it. Configurations are compared field
-by field; nothing here compares numbers."""
+in JAX; ``imagenet64_cwc_dp`` (data parallelism, ``--mesh 8``) smoke-runs
+on two CPU ranks (``--mesh 2``). Configurations are compared field by
+field; nothing here compares numbers."""
 
 import dataclasses
 import json
@@ -72,11 +72,51 @@ def test_preset_smoke_runs_end_to_end(name, tmp_path):
   assert (tmp_path / "ck" / name / "epoch_1_generator.npz").is_file()
 
 
-def test_dp_preset_is_refused_naming_mesh(tmp_path):
-  with pytest.raises(SystemExit, match="--mesh not supported by the "
-                     "PyTorch port: data parallelism"):
-    trun.main(["--preset", DP_PRESET, "--smoke", "--device", "cpu",
-               "--output_dir", str(tmp_path)])
+def test_dp_preset_builds_as_in_jax(tmp_path):
+  """imagenet64_cwc_dp (its --mesh 8 given as 2 here) builds the JAX
+  CLI's configuration: cWC-sa G, projection-D, bf16, batch 512."""
+  argv = trun.expand_preset(["--preset", DP_PRESET, *_overrides(DP_PRESET),
+                             "--batch_size", "512", "--mesh", "2"])
+  jt = jrun.build_experiment(jrun.build_parser().parse_args(argv + [
+      "--output_dir", str(tmp_path / "j")]))
+  tt = trun.build_experiment(trun.build_parser().parse_args(argv + [
+      "--device", "cpu", "--output_dir", str(tmp_path / "t")]))
+  assert tt.cfg.name == jt.cfg.name and tt.ds.batch_size == 512
+  assert jt.mesh is not None and tt.state.g.cfg.dtype == "bfloat16"
+  for ours, theirs in ((tt.state.g.cfg, jt.g.cfg), (tt.state.d.cfg, jt.d.cfg),
+                       (tt.gan_cfg, jt.gan_cfg)):
+    got, want = _common_fields(ours, theirs)
+    assert got == want, type(ours).__name__
+
+
+def test_dp_preset_smoke_runs_on_two_ranks(tmp_path):
+  """imagenet64_cwc_dp --smoke --mesh 2 on the CPU: two gloo ranks (a
+  global batch of 8, 4 a rank), 2 epochs, rank 0's log, grids and
+  checkpoint."""
+  out = tmp_path / "out"
+  rc = trun.main(["--preset", DP_PRESET, "--smoke", "--device", "cpu",
+                  "--mesh", "2", "--output_dir", str(out),
+                  "--checkpoints_dir", str(tmp_path / "ck"), "--name",
+                  DP_PRESET])
+  assert rc == 0
+  text = (out / DP_PRESET / "log.txt").read_text()
+  assert "Epoch 1:" in text and "nan" not in text.lower()
+  assert "rank 0 of 2" in text
+  records = [json.loads(l) for l in
+             (out / DP_PRESET / "metrics.jsonl").read_text().splitlines()]
+  assert [r["epoch"] for r in records] == [0, 1]
+  assert sorted(p.name for p in (out / DP_PRESET).glob("*.png")) == [
+      "epoch_00000.png", "epoch_00001.png"]
+  assert (tmp_path / "ck" / DP_PRESET / "epoch_1_generator.npz").is_file()
+
+
+def test_dp_preset_on_one_gpu_asks_for_eight(tmp_path):
+  """Without --smoke the preset's --mesh 8 needs 8 GPUs."""
+  if torch.cuda.device_count() >= 8:
+    pytest.skip("checks the refusal where there are fewer than 8 GPUs")
+  with pytest.raises(SystemExit, match="--mesh 8 --device cuda needs 8 "
+                     "CUDA GPUs, one per rank"):
+    trun.main(["--preset", DP_PRESET, "--output_dir", str(tmp_path)])
   assert not any(tmp_path.iterdir())
 
 
@@ -119,12 +159,12 @@ def test_cli_takes_the_new_flags_like_jax():
     assert defaults_t[key] == defaults_j[key], flag
 
 
-@pytest.mark.parametrize("flag", ["--mesh", "--compute_fid", "--platform",
+@pytest.mark.parametrize("flag", ["--compute_inception_score",
+                                  "--compute_fid", "--platform",
                                   "--compilation_cache_dir"])
 def test_cli_refuses_what_it_does_not_take_with_the_reason(flag):
   with pytest.raises(SystemExit, match=f"{flag} not supported by the "
-                     "PyTorch port: .*(data parallel|InceptionV3|--device|"
-                     "build/kernels)"):
+                     "PyTorch port: .*(InceptionV3|--device|build/kernels)"):
     trun._reject_unsupported([flag, "1"])
 
 

@@ -160,9 +160,9 @@ def _port_step(monkeypatch, g_kw, d_kw, gan_kw, seed=1):
   calls = []
   plain = whiten_ops.batch_moments
 
-  def counted(x2d, use_kernel=None):
+  def counted(x2d, use_kernel=None, group=None):
     calls.append(x2d.shape)
-    return plain(x2d, use_kernel)
+    return plain(x2d, use_kernel, group)
 
   monkeypatch.setattr(whiten_ops, "batch_moments", counted)
   g_cfg = GeneratorConfig(z_dim=16, resolution=16, base_resolution=4,

@@ -513,8 +513,8 @@ def test_dataset_step_draws_from_state_generator(monkeypatch):
   seen = {}
   monkeypatch.setattr(
       step_lib, "make_outer_step",
-      lambda cfg: lambda state, real, labels, noise=None: seen.update(
-          real=real, labels=labels) or {})
+      lambda cfg, group=None: lambda state, real, labels, noise=None: (
+          seen.update(real=real, labels=labels) or {}))
   n, b = 50, 4
   data_x = torch.arange(n, dtype=torch.uint8).view(n, 1, 1, 1).expand(
       n, 2, 2, 3).contiguous()

@@ -13,7 +13,10 @@ of ``--steps_per_call``, the whitening probe and guard, full-state
 checkpoints every ``--checkpoint_ratio`` epochs, ``--resume``), EMA
 weights with standing statistics (``--generator_ema``), sample grids, and
 ``--phase test``, which writes one grid from the restored state or from
-weights-only ``.npz`` (or ``.h5``) files. ``--preset <name>`` expands to a
+weights-only ``.npz`` (or ``.h5``) files, and data parallelism: ``--mesh
+N`` trains on N ranks with the statistics of the global batch, one
+process and one GPU per rank over NCCL (``--device cpu``: N CPU ranks
+over gloo); ``--mesh 0`` is one process. ``--preset <name>`` expands to a
 BASELINE configuration's flags (``cli/presets.py``), and ``--smoke``
 shrinks any run to a few seconds on synthetic data of the dataset's
 resolution, keeping its architecture and codes. Flag names and defaults
@@ -33,6 +36,8 @@ Usage:
       --generator_last_coloring ucconv
   python -m wcgan_tpu_torch --device cpu --phase test \\
       --generator_checkpoint epoch_9_generator.npz
+  python -m wcgan_tpu_torch --preset imagenet64_cwc_dp --smoke --device cpu \\
+      --mesh 2
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ import torch
 
 from wcgan_tpu_torch.cli.presets import preset_argv
 from wcgan_tpu_torch.data import DATASETS, get_dataset
+from wcgan_tpu_torch.data.base import ArrayDataset
 from wcgan_tpu_torch.tools.h5_convert import apply_key_map, h5_flat
 from wcgan_tpu_torch import weights
 from wcgan_tpu_torch.device import resolve_device
@@ -56,9 +62,11 @@ from wcgan_tpu_torch.models.discriminator import preset_filters as d_presets
 from wcgan_tpu_torch.models.generator import GeneratorConfig
 from wcgan_tpu_torch.models.generator import preset_filters as g_presets
 from wcgan_tpu_torch.models.layers import COLORING_CODES
+from wcgan_tpu_torch.parallel import launch, mesh
 from wcgan_tpu_torch.train.state import OptimConfig, create_state
 from wcgan_tpu_torch.train.step import GANConfig
-from wcgan_tpu_torch.train.trainer import Trainer, TrainerConfig
+from wcgan_tpu_torch.train.trainer import (Trainer, TrainerConfig,
+                                           check_ema_under_mesh)
 
 NORM_CODES = ("n", "b", "d", "dr")
 
@@ -67,8 +75,6 @@ _SCORING = ("evaluation (IS/FID) is not ported yet; it needs InceptionV3 "
 # Flags of the JAX CLI (wcgan_tpu/cli/run.py) that this port does not take,
 # and why; each is refused by name instead of being silently dropped.
 UNSUPPORTED_FLAGS = {
-    "--mesh": "data parallelism is not ported yet (the port runs on one "
-              "device)",
     "--compute_inception_score": _SCORING, "--compute_fid": _SCORING,
     "--score_every": _SCORING, "--samples_inception": _SCORING,
     "--samples_fid": _SCORING, "--inception_weights": _SCORING,
@@ -188,6 +194,10 @@ def build_parser() -> argparse.ArgumentParser:
                  help="'highest' = true float32 whitening matmuls (TF32 "
                       "off), what the port runs; 'high' (the JAX CLI's "
                       "3-pass bf16 TPU mode) is refused")
+  p.add_argument("--mesh", type=int, default=0,
+                 help="data-parallel over N ranks, one process each: N GPUs "
+                      "over NCCL with --device cuda, N CPU ranks over gloo "
+                      "with --device cpu (0 = one process)")
   p.add_argument("--bf16", action="store_true",
                  help="bfloat16 compute in G/D (whitening stays float32)")
   p.add_argument("--remat", action="store_true",
@@ -273,7 +283,7 @@ def _apply_smoke(args) -> None:
   args.synthetic_resolution = args.synthetic_resolution or res
   args.dataset = "synthetic"
   args.synthetic_size = min(args.synthetic_size, 64)
-  args.batch_size = 8
+  args.batch_size = max(8, 2 * (args.mesh or 1))  # the JAX CLI's rule
   args.generator_filters = args.generator_filters or "16,16"
   args.discriminator_filters = args.discriminator_filters or "16,16"
   args.ns_iters = min(args.ns_iters, 6)
@@ -302,8 +312,11 @@ def set_precision() -> str:
           f"{torch.backends.cudnn.allow_tf32}")
 
 
-def build_experiment(args) -> Trainer:
-  """args -> a Trainer with its state on ``args.device``."""
+def build_experiment(args, group: mesh.Group = None,
+                     dataset: Optional[ArrayDataset] = None) -> Trainer:
+  """args -> a Trainer with its state on ``args.device``, as one rank of
+  ``group`` when one is given, on ``dataset`` when one is given (else the
+  one ``--dataset`` names)."""
   if args.smoke:
     _apply_smoke(args)
   if args.whitening_precision != "highest":
@@ -315,11 +328,11 @@ def build_experiment(args) -> Trainer:
   device = resolve_device(args.device)
   conditional = args.conditional or args.gan_type in ("PROJECTIVE",
                                                       "AC_GAN")
-  ds = get_dataset(args.dataset, batch_size=args.batch_size,
-                   data_dir=args.data_dir, conditional=conditional,
-                   seed=args.seed, z_dim=args.z_dim,
-                   synthetic_size=args.synthetic_size,
-                   synthetic_resolution=args.synthetic_resolution)
+  ds = dataset or get_dataset(
+      args.dataset, batch_size=args.batch_size, data_dir=args.data_dir,
+      conditional=conditional, seed=args.seed, z_dim=args.z_dim,
+      synthetic_size=args.synthetic_size,
+      synthetic_resolution=args.synthetic_resolution)
   res = ds.resolution
   num_classes = ds.num_classes
   dtype = "bfloat16" if args.bf16 else "float32"
@@ -381,7 +394,8 @@ def build_experiment(args) -> Trainer:
       lr_decay_schedule=args.lr_decay_schedule,
       total_outer_steps=steps_per_epoch * args.number_of_epochs)
   state = create_state(g_cfg, d_cfg, opt_cfg, args.training_ratio, device,
-                       seed=args.seed, g_ema_decay=args.generator_ema)
+                       seed=args.seed, g_ema_decay=args.generator_ema,
+                       group=group)
   name = args.name or (f"{args.dataset}_{args.arch}_{args.loss}"
                        f"_{args.generator_block_norm}-"
                        f"{args.generator_block_coloring}"
@@ -401,7 +415,7 @@ def build_experiment(args) -> Trainer:
       residual_probe_every=args.residual_probe_every,
       ema_standing_batches=args.ema_standing_stats,
       profile_dir=args.profile_dir, debug_nans=args.debug_nans)
-  return Trainer(ds, state, gan_cfg, tcfg)
+  return Trainer(ds, state, gan_cfg, tcfg, group=group)
 
 
 def _load_weights_npz(module, path: str, key_map_path: Optional[str] = None,
@@ -443,19 +457,64 @@ def _load_weights_npz(module, path: str, key_map_path: Optional[str] = None,
                    source=path, model=model, log=emit)
 
 
+def mesh_devices(args) -> List[str]:
+  """The devices of the ``--mesh`` ranks: one GPU each, cuda:0..N-1, or N
+  CPU ranks; raise where there are fewer GPUs than ranks."""
+  n = args.mesh
+  if n < 0:
+    raise SystemExit(f"wcgan_tpu_torch: --mesh {n}: the ranks must be >= 0")
+  if args.device == "cpu":
+    return ["cpu"] * n
+  if args.device != "cuda":
+    raise SystemExit(f"wcgan_tpu_torch: --mesh takes --device cuda or cpu "
+                     f"(each rank gets its own GPU), got {args.device!r}")
+  have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+  if have < n:
+    raise SystemExit(f"wcgan_tpu_torch: --mesh {n} --device cuda needs {n} "
+                     f"CUDA GPUs, one per rank, but torch sees {have}")
+  return [f"cuda:{i}" for i in range(n)]
+
+
+def rank_main(ctx: launch.RankContext, argv: List[str]) -> int:
+  """One rank of a ``--mesh`` run: the experiment of ``argv`` on this
+  rank's device, in its group."""
+  args = build_parser().parse_args(argv)
+  args.device = str(ctx.device)
+  return _run(args, ctx.group)
+
+
 def main(argv=None) -> int:
   argv = list(sys.argv[1:]) if argv is None else list(argv)
   argv = expand_preset(argv)
   _reject_unsupported(argv)
   args = build_parser().parse_args(argv)
-  print(set_precision(), flush=True)
+  # --phase test samples in eval mode, which reduces nothing: one process.
+  if args.mesh and args.phase == "train":
+    devices = mesh_devices(args)
+    try:
+      check_ema_under_mesh(True, args.generator_ema, args.ema_standing_stats)
+    except ValueError as e:
+      raise SystemExit(f"wcgan_tpu_torch: {e}") from None
+    launch.launch("wcgan_tpu_torch.cli.run:rank_main", devices, (argv,),
+                  timeout=None)
+    return 0
+  return _run(args)
+
+
+def _run(args, group: mesh.Group = None) -> int:
+  precision = set_precision()
+  if mesh.rank(group) == 0:
+    print(precision, flush=True)
   if args.debug_nans:
     torch.autograd.set_detect_anomaly(True)
-  trainer = build_experiment(args)
+  trainer = build_experiment(args, group)
   device = trainer.state.generator.device
   trainer.logger.line(f"wcgan_tpu_torch on {device}"
                       + (f" ({torch.cuda.get_device_name(device)})"
-                         if device.type == "cuda" else ""))
+                         if device.type == "cuda" else "")
+                      + (f", rank 0 of {mesh.world_size(group)} "
+                         f"({torch.distributed.get_backend(group)})"
+                         if group is not None else ""))
   if args.resume == "auto":
     latest = trainer.latest_checkpoint()
     if latest:

@@ -12,6 +12,8 @@ map across by path (``wcgan_tpu_torch/weights.py``).
 
 A discriminator block takes the spatial size of its input, ``size``: a
 conv with ``conv_singular`` keeps an input-shaped power-iteration map.
+Blocks with WC layers pass ``group`` (the reference's ``axis_name``) to
+them.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from wcgan_tpu_torch.models import layers as L
+from wcgan_tpu_torch.parallel import mesh
 
 
 def _disc_conv(in_channels: int, features: int, kernel_size: int,
@@ -50,7 +53,7 @@ class GenResBlock(nn.Module):
                filters_emb: int = 10, ns_iters: int = 15,
                ns_method: str = "newton_schulz", momentum: float = 0.99,
                ns_scaling: str = "trace", use_kernel: Optional[bool] = None,
-               kernel_eval: Optional[bool] = None):
+               kernel_eval: Optional[bool] = None, group: mesh.Group = None):
     super().__init__()
     self.upsample = upsample
 
@@ -60,7 +63,7 @@ class GenResBlock(nn.Module):
                          method=ns_method, ns_scaling=ns_scaling,
                          use_kernel=use_kernel, kernel_eval=kernel_eval,
                          num_classes=num_classes, filters_emb=filters_emb,
-                         generator=generator)
+                         generator=generator, group=group)
 
     self.nc1 = norm_color(in_channels)
     self.conv1 = L.Conv(in_channels, filters, 3, generator)
@@ -93,14 +96,14 @@ class DCGANGenBlock(nn.Module):
                filters_emb: int = 10, ns_iters: int = 15,
                ns_method: str = "newton_schulz", momentum: float = 0.99,
                ns_scaling: str = "trace", use_kernel: Optional[bool] = None,
-               kernel_eval: Optional[bool] = None):
+               kernel_eval: Optional[bool] = None, group: mesh.Group = None):
     super().__init__()
     self.nc = L.NormColor(in_channels, norm=norm, coloring=coloring,
                           momentum=momentum, ns_iters=ns_iters,
                           method=ns_method, ns_scaling=ns_scaling,
                           use_kernel=use_kernel, kernel_eval=kernel_eval,
                           num_classes=num_classes, filters_emb=filters_emb,
-                          generator=generator)
+                          generator=generator, group=group)
     self.deconv = L.ConvTranspose(in_channels, filters, generator)
 
   def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None,
@@ -140,7 +143,8 @@ class DiscResBlock(nn.Module):
                ns_iters: int = 15, ns_method: str = "newton_schulz",
                momentum: float = 0.99, ns_scaling: str = "trace",
                use_kernel: Optional[bool] = None,
-               conv_singular: bool = False, size: Optional[int] = None):
+               conv_singular: bool = False, size: Optional[int] = None,
+               group: mesh.Group = None):
     super().__init__()
     self.downsample = downsample
     conv = dict(generator=generator, spectral=spectral, sn_iters=sn_iters,
@@ -153,7 +157,8 @@ class DiscResBlock(nn.Module):
                          momentum=momentum, ns_iters=ns_iters,
                          method=ns_method, ns_scaling=ns_scaling,
                          use_kernel=use_kernel, num_classes=num_classes,
-                         filters_emb=filters_emb, generator=generator)
+                         filters_emb=filters_emb, generator=generator,
+                         group=group)
 
     if self.has_norm:
       self.nc1 = norm_color(in_channels)

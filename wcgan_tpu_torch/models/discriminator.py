@@ -11,6 +11,7 @@ embedding, and with ``ac_gan`` a dense head gives class logits.
 ``conv_singular`` normalizes each conv by the operator norm of the
 convolution (``layers.SNConv``); ``remat`` recomputes the res blocks in
 the backward and is a no-op for the DCGAN D, as in the reference.
+``group`` (the reference's ``cfg.axis_name``) reaches D's WC layers.
 """
 
 from __future__ import annotations
@@ -25,12 +26,13 @@ from torch import nn
 from wcgan_tpu_torch.models import blocks as B
 from wcgan_tpu_torch.models import layers as L
 from wcgan_tpu_torch.models.generator import DTYPES
+from wcgan_tpu_torch.parallel import mesh
 
 
 @dataclasses.dataclass(frozen=True)
 class DiscriminatorConfig:
-  """Static discriminator hyperparameters (the JAX package's, without
-  ``axis_name``)."""
+  """Static discriminator hyperparameters (the JAX package's; its
+  ``axis_name`` is the module's ``group``)."""
 
   arch: str = "res"                    # 'res' | 'dcgan'
   resolution: int = 32
@@ -85,7 +87,8 @@ class Discriminator(nn.Module):
   ``update_sn`` advances every SN layer's ``u`` once in this forward,
   ``update_stats`` the running statistics of its WC layers."""
 
-  def __init__(self, cfg: DiscriminatorConfig, generator: torch.Generator):
+  def __init__(self, cfg: DiscriminatorConfig, generator: torch.Generator,
+               group: mesh.Group = None):
     super().__init__()
     self.cfg = cfg
     conv = dict(spectral=cfg.spectral, sn_iters=cfg.sn_iters,
@@ -110,7 +113,7 @@ class Discriminator(nn.Module):
             filters_emb=cfg.filters_emb, ns_iters=cfg.ns_iters,
             ns_method=cfg.ns_method, momentum=cfg.wc_momentum,
             ns_scaling=cfg.ns_scaling, use_kernel=cfg.use_kernel,
-            size=size, **conv))
+            size=size, group=group, **conv))
         size //= 2 if cfg.downsample[i] else 1
       feat = cfg.filters[-1]
     sn = dict(sn_iters=cfg.sn_iters, fully_diff=cfg.fully_diff)

@@ -7,7 +7,9 @@ norm/color, ReLU, 4x4 stride-2 transposed conv) -> final WC layer -> ReLU
 code. A conditional G (``num_classes`` > 0) takes one label per image,
 used by its conditional colorings and, with ``concat_cls``, as a one-hot
 concatenated to z. ``remat`` recomputes each block's activations in the
-backward (``layers.remat_call``).
+backward (``layers.remat_call``). ``group`` (a constructor argument, the
+reference's ``cfg.axis_name``) makes every WC layer and BatchNorm whiten
+with the statistics of the global batch under data parallelism.
 """
 
 from __future__ import annotations
@@ -21,14 +23,15 @@ from torch import nn
 
 from wcgan_tpu_torch.models import blocks as B
 from wcgan_tpu_torch.models import layers as L
+from wcgan_tpu_torch.parallel import mesh
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
 class GeneratorConfig:
-  """Static generator hyperparameters (the JAX package's, without
-  ``axis_name``)."""
+  """Static generator hyperparameters (the JAX package's; its
+  ``axis_name`` is the module's ``group``)."""
 
   arch: str = "res"                    # 'res' | 'dcgan'
   z_dim: int = 128
@@ -77,7 +80,8 @@ class Generator(nn.Module):
   ``train`` whitens with batch statistics; ``update_stats`` advances the
   running statistics (only meaningful in train mode)."""
 
-  def __init__(self, cfg: GeneratorConfig, generator: torch.Generator):
+  def __init__(self, cfg: GeneratorConfig, generator: torch.Generator,
+               group: mesh.Group = None):
     super().__init__()
     self.cfg = cfg
     f0 = cfg.filters[0]
@@ -87,7 +91,7 @@ class Generator(nn.Module):
     wc = dict(ns_iters=cfg.ns_iters, momentum=cfg.wc_momentum,
               ns_scaling=cfg.ns_scaling, use_kernel=cfg.use_kernel,
               kernel_eval=cfg.kernel_eval, num_classes=cfg.num_classes,
-              filters_emb=cfg.filters_emb)
+              filters_emb=cfg.filters_emb, group=group)
     in_ch = f0
     for i, f in enumerate(cfg.filters):
       if cfg.arch == "res":

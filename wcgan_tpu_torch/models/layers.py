@@ -12,6 +12,12 @@ State the reference keeps in flax collections is kept in buffers here:
 with ``conv_singular``) in the SN wrappers. Parameters stay float32; each layer
 casts them to the activation dtype where it uses them, as flax's ``dtype=``
 does.
+
+The layers with batch statistics (``DecorrelationNorm``, ``BatchNorm``,
+``NormLayer``, ``NormColor``) take ``group``, the reference's
+``axis_name``: a process group over which their train-mode statistics are
+those of the global batch, or None for one process. Nothing reduces at
+construction.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from wcgan_tpu_torch.ops import coloring as coloring_ops
 from wcgan_tpu_torch.ops import cuda_wc
 from wcgan_tpu_torch.ops import sn as sn_ops
 from wcgan_tpu_torch.ops import whiten as whiten_ops
+from wcgan_tpu_torch.parallel import mesh
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
@@ -109,7 +116,7 @@ class DecorrelationNorm(nn.Module):
                ns_iters: int = 15, mode: str = "d",
                method: str = "newton_schulz", ns_scaling: str = "trace",
                use_kernel: Optional[bool] = None,
-               kernel_eval: Optional[bool] = None):
+               kernel_eval: Optional[bool] = None, group: mesh.Group = None):
     super().__init__()
     if mode not in ("d", "dr"):
       raise ValueError(f"unknown whitening mode {mode!r}")
@@ -121,6 +128,7 @@ class DecorrelationNorm(nn.Module):
     self.ns_scaling = ns_scaling
     self.use_kernel = use_kernel
     self.kernel_eval = kernel_eval
+    self.group = group
     self.moments_sink: Optional[MomentsSink] = None
     self.register_buffer("mean", torch.zeros(channels))
     self.register_buffer("cov", torch.eye(channels))
@@ -141,7 +149,8 @@ class DecorrelationNorm(nn.Module):
       else:
         out = whiten_ops.whiten_eval(x2d, self.mean, self.cov, **wc)
       return _unrows(out, x)
-    batch_mean, batch_cov = whiten_ops.batch_moments(x2d, self.use_kernel)
+    batch_mean, batch_cov = whiten_ops.batch_moments(x2d, self.use_kernel,
+                                                     self.group)
     if self.moments_sink is not None:
       self.moments_sink(batch_mean, batch_cov)
     mean, stat_src, new_mean, new_cov = whiten_ops.stats_select_and_ema(
@@ -162,7 +171,9 @@ class BatchNorm(nn.Module):
 
   - the batch variance is the biased one, E[x^2] - E[x]^2 clipped at 0
     (flax's ``use_fast_variance``), in float32; it normalizes the batch
-    and is what the buffer ``var`` averages;
+    and is what the buffer ``var`` averages. With a ``group``, E[x] and
+    E[x^2] are means over the ranks (one all-reduce of both, as flax
+    reduces them over ``axis_name``);
   - the running statistics advance as ra = m ra + (1 - m) batch, m the
     momentum (torch's ``momentum`` is 1 - m), and only in train mode with
     ``update_stats`` set.
@@ -174,10 +185,11 @@ class BatchNorm(nn.Module):
   STAT_NAMES = ("mean", "var")
 
   def __init__(self, channels: int, momentum: float = 0.99,
-               eps: float = 1e-5):
+               eps: float = 1e-5, group: mesh.Group = None):
     super().__init__()
     self.momentum = momentum
     self.eps = eps
+    self.group = group
     self.moments_sink: Optional[MomentsSink] = None
     self.register_buffer("mean", torch.zeros(channels))
     self.register_buffer("var", torch.ones(channels))
@@ -187,7 +199,11 @@ class BatchNorm(nn.Module):
     x2d = _rows(x).float()
     if train:
       mean = x2d.mean(dim=0)
-      var = torch.clamp((x2d * x2d).mean(dim=0) - mean * mean, min=0.0)
+      mean2 = (x2d * x2d).mean(dim=0)
+      if self.group is not None:
+        mean, mean2 = mesh.pmean(torch.cat([mean, mean2]),
+                                 self.group).chunk(2)
+      var = torch.clamp(mean2 - mean * mean, min=0.0)
       if self.moments_sink is not None:
         self.moments_sink(mean, var)
       if update_stats:
@@ -206,16 +222,16 @@ class NormLayer(nn.Module):
   the JAX package's ``NormLayer``."""
 
   def __init__(self, channels: int, code: str = "d", momentum: float = 0.99,
-               eps: float = 1e-5, **wc):
+               eps: float = 1e-5, group: mesh.Group = None, **wc):
     super().__init__()
     if code not in ("n", "b", "d", "dr"):
       raise ValueError(f"unknown norm code {code!r}")
     self.code = code
     if code == "b":
-      self.bn = BatchNorm(channels, momentum=momentum, eps=eps)
+      self.bn = BatchNorm(channels, momentum=momentum, eps=eps, group=group)
     elif code != "n":
       self.wc = DecorrelationNorm(channels, mode=code, momentum=momentum,
-                                  eps=eps, **wc)
+                                  eps=eps, group=group, **wc)
 
   def forward(self, x: torch.Tensor, train: bool = True,
               update_stats: bool = True) -> torch.Tensor:
@@ -353,7 +369,8 @@ class NormColor(nn.Module):
                use_kernel: Optional[bool] = None,
                kernel_eval: Optional[bool] = None, num_classes: int = 0,
                filters_emb: int = 10,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None,
+               group: mesh.Group = None):
     super().__init__()
     self.fused = norm in ("d", "dr") and coloring in (
         ("uconv",) + _FUSED_COND_CODES)
@@ -367,6 +384,7 @@ class NormColor(nn.Module):
     self.ns_scaling = ns_scaling
     self.use_kernel = use_kernel
     self.kernel_eval = kernel_eval
+    self.group = group
     self.moments_sink: Optional[MomentsSink] = None
     if self.fused:
       if coloring == "uconv":
@@ -381,7 +399,7 @@ class NormColor(nn.Module):
       self.norm = NormLayer(channels, norm, momentum=momentum, eps=eps,
                             ns_iters=ns_iters, method=method,
                             ns_scaling=ns_scaling, use_kernel=use_kernel,
-                            kernel_eval=kernel_eval)
+                            kernel_eval=kernel_eval, group=group)
       self.color = Coloring(channels, coloring, num_classes, filters_emb,
                             generator)
 
@@ -390,7 +408,8 @@ class NormColor(nn.Module):
     running statistics when ``update_stats``."""
     if not train:
       return self.mean, self.cov
-    batch_mean, batch_cov = whiten_ops.batch_moments(x2d, self.use_kernel)
+    batch_mean, batch_cov = whiten_ops.batch_moments(x2d, self.use_kernel,
+                                                     self.group)
     if self.moments_sink is not None:
       self.moments_sink(batch_mean, batch_cov)
     mean, stat_src, new_mean, new_cov = whiten_ops.stats_select_and_ema(

@@ -8,8 +8,9 @@ Every whitening matmul here is float32 and must stay true float32: under
 reduced-precision passes Newton–Schulz plateaus near 2e-2 instead of
 converging (measured on the reference, ``wcgan_tpu/ops/whiten.py``). On a
 GPU that means ``torch.backends.cuda.matmul.allow_tf32 = False``, which the
-port's entry points set and print. Data parallelism (the reference's
-``axis_name``) is not ported yet.
+port's entry points set and print. Under data parallelism the moments are
+those of the global batch: ``batch_moments`` takes the reference's
+``axis_name`` as a process group (``wcgan_tpu_torch.parallel.mesh``).
 """
 
 from __future__ import annotations
@@ -19,9 +20,11 @@ from typing import Optional, Tuple
 import torch
 
 from wcgan_tpu_torch.ops import cuda_wc
+from wcgan_tpu_torch.parallel import mesh
 
 
-def batch_moments(x2d: torch.Tensor, use_kernel: Optional[bool] = None
+def batch_moments(x2d: torch.Tensor, use_kernel: Optional[bool] = None,
+                  group: mesh.Group = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Mean (C,) and covariance (C, C) of the rows of ``x2d`` (R, C), float32.
 
@@ -30,12 +33,30 @@ def batch_moments(x2d: torch.Tensor, use_kernel: Optional[bool] = None
   True routes through K1's wrapper (which on a CPU tensor runs its plain
   version, with K1's analytic gradient); False is the plain autograd path.
   Both are two-pass centered: the one-pass E[xx^T] - mu mu^T cancels
-  catastrophically when |mu| >> sigma."""
+  catastrophically when |mu| >> sigma.
+
+  With a ``group`` (every rank holding as many rows) the moments are those
+  of the rows of all ranks, by the reference's two routes: K1 centres on
+  the local mean, and the parallel-variance formula combines the ranks,
+  Sigma = pmean(Sigma_r + (mu_r - mu)(mu_r - mu)^T), mu = pmean(mu_r); the
+  plain route reduces the mean first, centres on it, and averages the
+  covariances. ``mesh.pmean`` carries the gradient across the ranks."""
   if use_kernel is None:
     use_kernel = x2d.is_cuda
   if use_kernel:
-    return cuda_wc.moments(x2d)
-  return cuda_wc.moments_reference(x2d)
+    mean, cov = cuda_wc.moments(x2d)
+    if group is not None:
+      gmean = mesh.pmean(mean, group)
+      d = mean - gmean
+      cov = mesh.pmean(cov + torch.outer(d, d), group)
+      mean = gmean
+    return mean, cov
+  if group is None:
+    return cuda_wc.moments_reference(x2d)
+  x = x2d.float()
+  mean = mesh.pmean(x.mean(dim=0), group)
+  xc = x - mean
+  return mean, mesh.pmean(xc.T @ xc / x.shape[0], group)
 
 
 def _spd_jitter(cov: torch.Tensor, eps: float) -> torch.Tensor:

@@ -20,6 +20,7 @@ from wcgan_tpu_torch.device import place
 from wcgan_tpu_torch.models.discriminator import (Discriminator,
                                                   DiscriminatorConfig)
 from wcgan_tpu_torch.models.generator import Generator, GeneratorConfig
+from wcgan_tpu_torch.parallel import mesh
 from wcgan_tpu_torch.train import schedules
 
 
@@ -55,6 +56,20 @@ class GANTrainState:
   g_version: int = 0
 
 
+def full_state(st: GANTrainState) -> Dict:
+  """Everything the state holds, as tensors, dicts, lists and numbers
+  (what ``torch.load(weights_only=True)`` takes): G and D with their
+  statistics and SN vectors, both Adams and LR schedules, the EMA shadow,
+  the noise generator and the outer-step count. The tensors are the live
+  ones, not copies."""
+  return {"g": st.g.state_dict(), "d": st.d.state_dict(),
+          "g_opt": st.g_opt.state_dict(), "d_opt": st.d_opt.state_dict(),
+          "g_sched": st.g_sched.state_dict(),
+          "d_sched": st.d_sched.state_dict(),
+          "g_ema": st.g_ema, "generator": st.generator.get_state(),
+          "step": st.step}
+
+
 def ema_copy(g: Generator) -> Dict[str, torch.Tensor]:
   """A copy of G's parameters, the EMA shadow at init; 4-D weights keep
   their channels_last layout."""
@@ -82,11 +97,13 @@ def state_from_modules(g: Generator, d: Discriminator, opt_cfg: OptimConfig,
 def create_state(g_cfg: GeneratorConfig, d_cfg: DiscriminatorConfig,
                  opt_cfg: OptimConfig, training_ratio: int,
                  device: torch.device, seed: int = 0,
-                 g_ema_decay: float = 0.0) -> GANTrainState:
+                 g_ema_decay: float = 0.0,
+                 group: mesh.Group = None) -> GANTrainState:
   """Random G and D from ``seed`` (initialized on the CPU, so the same seed
-  gives the same weights on any device), placed on ``device``."""
+  gives the same weights on any device, and every rank of ``group`` the
+  same state), placed on ``device``; their layers reduce over ``group``."""
   init = torch.Generator().manual_seed(seed)
-  g = place(Generator(g_cfg, init), device)
-  d = place(Discriminator(d_cfg, init), device)
+  g = place(Generator(g_cfg, init, group), device)
+  d = place(Discriminator(d_cfg, init, group), device)
   return state_from_modules(g, d, opt_cfg, training_ratio, device, seed + 1,
                             g_ema_decay)

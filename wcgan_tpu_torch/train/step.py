@@ -39,6 +39,19 @@ pass that must not see the update runs before the pass that makes it.
 ``make_dataset_step`` draws the real batches on the device from a
 dataset that lives there, and ``_multi`` chains outer steps, as the
 reference's device-data path does.
+
+Data parallelism (the reference's ``make_sharded_step`` and
+``make_sharded_dataset_step``): with a process ``group`` every rank runs
+the outer step on its own rows of the global batch, its models built with
+the same group so that their statistics are the global batch's. Each
+update's gradients and loss are averaged over the ranks in one all-reduce
+before Adam, so every parameter, buffer, Adam slot and schedule stays
+equal on all ranks (not ``DistributedDataParallel``, which would
+broadcast rank 0's buffers over the statistics and SN vectors). Each rank
+draws its noise, labels, flips and picks from its own generator, derived
+from the replicated ``state.generator`` and its rank
+(``mesh.rank_generator``), as the reference folds the replica index into
+the step's key; injected ``noise`` overrides them, rank by rank.
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ import numpy as np
 import torch
 
 from wcgan_tpu_torch.ops import losses as loss_ops
+from wcgan_tpu_torch.parallel import mesh
 from wcgan_tpu_torch.train.state import GANTrainState
 
 GAN_TYPES = ("gan", "projection", "acgan")
@@ -118,8 +132,28 @@ def _apply(params, grads, opt, sched) -> None:
   opt.zero_grad(set_to_none=True)
 
 
-def make_outer_step(cfg: GANConfig) -> Callable[..., Dict[str, torch.Tensor]]:
-  """The outer-step function for ``cfg``.
+def _draw_generator(state: GANTrainState, group: mesh.Group
+                    ) -> torch.Generator:
+  """The generator of this rank's draws: the state's own on one process,
+  else one derived from it and the rank."""
+  if group is None:
+    return state.generator
+  return mesh.rank_generator(state.generator, mesh.rank(group))
+
+
+def _check_divisible(batch_size: int, group: mesh.Group) -> int:
+  """The rows of each rank of a global batch of ``batch_size``."""
+  n = mesh.world_size(group)
+  if batch_size % n:
+    raise ValueError(f"batch_size {batch_size} must be divisible by the "
+                     f"mesh size {n}")
+  return batch_size // n
+
+
+def make_outer_step(cfg: GANConfig, group: mesh.Group = None
+                    ) -> Callable[..., Dict[str, torch.Tensor]]:
+  """The outer-step function for ``cfg``, on this rank's rows when
+  ``group`` is given (G and D must reduce over the same group).
 
   ``outer_step(state, real_u8, labels, noise=None)`` takes ``real_u8``
   (K, B, H, W, C) uint8 (numpy or tensor) with K = ``training_ratio``, and
@@ -128,18 +162,19 @@ def make_outer_step(cfg: GANConfig) -> Callable[..., Dict[str, torch.Tensor]]:
   random draw: ``{"z_d": (K, B, z), "z_g": (gB, z), "flip": (K, B) bool,
   "y_d": (K, B), "y_g": (gB,), "gp_eps": (K, B)}`` (the labels when
   conditional, the interpolation weights under WGAN-GP); without it all
-  are drawn from ``state.generator``, the unconditional draws first in the
-  order above. Updates ``state`` in place and returns the metrics d_loss
-  and d_grad_norm (means over the K D updates), g_loss and g_grad_norm as
-  0-d tensors on the state's device, without synchronising."""
+  are drawn from ``state.generator`` (a rank's generator derived from it
+  under a group), the unconditional draws first in the order above.
+  Updates ``state`` in place and returns the metrics d_loss and
+  d_grad_norm (means over the K D updates), g_loss and g_grad_norm as 0-d
+  tensors on the state's device, without synchronising; under a group
+  the losses and gradients are the means over the ranks."""
   d_loss_fn, g_loss_fn = loss_ops.get_losses(cfg.loss)
   ratio = cfg.training_ratio
   gp_weight = cfg.gradient_penalty_weight
   acgan = cfg.gan_type == "acgan"
   d_fake_train = cfg.d_fake_stats == "batch"
 
-  def draw_noise(state: GANTrainState, b: int, device) -> Dict:
-    gen = state.generator
+  def draw_noise(gen: torch.Generator, b: int, device) -> Dict:
     g_batch = b * cfg.generator_batch_multiple
     noise = {
         "z_d": torch.randn((ratio, b, cfg.z_dim), generator=gen,
@@ -158,6 +193,14 @@ def make_outer_step(cfg: GANConfig) -> Callable[..., Dict[str, torch.Tensor]]:
     if gp_weight > 0.0:
       noise["gp_eps"] = torch.rand((ratio, b), generator=gen, device=device)
     return noise
+
+  def reduced(loss, grads):
+    """(loss, grads) averaged over the ranks, in one all-reduce."""
+    loss = loss.detach()
+    if group is None:
+      return loss, grads
+    loss, *grads = mesh.pmean_many([loss, *grads], group)
+    return loss, grads
 
   def fakes(state: GANTrainState, z, zy):
     """D-phase fakes of a frozen G: its statistics do not advance."""
@@ -189,10 +232,10 @@ def make_outer_step(cfg: GANConfig) -> Callable[..., Dict[str, torch.Tensor]]:
     if acgan and rl is not None:
       loss = loss + loss_ops.ac_gan_aux_loss(rl, y)
     params = list(d.parameters())
-    grads = torch.autograd.grad(loss, params)
+    loss, grads = reduced(loss, torch.autograd.grad(loss, params))
     gnorm = _global_norm(grads)
     _apply(params, grads, state.d_opt, state.d_sched)
-    return loss.detach(), gnorm
+    return loss, gnorm
 
   def g_update(state: GANTrainState, z, zy, d_takes_labels: bool):
     fake = state.g(z, zy, train=True, update_stats=True)
@@ -203,7 +246,7 @@ def make_outer_step(cfg: GANConfig) -> Callable[..., Dict[str, torch.Tensor]]:
     if acgan and fl is not None:
       loss = loss + loss_ops.ac_gan_aux_loss(fl, zy)
     params = list(state.g.parameters())
-    grads = torch.autograd.grad(loss, params)
+    loss, grads = reduced(loss, torch.autograd.grad(loss, params))
     gnorm = _global_norm(grads)
     _apply(params, grads, state.g_opt, state.g_sched)
     if cfg.g_ema_decay > 0.0 and state.g_ema:
@@ -214,7 +257,7 @@ def make_outer_step(cfg: GANConfig) -> Callable[..., Dict[str, torch.Tensor]]:
         torch._foreach_mul_(ema, cfg.g_ema_decay)
         torch._foreach_add_(ema, params, alpha=1.0 - cfg.g_ema_decay)
     state.g_version += 1
-    return loss.detach(), gnorm
+    return loss, gnorm
 
   def outer_step(state: GANTrainState, real_u8, labels,
                  noise: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
@@ -229,7 +272,7 @@ def make_outer_step(cfg: GANConfig) -> Callable[..., Dict[str, torch.Tensor]]:
     d_takes_labels = cfg.conditional and (
         d_cfg.projection or d_cfg.ac_gan or d_cfg.num_classes > 0)
     if noise is None:
-      noise = draw_noise(state, b, device)
+      noise = draw_noise(_draw_generator(state, group), b, device)
     noise = {k: as_tensor(v, device) for k, v in noise.items()}
     real = prepare_real(real, noise.get("flip") if cfg.random_flip else None)
     y_real = y_d = y_g = None
@@ -262,7 +305,28 @@ def make_outer_step(cfg: GANConfig) -> Callable[..., Dict[str, torch.Tensor]]:
   return outer_step
 
 
-def make_dataset_step(cfg: GANConfig, batch_size: int
+def make_sharded_step(cfg: GANConfig, group: mesh.Group
+                      ) -> Callable[..., Dict[str, torch.Tensor]]:
+  """The data-parallel outer step on host-fed batches, the reference's
+  ``make_sharded_step``: ``step(state, real_u8, labels, noise=None)``
+  takes the global batch (K, B, H, W, C) on every rank and runs this
+  rank's contiguous block of B / world_size rows (``noise`` is this
+  rank's own). B must divide by the world size."""
+  inner = make_outer_step(cfg, group)
+  n, r = mesh.world_size(group), mesh.rank(group)
+
+  def step(state: GANTrainState, real_u8, labels,
+           noise: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+    _check_divisible(real_u8.shape[1], group)
+    lo, hi = mesh.shard_block(real_u8.shape[1], r, n)
+    return inner(state, real_u8[:, lo:hi],
+                 None if labels is None else labels[:, lo:hi], noise=noise)
+
+  return step
+
+
+def make_dataset_step(cfg: GANConfig, batch_size: int,
+                      group: mesh.Group = None
                       ) -> Callable[..., Dict[str, torch.Tensor]]:
   """The outer step over a dataset that lives on the state's device.
 
@@ -272,17 +336,24 @@ def make_dataset_step(cfg: GANConfig, batch_size: int
   the outer step on the gathered batches: i.i.d. picks in place of
   shuffled epochs, as the reference's ``make_dataset_step``. The picks
   cannot equal the reference's threefry draws; they share its
-  distribution."""
-  inner = make_outer_step(cfg)
+  distribution.
+
+  With a ``group`` it is the reference's ``make_sharded_dataset_step``:
+  ``data_x``/``data_y`` are this rank's shard of the dataset, and each
+  rank draws B / world_size rows of the global batch ``batch_size`` from
+  its shard with its own generator. B must divide by the world size."""
+  local = _check_divisible(batch_size, group)
+  inner = make_outer_step(cfg, group)
   ratio = cfg.training_ratio
 
   def step(state: GANTrainState, data_x: torch.Tensor, data_y: torch.Tensor,
            noise: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
-    idx = torch.randint(0, data_x.shape[0], (ratio * batch_size,),
-                        generator=state.generator, device=data_x.device)
+    idx = torch.randint(0, data_x.shape[0], (ratio * local,),
+                        generator=_draw_generator(state, group),
+                        device=data_x.device)
     real = data_x.index_select(0, idx).view(
-        (ratio, batch_size) + tuple(data_x.shape[1:]))
-    labels = data_y.index_select(0, idx).view(ratio, batch_size)
+        (ratio, local) + tuple(data_x.shape[1:]))
+    labels = data_y.index_select(0, idx).view(ratio, local)
     return inner(state, real, labels, noise=noise)
 
   return step

@@ -37,7 +37,21 @@ and file names are the reference's):
   ``torch.autograd`` anomaly detection, the reference's
   ``jax_debug_nans``).
 
-The scorer (``score_every``) and data parallelism are not ported yet.
+Data parallelism (the reference's ``mesh=``): with a process ``group``
+the state must have been built with it (``create_state(group=...)``) and
+each rank runs this loop on its own process. The device data is rounded
+down to a multiple of the ranks (windows too), and rank r stages its
+contiguous block of the rows, as ``NamedSharding(P('data'))`` lays them
+out; the step functions are the data-parallel ones. Rank 0 alone writes
+(``log.txt``, ``metrics.jsonl``, grids, checkpoints, traces); every rank
+computes ``diagnostics()`` from the replicated statistics, so the guard
+acts alike on all. EMA sampling with standing statistics re-estimates
+them with train-mode forwards, which would reduce over the ranks from
+rank 0 alone: the reference fails there too (its standing pass applies
+G, whose layers name the mesh axis, outside ``shard_map``), so the
+combination is refused.
+
+The scorer (``score_every``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -57,6 +71,8 @@ from wcgan_tpu_torch.models import layers as L
 from wcgan_tpu_torch.utils.images import make_grid, save_png
 from wcgan_tpu_torch.utils.logging import MetricsLogger
 from wcgan_tpu_torch import weights
+from wcgan_tpu_torch.parallel import mesh
+from wcgan_tpu_torch.train import state as state_lib
 from wcgan_tpu_torch.train import step as step_lib
 from wcgan_tpu_torch.train.state import GANTrainState
 
@@ -101,16 +117,48 @@ class TrainerConfig:
                                   # non-finite metric
 
 
+class _Silent:
+  """The logger of a rank other than 0: it writes nothing."""
+
+  def line(self, text: str) -> None:
+    del text
+
+  def epoch_line(self, epoch, metrics, extra=None) -> None:
+    del epoch, metrics, extra
+
+  def jsonl(self, record) -> None:
+    del record
+
+
+def check_ema_under_mesh(data_parallel: bool, g_ema_decay: float,
+                         ema_standing_batches: int) -> None:
+  """Raise for EMA sampling with standing statistics under data
+  parallelism (see the module's docstring)."""
+  if data_parallel and g_ema_decay > 0.0 and ema_standing_batches > 0:
+    raise ValueError(
+        "--mesh with --generator_ema and --ema_standing_stats > 0 is not "
+        "supported: the standing statistics are train-mode G forwards, "
+        "which reduce over the ranks while rank 0 alone samples (the JAX "
+        "package fails the same way, NameError 'unbound axis name'); use "
+        "--ema_standing_stats 0 or no --mesh")
+
+
 class Trainer:
-  """Drives training of one GAN experiment on ``state``'s device."""
+  """Drives training of one GAN experiment on ``state``'s device, as one
+  rank of ``group`` when one is given."""
 
   def __init__(self, dataset: ArrayDataset, state: GANTrainState,
-               gan_cfg: step_lib.GANConfig, cfg: TrainerConfig):
+               gan_cfg: step_lib.GANConfig, cfg: TrainerConfig,
+               group: mesh.Group = None):
+    check_ema_under_mesh(group is not None, gan_cfg.g_ema_decay,
+                         cfg.ema_standing_batches)
     self.ds = dataset
     self.state = state
     self.gan_cfg = gan_cfg
     self.cfg = cfg
-    self.logger = MetricsLogger(cfg.output_dir)
+    self.group = group
+    self.is_main = mesh.rank(group) == 0
+    self.logger = MetricsLogger(cfg.output_dir) if self.is_main else _Silent()
     self._outer_steps_done = 0      # monotone; probe bookkeeping
     self._fallback_cooldown_until = -1
     self._ns_escalated = False      # the ns_iters rung fires once
@@ -136,10 +184,14 @@ class Trainer:
         self._window_elems = min(max(
             (cfg.device_data_limit // 2) // bytes_per, dataset.batch_size),
             n_total)
+      # Each rank holds an equal block of the rows.
+      world = mesh.world_size(group)
+      n = (self._window_elems or n_total) // world * world
       if self._window_elems:
+        self._window_elems = n
         self._window_next = self._make_window()
       else:
-        self._device_data = self._take(self._stage(np.arange(n_total)))
+        self._device_data = self._take(self._stage(np.arange(n)))
     self.step_fn = self._make_step_fn()
 
   def _make_step_fn(self):
@@ -149,8 +201,11 @@ class Trainer:
     ``gan_cfg``."""
     if self.cfg.device_data:
       return step_lib._multi(
-          step_lib.make_dataset_step(self.gan_cfg, self.ds.batch_size),
+          step_lib.make_dataset_step(self.gan_cfg, self.ds.batch_size,
+                                     self.group),
           self._steps_per_call)
+    if self.group is not None:
+      return step_lib.make_sharded_step(self.gan_cfg, self.group)
     return step_lib.make_outer_step(self.gan_cfg)
 
   @property
@@ -180,16 +235,14 @@ class Trainer:
     statistics and SN vectors, both Adams and LR schedules, the EMA
     shadow, the noise generator, the outer-step counts. The tensors are
     the live ones, not copies."""
-    st = self.state
-    return {"g": st.g.state_dict(), "d": st.d.state_dict(),
-            "g_opt": st.g_opt.state_dict(), "d_opt": st.d_opt.state_dict(),
-            "g_sched": st.g_sched.state_dict(),
-            "d_sched": st.d_sched.state_dict(),
-            "g_ema": st.g_ema, "generator": st.generator.get_state(),
-            "step": st.step, "outer_steps_done": self._outer_steps_done}
+    return {**state_lib.full_state(self.state),
+            "outer_steps_done": self._outer_steps_done}
 
   def save_checkpoint(self, epoch: int) -> None:
-    """The full state to ``epoch_{epoch}/``, then the weights-only npz."""
+    """The full state to ``epoch_{epoch}/``, then the weights-only npz
+    (rank 0 only: the state is replicated)."""
+    if not self.is_main:
+      return
     path = self.checkpoint_path(epoch)
     os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, CKPT_FILE + ".tmp")
@@ -253,9 +306,13 @@ class Trainer:
   # -- data staging -----------------------------------------------------------
 
   def _stage(self, idx: np.ndarray) -> Staged:
-    """Images ``idx`` and their labels on the device. On CUDA the copy
-    runs from pinned memory on a side stream, so the next window's copy
-    overlaps training; ``_take`` makes the training stream wait for it."""
+    """Images ``idx`` (this rank's block of them under a group) and their
+    labels on the device. On CUDA the copy runs from pinned memory on a
+    side stream, so the next window's copy overlaps training; ``_take``
+    makes the training stream wait for it."""
+    lo, hi = mesh.shard_block(len(idx), mesh.rank(self.group),
+                              mesh.world_size(self.group))
+    idx = idx[lo:hi]
     imgs = torch.from_numpy(self.ds.images[idx])
     labels = torch.from_numpy(
         self.ds.labels[idx] if self.ds.labels is not None
@@ -622,7 +679,8 @@ class Trainer:
     calls after the first (which warms up) run under ``torch.profiler``;
     with ``debug_nans`` the call's metrics are checked at once."""
     cfg = self.cfg
-    if cfg.profile_dir and self._step_calls == 1 and self._profiler is None:
+    if (cfg.profile_dir and self.is_main and self._step_calls == 1
+        and self._profiler is None):
       from torch.profiler import ProfilerActivity, profile
       activities = [ProfilerActivity.CPU]
       if self.device.type == "cuda":
@@ -709,7 +767,8 @@ class Trainer:
         self.logger.line(f"Epoch {epoch}: NON-FINITE metrics {means}; "
                          "checkpointed and aborting")
         raise FloatingPointError(f"non-finite training metrics: {means}")
-      if cfg.display_ratio and (epoch + 1) % cfg.display_ratio == 0:
+      if (cfg.display_ratio and (epoch + 1) % cfg.display_ratio == 0
+          and self.is_main):
         self.save_sample_grid(epoch)
       if cfg.checkpoint_ratio and (epoch + 1) % cfg.checkpoint_ratio == 0:
         self.save_checkpoint(epoch)
