@@ -94,7 +94,21 @@ on the global batch (the G forward within 2e-5, one outer step within
 STEP_RTOL, K1 route and plain route, each or twice the process's own
 spread on a reordered batch); ``dryrun_multichip`` on the two ranks; and
 ``--mesh 1 --device cuda`` through the CLI, a one-rank NCCL group, with a
-checkpoint and ``--resume auto``.
+checkpoint and ``--resume auto``; and the CLI's scorer under ``--mesh 2``
+(2,048 IS / 1,024 FID samples) on the two ranks against one process.
+
+Before it, slice 9, evaluation (``eval``), at the reference's scorer
+defaults (50,000 IS / 10,000 FID samples, batch 100) with random
+InceptionV3 weights (the repository has none): the network and
+``preprocess`` on the card against the CPU (float32, TF32 off); IS against
+numpy float64 on the same probabilities; FID (``eigh``) of 10,000 x 2,048
+pool moments against ``scipy.linalg.sqrtm`` in float64, ``ns`` against
+``eigh``; one ``make_scorer`` call on the headline G (256x3, bf16, EMA
+0.999, ``kernel_eval=True``) from a cold standing cache: one ``generate``,
+K1 112, K2 1,372 (196 forwards), finite ``unverified_*`` scores, its wall
+clocks, and the same scorer on the split path within a stated tolerance;
+then the CLI with ``--score_every 1`` for 2 epochs and ``--phase test``
+with scoring.
 
 Every phase that fails stops the script with a non-zero exit. The last line is
 {"ok": true, "device": {...}}; the line before it lists each kernel with
@@ -107,6 +121,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import copy
 import dataclasses
 import glob
 import json
@@ -124,6 +139,8 @@ from wcgan_tpu_torch.cli import run as cli_run
 from wcgan_tpu_torch.cli.presets import PRESETS
 from wcgan_tpu_torch.data import get_dataset
 from wcgan_tpu_torch.device import place
+from wcgan_tpu_torch.evaluation import inception_v3, metrics
+from wcgan_tpu_torch.evaluation import scorer as scorer_lib
 from wcgan_tpu_torch.models.discriminator import (Discriminator,
                                                   DiscriminatorConfig)
 from wcgan_tpu_torch.models import layers as L
@@ -827,6 +844,17 @@ def _run_cli(args, out_dir: str, base=RES_CLI):
   with open(os.path.join(out_dir, "smoke", "log.txt")) as f:
     lines = [l.strip() for l in f]
   return cmd, time.perf_counter() - t0, lines
+
+
+def _main_cli(args, out_dir: str, base=RES_CLI):
+  """``_run_cli`` in this process, through ``cli_run.main``."""
+  argv = ["--device", "cuda", *base, "--output_dir", out_dir, "--name",
+          "smoke", *args]
+  t0 = time.perf_counter()
+  check(cli_run.main(argv) == 0, argv)
+  with open(os.path.join(out_dir, "smoke", "log.txt")) as f:
+    lines = [l.strip() for l in f]
+  return argv, time.perf_counter() - t0, lines
 
 
 def phase_cli(npz: str) -> None:
@@ -1893,6 +1921,325 @@ def phase_presets(dev: torch.device):
   return launches
 
 
+# The eval phase: the reference's scorer defaults (make_scorer,
+# wcgan_tpu/cli/run.py:215-223) on the headline G at full width (256x3,
+# bf16) with EMA 0.999 and kernel_eval=True, random Inception weights.
+EVAL_IS, EVAL_FID, EVAL_BATCH = 50000, 10000, 100
+EVAL_FORWARDS = -(-EVAL_IS // 256)          # generate()'s batch-256 forwards
+EVAL_NET_RTOL = 1e-4    # Inception on the card against the CPU, float32
+EVAL_PRE_ATOL = 1e-5    # preprocess on the card against the CPU
+EVAL_IS_RTOL = 1e-5     # IS against numpy float64 on the same probabilities
+EVAL_FID_RTOL = 1e-3    # eigh FID against scipy float64 (the reference's)
+EVAL_NS_RTOL = 1e-2     # ns FID against float64 on the reference's own
+                        # validation case (tests/test_evaluation.py:77-90)
+# Scores from K2's images against the split path's: the images differ by
+# under 1 uint8 level on average (SAMPLE_MEAN_TOL), ~0.4 % of the range;
+# FID moves by about twice the relative change of the features' offset.
+EVAL_K2_IS_RTOL = 1e-3
+EVAL_K2_FID_RTOL = 5e-2
+EVAL_CLI_IS, EVAL_CLI_FID = 1000, 500   # the CLI's scoring, 2 epochs
+EVAL_ARGV = ["--device", "cuda", "--dataset", "synthetic", "--arch", "res",
+             "--bf16", "--synthetic_size", str(EVAL_FID), "--generator_ema",
+             "0.999", "--name", "smoke"]
+
+
+def _rel_err(a, b) -> float:
+  return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _is64(probs: np.ndarray, splits: int = 10):
+  """(mean, std) of the Inception Score in numpy float64."""
+  p = probs.astype(np.float64)
+  per = p.shape[0] // splits
+  p = p[:per * splits].reshape(splits, per, -1)
+  marg = p.mean(1, keepdims=True)
+  kl = (p * (np.log(p + 1e-16) - np.log(marg + 1e-16))).sum(-1)
+  scores = np.exp(kl.mean(1))
+  return float(scores.mean()), float(scores.std())
+
+
+def _fid_scipy(mu1, s1, mu2, s2, offset: float = 0.0) -> float:
+  """FID of float32 moments in float64, ``scipy.linalg.sqrtm`` (of the
+  covariances plus ``offset`` I, as the reference's test takes it)."""
+  import scipy.linalg
+  mu1, s1, mu2, s2 = (np.asarray(x.cpu(), np.float64)
+                      for x in (mu1, s1, mu2, s2))
+  eye = offset * np.eye(s1.shape[0])
+  covmean = scipy.linalg.sqrtm((s1 + eye) @ (s2 + eye))
+  check(np.all(np.isfinite(covmean)), "scipy sqrtm not finite")
+  return float(np.sum((mu1 - mu2) ** 2) + np.trace(s1) + np.trace(s2)
+               - 2 * np.trace(covmean.real))
+
+
+def _fid_inner_eigvals(mu1, s1, mu2, s2) -> float:
+  """FID by the reference's route for the trace: the eigenvalues of
+  S1^1/2 S2 S1^1/2 (``wcgan_tpu/evaluation/metrics.py:84-94``), float32 on
+  the card, at unit scale (unscaled, float32 ``eigvalsh`` does not converge
+  on a random network's covariances). For comparison, not gated: the port
+  sums the singular values of S2^1/2 S1^1/2."""
+  with metrics.true_float32():
+    half = metrics._sqrtm_eigh(s1)
+    inner = half @ s2 @ half
+    inner = 0.5 * (inner + inner.T)
+    scale = metrics._pow2_scale(inner)
+    w = torch.linalg.eigvalsh(inner / scale) * scale
+    d = mu1 - mu2
+    return float(d @ d + torch.trace(s1) + torch.trace(s2)
+                 - 2.0 * torch.sqrt(torch.clamp(w, min=0.0)).sum())
+
+
+def _eval_net_check(dev: torch.device):
+  """InceptionV3 and preprocess on the card against the same module and
+  weights on the CPU, float32, batch 8. Returns the card's network and its
+  operations an image (2 x the multiply-adds of its convs and dense
+  layer)."""
+  net = inception_v3.init_params(0)
+  net_dev = copy.deepcopy(net).to(dev)
+  imgs = torch.from_numpy(np.random.default_rng(3).integers(
+      0, 256, (8, 32, 32, 3), dtype=np.uint8))
+  flops = []
+
+  def count(m, _, out):
+    """Multiply-adds x 2 of each conv and dense layer."""
+    k = m.weight[0].numel()
+    flops.append(2 * out.numel() * k)
+  hooks = [m.register_forward_hook(count) for m in net.modules()
+           if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+  with torch.no_grad(), metrics.true_float32():
+    x_cpu = inception_v3.preprocess(imgs)
+    x_dev = inception_v3.preprocess(imgs.to(dev))
+    want = net(x_cpu)
+    got = net_dev(x_dev)
+  for h in hooks:
+    h.remove()
+  per_image = sum(flops) / imgs.shape[0]
+  pre_err = float((x_dev.cpu() - x_cpu).abs().max())
+  errs = [float((g.cpu() - w).abs().max() / w.abs().max())
+          for g, w in zip(got, want)]
+  check(pre_err <= EVAL_PRE_ATOL, ("preprocess", pre_err))
+  check(max(errs) <= EVAL_NET_RTOL, ("Inception card vs CPU", errs))
+  log("eval", f"InceptionV3 (random weights, seed 0) on {nvidia_smi()} "
+      f"against the CPU, float32, TF32 off, batch 8 of 32x32 -> 299x299: "
+      f"max rel err pool {errs[0]:.3e}, logits {errs[1]:.3e} (gate "
+      f"{EVAL_NET_RTOL:g}); preprocess max|d| {pre_err:.3e} (gate "
+      f"{EVAL_PRE_ATOL:g}); {per_image / 1e9:.4f} GFLOP an image, so at most "
+      f"{FFMA_FLOPS / per_image:.1f} imgs/s in float32 (FFMA peak)")
+  return net_dev, per_image
+
+
+def phase_eval(dev: torch.device):
+  """Scoring (slice 9) at the reference's defaults: 50,000 IS samples,
+  10,000 FID samples, Inception batch 100.
+
+  1. InceptionV3 and preprocess on the card against the CPU.
+  2. IS and FID math on the card: the pool and probabilities of the first
+     10,000 generated images and of 10,000 real ones; IS against numpy
+     float64 (as is, and on the logits brought to a spread of 3), eigh
+     FID against scipy's sqrtm in float64; on the reference's validation
+     case both methods against scipy.
+     The headline G (256x3, bf16, EMA 0.999) with ``kernel_eval=True``
+     makes the images; the split path's images of the same z score
+     within EVAL_K2_*_RTOL of K2's.
+  3. One scorer call (``make_scorer``) on that trainer from a cold
+     standing cache: one generate, K1 112 (the standing recompute), K2 7
+     a forward (196 forwards), finite ``unverified_*`` scores, its FID
+     part 2's, the log's wall clocks.
+  4. The CLI: ``--score_every 1`` for 2 epochs (1,000 / 500 samples),
+     then ``--phase test`` on the exported npz with scoring.
+  Returns the K1 and K2 launches of the scorer call."""
+  t_phase = time.perf_counter()
+  net, per_image = _eval_net_check(dev)
+  out_dir = os.path.join("build", "chip_smoke_eval")
+  shutil.rmtree(out_dir, ignore_errors=True)
+  args = cli_run.build_parser().parse_args(
+      EVAL_ARGV + ["--output_dir", out_dir])
+  split = cli_run.build_experiment(args)
+  g_k = place(Generator(dataclasses.replace(split.state.g.cfg,
+                                            kernel_eval=True),
+                        torch.Generator().manual_seed(0)), dev)
+  g_k.load_state_dict(split.state.g.state_dict())
+  fused = Trainer(split.ds, dataclasses.replace(split.state, g=g_k),
+                  split.gan_cfg, dataclasses.replace(split.cfg,
+                                                     device_data=False))
+
+  @torch.no_grad()
+  def apply_fn(x):
+    with metrics.true_float32():
+      pool, logits = net(inception_v3.preprocess(x))
+    return pool, torch.softmax(logits, dim=-1), logits
+
+  def acts(images):
+    outs = [apply_fn(torch.from_numpy(images[i:i + EVAL_BATCH]).to(dev))
+            for i in range(0, len(images), EVAL_BATCH)]
+    return [torch.cat(o) for o in zip(*outs)]
+
+  # 2. The math on the card, on the rows the scorer's FID takes (the first
+  # EVAL_FID images of each generate call are the same), through K2 and
+  # through the split path.
+  t0 = time.perf_counter()
+  pool_f, probs, logits = acts(fused.generate(EVAL_FID))
+  pool_r, _, _ = acts(split.ds.real_sample(EVAL_FID))
+  torch.cuda.synchronize()
+  dt_acts = time.perf_counter() - t0
+  pool_s, probs_s, _ = acts(split.generate(EVAL_FID))
+  is_card = [float(v) for v in metrics.inception_score(probs)]
+  is_ref = _is64(probs.cpu().numpy())
+  # Random weights give near-uniform probabilities (IS ~1, its spread
+  # below float32's spacing at 1), so the math is held on a confident
+  # classifier too: the same logits, centred and brought to a spread of 3.
+  sharp = torch.softmax(3.0 * (logits - logits.mean(0)) / logits.std(),
+                        dim=-1)
+  is_sharp = [float(v) for v in metrics.inception_score(sharp)]
+  is_sharp_ref = _is64(sharp.cpu().numpy())
+  check(_rel_err(is_card[0], is_ref[0]) <= EVAL_IS_RTOL
+        and _rel_err(is_sharp[0], is_sharp_ref[0]) <= EVAL_IS_RTOL
+        and abs(is_sharp[1] - is_sharp_ref[1])
+        <= EVAL_IS_RTOL * is_sharp_ref[0],
+        ("IS", is_card, is_ref, is_sharp, is_sharp_ref))
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  m_r = metrics.moments_from_activations(pool_r)
+  m_f = metrics.moments_from_activations(pool_f)
+  torch.cuda.synchronize()
+  t1 = time.perf_counter()
+  fid = metrics.fid_from_moments(*m_r, *m_f)
+  t2 = time.perf_counter()
+  fid_ns = metrics.fid_from_moments(*m_r, *m_f, method="ns")
+  t3 = time.perf_counter()
+  fid_ref = _fid_scipy(*m_r, *m_f)
+  t4 = time.perf_counter()
+  check(np.isfinite(fid) and _rel_err(fid, fid_ref) <= EVAL_FID_RTOL,
+        ("FID vs scipy", fid, fid_ref))
+  fid_inner = _fid_inner_eigvals(*m_r, *m_f)
+  # ns on the reference's own validation case, on the card: rank-deficient
+  # (120 and 150 rows in 256 dimensions), scales over 1e3. On the pool
+  # moments above it is out of its envelope (reported, not gated): its
+  # jitter, eps x the mean diagonal, adds ~sqrt(eps x mean diagonal) a
+  # dimension to the square roots' traces, which outweighs the
+  # geometric-mean trace of a random network's near-zero spectrum.
+  rng = np.random.default_rng(7)
+  scales = np.logspace(-1.5, 1.5, 256)
+  a = (rng.standard_normal((120, 256)) * scales).astype(np.float32)
+  b = (rng.standard_normal((150, 256)) * scales[::-1] + 0.5).astype(
+      np.float32)
+  v1, v2 = (metrics.moments_from_activations(torch.from_numpy(x).to(dev))
+            for x in (a, b))
+  v_ref = _fid_scipy(*v1, *v2, offset=1e-10)
+  v_eigh = metrics.fid_from_moments(*v1, *v2)
+  v_ns = metrics.fid_from_moments(*v1, *v2, method="ns", num_iters=40)
+  check(_rel_err(v_eigh, v_ref) <= EVAL_FID_RTOL
+        and _rel_err(v_ns, v_ref) <= EVAL_NS_RTOL,
+        ("validation case", v_eigh, v_ns, v_ref))
+  log("eval", f"{EVAL_FID:,} generated + {EVAL_FID:,} real images through "
+      f"InceptionV3 at batch {EVAL_BATCH}: {dt_acts:.2f} s "
+      f"({2 * EVAL_FID / dt_acts:.1f} imgs/s, with generate, host clock); IS "
+      f"{is_card[0]:.9f} +- {is_card[1]:.3e} (numpy float64 "
+      f"{is_ref[0]:.9f} +- {is_ref[1]:.3e}); logits at spread 3: "
+      f"{is_sharp[0]:.6f} "
+      f"+- {is_sharp[1]:.6f} (float64 {is_sharp_ref[0]:.6f} +- "
+      f"{is_sharp_ref[1]:.6f}; gates: means rel {EVAL_IS_RTOL:g}, std "
+      f"{EVAL_IS_RTOL:g} x the mean); FID eigh {fid:.6e}, scipy float64 "
+      f"{fid_ref:.6e} (rel {_rel_err(fid, fid_ref):.2e}, gate "
+      f"{EVAL_FID_RTOL:g}; the reference's route, eigenvalues of the inner "
+      f"form, {fid_inner:.6e}, rel {_rel_err(fid_inner, fid_ref):.2e}), ns {fid_ns:.6e} (rel to eigh "
+      f"{_rel_err(fid_ns, fid):.2e}, out of its envelope, not gated); the "
+      f"reference's validation case (256-d, rank-deficient): eigh "
+      f"{v_eigh:.6f}, ns(40) {v_ns:.6f}, scipy float64 {v_ref:.6f} (rel "
+      f"{_rel_err(v_eigh, v_ref):.2e}, {_rel_err(v_ns, v_ref):.2e}; gates "
+      f"{EVAL_FID_RTOL:g}, {EVAL_NS_RTOL:g}); on the card: "
+      f"moments {1e3 * (t1 - t0):.1f} ms, eigh distance "
+      f"{1e3 * (t2 - t1):.1f} ms, ns {1e3 * (t3 - t2):.1f} ms; scipy "
+      f"{t4 - t3:.1f} s (host clock, {nvidia_smi()})")
+  is_split = float(metrics.inception_score(probs_s)[0])
+  fid_split = metrics.fid_from_moments(
+      *m_r, *metrics.moments_from_activations(pool_s))
+  check(_rel_err(is_split, is_card[0]) <= EVAL_K2_IS_RTOL
+        and _rel_err(fid_split, fid) <= EVAL_K2_FID_RTOL,
+        ("K2 vs split scores", is_card[0], is_split, fid, fid_split))
+  log("eval", f"the split path's images ({EVAL_FID:,}, the same z): IS "
+      f"{is_split:.9f}, FID {fid_split:.6e}; relative to K2's "
+      f"{_rel_err(is_split, is_card[0]):.2e} and {_rel_err(fid_split, fid):.2e} "
+      f"(gates {EVAL_K2_IS_RTOL:g}, {EVAL_K2_FID_RTOL:g})")
+  del pool_f, probs, logits, pool_r, sharp, pool_s, probs_s
+
+  # 3. One scorer call, counted, from a cold standing cache.
+  scorer = scorer_lib.make_scorer(split.ds, samples_inception=EVAL_IS,
+                                  samples_fid=EVAL_FID, batch=EVAL_BATCH)
+  calls, lines = [], []
+  fused.logger.line = lines.append
+  gen = fused.generate
+
+  def counted(n, *a, **kw):
+    calls.append(n)
+    return gen(n, *a, **kw)
+  fused.generate = counted
+  fused._standing_cache = None
+  torch.cuda.synchronize()
+  cuda_wc.MOMENTS_LAUNCHES = 0
+  cuda_wc.WC_APPLY_LAUNCHES = 0
+  t0 = time.perf_counter()
+  scores = scorer(fused)
+  dt_k2 = time.perf_counter() - t0
+  k1, k2 = cuda_wc.MOMENTS_LAUNCHES, cuda_wc.WC_APPLY_LAUNCHES
+  log_k2 = list(lines)
+  check(calls == [EVAL_IS], ("generate calls", calls))
+  check(k1 == 7 * 16 and k2 == 7 * EVAL_FORWARDS, ("K1, K2", k1, k2))
+  keys = ("unverified_inception_score", "unverified_is_std",
+          "unverified_fid")
+  # Its FID is part 2's on the same rows (the pool piggybacked on IS).
+  check(sorted(scores) == sorted(keys)
+        and all(np.isfinite(v) for v in scores.values())
+        and _rel_err(scores[keys[2]], fid) <= 1e-4, (scores, fid))
+  times = [float(v) for v in re.findall(r"([\d.]+)s", " ".join(log_k2))]
+  log("eval", f"scorer({EVAL_IS:,} IS / {EVAL_FID:,} FID samples, batch "
+      f"{EVAL_BATCH}) on the headline G 256x3 bf16, EMA 0.999, kernel_eval="
+      f"True, on {nvidia_smi()}: {dt_k2:.2f} s, one generate call, K1 {k1} "
+      f"(one cold standing recompute), K2 {k2} ({EVAL_FORWARDS} forwards x "
+      f"7); {scores}; the log: " + " | ".join(log_k2))
+  if len(times) == 4:
+    gen_s, inc_s, real_s, dist_s = times
+    log("eval", f"wall time split: generate {gen_s:.3f} s, Inception + IS "
+        f"{inc_s:.3f} s ({EVAL_IS / inc_s:.1f} imgs/s at batch "
+        f"{EVAL_BATCH}, {EVAL_IS * per_image / FFMA_FLOPS / inc_s:.1%} of "
+        f"the float32 bound), real moments {real_s:.3f} s ({EVAL_FID / real_s:.1f} "
+        f"imgs/s), fake moments + eigh distance {dist_s:.3f} s")
+
+  # 4. The CLI, in this process (cli_run.main, as the presets phase runs
+  # it): a new interpreter would cost ~20 s each, the training CLI runs
+  # above already start ones.
+  cli_dir = os.path.join("build", "chip_smoke_eval_cli")
+  shutil.rmtree(cli_dir, ignore_errors=True)
+  scoring = ["--compute_inception_score", "1", "--compute_fid", "1",
+             "--samples_inception", str(EVAL_CLI_IS), "--samples_fid",
+             str(EVAL_CLI_FID)]
+  ckpt = os.path.join(cli_dir, "ckpt")
+  cmd, dt_cli, lines = _main_cli(
+      scoring + ["--score_every", "1", "--number_of_epochs", "2",
+                 "--batches_per_epoch", "2", "--steps_per_call", "2",
+                 "--checkpoint_ratio", "2", "--checkpoints_dir", ckpt],
+      cli_dir)
+  scored = [l for l in lines if l.startswith("Epoch ") and keys[2] in l]
+  with open(os.path.join(cli_dir, "smoke", "metrics.jsonl")) as f:
+    records = [r for r in map(json.loads, f) if keys[0] in r]
+  check([l.split(":")[0] for l in scored] == ["Epoch 0", "Epoch 1"]
+        and [r["epoch"] for r in records] == [0, 1]
+        and all(np.isfinite(r[k]) for r in records for k in keys),
+        (scored, records))
+  log("eval-cli", f"{' '.join(cmd)}: rc 0 in {dt_cli:.1f} s; "
+      + " | ".join(scored))
+  npz = os.path.join(ckpt, "smoke", "epoch_1_generator.npz")
+  test_dir = os.path.join("build", "chip_smoke_eval_test")
+  shutil.rmtree(test_dir, ignore_errors=True)
+  cmd, dt_test, lines = _main_cli(
+      scoring + ["--phase", "test", "--generator_checkpoint", npz], test_dir)
+  check(any("wrote sample grid" in l for l in lines)
+        and all(k + " = " in lines[-1] for k in keys), lines[-3:])
+  log("eval-cli", f"{' '.join(cmd)}: rc 0 in {dt_test:.1f} s; "
+      f"{lines[-1]}")
+  log("eval", f"phase {time.perf_counter() - t_phase:.1f} s")
+  return k1, k2
+
+
 # BASELINE config 5 (preset imagenet64_cwc_dp) on one card: 2 ranks over
 # gloo, 64 images a rank (a global batch of 128 in place of 512), synthetic
 # data of imagenet64's shape and 1,000 classes.
@@ -2066,7 +2413,84 @@ def phase_dp(dev: torch.device):
   log("dp-mesh1", f"{' '.join(cmd[1:])}: a one-rank NCCL group, rc 0 in "
       f"{dt1:.1f} s, then --resume auto in {dt2:.1f} s; "
       + "; ".join(l for l in lines if l.startswith(("resumed", "Epoch 1"))))
+  _dp_eval(dev)
   return sum(r["k1"] for r in ranks)
+
+
+# The sharded scorer: the headline G (bf16, no EMA: --mesh refuses EMA
+# standing statistics) under --mesh 2 with 2,048 IS / 1,024 FID samples.
+DP_EVAL_ARGV = ["--device", "cuda", "--dataset", "synthetic", "--arch", "res",
+                "--bf16", "--mesh", str(DP_RANKS), "--compute_inception_score",
+                "1", "--compute_fid", "1", "--samples_inception", "2048",
+                "--samples_fid", "1024", "--output_dir",
+                os.path.join("build", "chip_smoke_dp_eval"), "--name", "dp"]
+DP_EVAL_SYNTHETIC = {"resolution": 32, "classes": 10, "n": 2048, "seed": 0}
+DP_EVAL_RTOL = 1e-4
+
+
+def _fid64_rows(real: torch.Tensor, fake: torch.Tensor) -> float:
+  """The eigh FID of two sets of pool rows in float64 (numpy)."""
+  x, y = (a.double().cpu().numpy() for a in (real, fake))
+  s1, s2 = np.cov(x, rowvar=False), np.cov(y, rowvar=False)
+  w, v = np.linalg.eigh(s1)
+  half = (v * np.sqrt(np.clip(w, 0, None))) @ v.T
+  w = np.linalg.eigvalsh(half @ s2 @ half)
+  return float(np.sum((x.mean(0) - y.mean(0)) ** 2) + np.trace(s1)
+               + np.trace(s2) - 2 * np.sum(np.sqrt(np.clip(w, 0, None))))
+
+
+def _dp_eval(dev: torch.device) -> None:
+  """The CLI's scorer on 2 ranks sharing the card over gloo (each runs
+  InceptionV3 on its 1,024 of the 2,048 images; the rows are gathered)
+  against one process: IS within DP_EVAL_RTOL; FID within DP_EVAL_RTOL or,
+  where float32 loses more (1,024 rows in 2,048 dimensions are
+  rank-deficient), within one process's own distance from the float64 FID
+  of its rows."""
+  torch.cuda.empty_cache()
+  n_is, n_fid = (int(DP_EVAL_ARGV[DP_EVAL_ARGV.index(f) + 1])
+                 for f in ("--samples_inception", "--samples_fid"))
+  t0 = time.perf_counter()
+  ranks = launch.launch("wcgan_tpu_torch.parallel.dryrun:scorer_rank",
+                        DP_DEVICES, (DP_EVAL_ARGV, DP_EVAL_SYNTHETIC),
+                        timeout=600)
+  dt_job = time.perf_counter() - t0
+  ctx = launch.RankContext(None, 0, 1, dev)
+  one = dryrun.scorer_rank(ctx, DP_EVAL_ARGV, DP_EVAL_SYNTHETIC)
+  trainer = dryrun._experiment(ctx, DP_EVAL_ARGV, DP_EVAL_SYNTHETIC)
+  net = inception_v3.init_params().to(dev)
+
+  @torch.no_grad()
+  def apply_fn(x):
+    with metrics.true_float32():
+      return net(inception_v3.preprocess(x))
+
+  cut = dict(batch=EVAL_BATCH, device=dev, want_probs=False)
+  fake, _ = scorer_lib._activations(apply_fn, trainer.generate(n_fid),
+                                    **cut)
+  real, _ = scorer_lib._activations(apply_fn,
+                                    trainer.ds.real_sample(n_fid), **cut)
+  fid64 = _fid64_rows(real, fake)
+  want = one["scores"]
+  gate = max(DP_EVAL_RTOL * want["unverified_fid"],
+             abs(want["unverified_fid"] - fid64))
+  for r in ranks:
+    got = r["scores"]
+    check(sorted(got) == sorted(want)
+          and _rel_err(got["unverified_inception_score"],
+                   want["unverified_inception_score"]) <= DP_EVAL_RTOL
+          and abs(got["unverified_fid"] - want["unverified_fid"]) <= gate
+          and r["calls"] == {"rows": 3}, ("dp scorer", got, want, gate,
+                                         r["calls"]))
+  rel = {k: _rel_err(ranks[0]["scores"][k], v) for k, v in want.items()}
+  log("dp-eval", f"the CLI's scorer ({n_is:,} IS / {n_fid:,} FID samples) "
+      f"on {DP_RANKS} ranks sharing the card over gloo, {dt_job:.1f} s with "
+      f"the ranks' start ({ranks[0]['seconds']:.2f} s the call on rank 0), "
+      f"one process {one['seconds']:.2f} s (host clock, {nvidia_smi()}): "
+      f"ranks {ranks[0]['scores']}, one process {want}; relative "
+      + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+      + f"; FID float64 of one process's rows {fid64:.6e}, gate "
+      f"{gate:.3e}; all-gathers a rank {ranks[0]['calls']}, "
+      f"{ranks[0]['bytes'].get('rows', 0) / 2**20:.2f} MiB")
 
 
 def main() -> int:
@@ -2096,6 +2520,7 @@ def main() -> int:
   del dcgan_state
   option_k1, option_k2, option_err = phase_step_options(dev)
   stl10_launches = phase_presets(dev)
+  eval_k1, eval_k2 = phase_eval(dev)
   dp_launches = phase_dp(dev)
   loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
       "wcgan_tpu", "jax", "jaxlib", "flax", "optax", "orbax"))
@@ -2119,13 +2544,15 @@ def main() -> int:
               **dcgan_paths, **option_k1,
               "presets: stl10_wc_resnet_sn at full width, 2 outer steps":
                   stl10_launches,
+              "eval: one scorer call, the cold standing recompute": eval_k1,
               "dp": dp_launches}
   k2_paths = {"sampling: generate(1024, batch=256)": k2_launches,
               "run: EMA generate(1024, batch=256)": run_k2_launches,
               "cond-sampling: conditional generate(1024, batch=256)":
                   cond_k2,
               "dcgan-sampling: generate(1024, batch=256)": dcgan_k2,
-              **option_k2}
+              **option_k2,
+              "eval: one scorer call, generate(50000, batch=256)": eval_k2}
   print(json.dumps({"kernels": [{
       "name": "moments", "route": "cuda",
       "source": "wcgan_tpu_torch/csrc/moments.cu",

@@ -71,10 +71,9 @@ def test_cli_cuda_without_gpu_fails(tmp_path):
 
 def test_cli_rejects_unported_flags(tmp_path):
   proc = _run(["--device", "cpu", "--output_dir", str(tmp_path),
-               "--compute_inception_score", "1", *TINY])
+               "--platform", "cpu", *TINY])
   assert proc.returncode != 0
-  assert ("--compute_inception_score not supported by the PyTorch port"
-          in proc.stderr)
+  assert "--platform not supported by the PyTorch port" in proc.stderr
   assert not (tmp_path / "tiny").exists()
 
 
@@ -159,7 +158,10 @@ PORTED = {"--checkpoints_dir": "ck", "--checkpoint_ratio": "3",
           "--ema_standing_stats": "4", "--wc_residual_action": "fallback",
           "--fallback_cooldown": "0", "--residual_probe_every": "2",
           "--device_data": "0", "--steps_per_call": "4",
-          "--device_data_limit": "1000000"}
+          "--device_data_limit": "1000000",
+          "--compute_inception_score": "1", "--compute_fid": "1",
+          "--score_every": "2", "--samples_inception": "1000",
+          "--samples_fid": "500", "--inception_weights": "iv3.npz"}
 
 
 def test_cli_takes_the_ported_flags():
@@ -177,12 +179,43 @@ def test_cli_takes_the_ported_flags():
     assert defaults_t[key] == defaults_j[key], flag
 
 
-@pytest.mark.parametrize("flag", ["--compute_inception_score",
-                                  "--score_every"])
+@pytest.mark.parametrize("flag", ["--platform", "--compilation_cache_dir"])
 def test_cli_still_refuses_by_name(flag):
   from wcgan_tpu_torch.cli import run as trun
   with pytest.raises(SystemExit, match=f"{flag} not supported"):
     trun._reject_unsupported([flag, "2"])
+
+
+def test_cli_flag_surface_matches_the_jax_parser():
+  """Every flag of the JAX CLI's parser is in the port's with the same
+  action, type, default and choices, or is refused by name
+  (UNSUPPORTED_FLAGS, with its reason). One value differs:
+  --whitening_precision defaults to 'highest', since 'high' (the JAX
+  package's TPU mode) is refused (test_torch_presets.py
+  ::test_whitening_precision_highest_only). The port adds --device."""
+  from wcgan_tpu.cli.run import build_parser as jax_parser
+  from wcgan_tpu_torch.cli import run as trun
+
+  def flags(parser):
+    return {o: a for a in parser._actions for o in a.option_strings
+            if o not in ("-h", "--help")}
+
+  want, got = flags(jax_parser()), flags(trun.build_parser())
+  assert set(trun.UNSUPPORTED_FLAGS) == {"--platform",
+                                         "--compilation_cache_dir"}
+  assert set(got) - set(want) == {"--device"}
+  for flag, a in want.items():
+    if flag in trun.UNSUPPORTED_FLAGS:
+      assert flag not in got and trun.UNSUPPORTED_FLAGS[flag], flag
+      continue
+    b = got[flag]
+    assert type(a) is type(b), flag
+    for attr in ("dest", "type", "choices", "nargs", "const"):
+      assert getattr(a, attr) == getattr(b, attr), (flag, attr)
+    if flag == "--whitening_precision":
+      assert (a.default, b.default) == ("high", "highest")
+    else:
+      assert a.default == b.default, flag
 
 
 def test_cli_ema_checkpoints_and_resume_without_jax(tmp_path):

@@ -72,6 +72,7 @@ def test_entry_points_load_no_jax_package_module():
           "import wcgan_tpu_torch.tools.h5_convert\n"
           "import wcgan_tpu_torch.parallel.launch\n"
           "import wcgan_tpu_torch.parallel.dryrun\n"
+          "import wcgan_tpu_torch.evaluation.scorer\n"
           "print(sorted(m for m in sys.modules if m.split('.')[0] in "
           f"{FORBIDDEN!r}))\n")
   env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -159,12 +159,10 @@ def test_cli_takes_the_new_flags_like_jax():
     assert defaults_t[key] == defaults_j[key], flag
 
 
-@pytest.mark.parametrize("flag", ["--compute_inception_score",
-                                  "--compute_fid", "--platform",
-                                  "--compilation_cache_dir"])
+@pytest.mark.parametrize("flag", ["--platform", "--compilation_cache_dir"])
 def test_cli_refuses_what_it_does_not_take_with_the_reason(flag):
   with pytest.raises(SystemExit, match=f"{flag} not supported by the "
-                     "PyTorch port: .*(InceptionV3|--device|build/kernels)"):
+                     "PyTorch port: .*(--device|build/kernels)"):
     trun._reject_unsupported([flag, "1"])
 
 

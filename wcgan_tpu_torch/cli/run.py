@@ -19,7 +19,10 @@ process and one GPU per rank over NCCL (``--device cpu``: N CPU ranks
 over gloo); ``--mesh 0`` is one process. ``--preset <name>`` expands to a
 BASELINE configuration's flags (``cli/presets.py``), and ``--smoke``
 shrinks any run to a few seconds on synthetic data of the dataset's
-resolution, keeping its architecture and codes. Flag names and defaults
+resolution, keeping its architecture and codes.
+``--compute_inception_score`` and ``--compute_fid`` score every
+``--score_every`` epochs and after ``--phase test``'s grid
+(``evaluation/``; on every rank under ``--mesh``). Flag names and defaults
 are the JAX CLI's. A flag of the JAX CLI that the port does not take is
 refused by name with the reason, never ignored.
 
@@ -38,6 +41,8 @@ Usage:
       --generator_checkpoint epoch_9_generator.npz
   python -m wcgan_tpu_torch --preset imagenet64_cwc_dp --smoke --device cpu \\
       --mesh 2
+  python -m wcgan_tpu_torch --device cuda --dataset synthetic --bf16 \\
+      --compute_inception_score 1 --compute_fid 1 --score_every 5
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from wcgan_tpu_torch.data.base import ArrayDataset
 from wcgan_tpu_torch.tools.h5_convert import apply_key_map, h5_flat
 from wcgan_tpu_torch import weights
 from wcgan_tpu_torch.device import resolve_device
+from wcgan_tpu_torch.evaluation.scorer import make_scorer
 from wcgan_tpu_torch.models.discriminator import DiscriminatorConfig
 from wcgan_tpu_torch.models.discriminator import preset_filters as d_presets
 from wcgan_tpu_torch.models.generator import GeneratorConfig
@@ -70,14 +76,10 @@ from wcgan_tpu_torch.train.trainer import (Trainer, TrainerConfig,
 
 NORM_CODES = ("n", "b", "d", "dr")
 
-_SCORING = ("evaluation (IS/FID) is not ported yet; it needs InceptionV3 "
-            "weights the repository does not have")
 # Flags of the JAX CLI (wcgan_tpu/cli/run.py) that this port does not take,
-# and why; each is refused by name instead of being silently dropped.
+# and why; each is refused by name instead of being silently dropped. The
+# value 'high' of --whitening_precision is refused in build_experiment.
 UNSUPPORTED_FLAGS = {
-    "--compute_inception_score": _SCORING, "--compute_fid": _SCORING,
-    "--score_every": _SCORING, "--samples_inception": _SCORING,
-    "--samples_fid": _SCORING, "--inception_weights": _SCORING,
     "--platform": "it picks a JAX/XLA platform; the port takes --device",
     "--compilation_cache_dir": "it is XLA's compile cache; the port "
                                "compiles its kernels into build/kernels/",
@@ -207,7 +209,7 @@ def build_parser() -> argparse.ArgumentParser:
                  help="1 = one G forward for all training_ratio fake "
                       "batches of an outer step (whitening statistics "
                       "over ratio x batch rows)")
-  p.add_argument("--d_fake_stats", default="batch",
+  p.add_argument("--d_fake_stats", type=str, default="batch",
                  choices=["batch", "running"],
                  help="statistics of the D-phase fake forwards: 'batch' "
                       "(the reference's) or 'running' (G in eval mode)")
@@ -252,6 +254,19 @@ def build_parser() -> argparse.ArgumentParser:
                  help="device byte budget for the dataset; larger datasets "
                       "train on a rotating random window per epoch (two "
                       "half-budget windows in flight)")
+  p.add_argument("--compute_inception_score", type=int, default=0,
+                 help="1 = Inception Score every --score_every epochs and "
+                      "after --phase test")
+  p.add_argument("--compute_fid", type=int, default=0,
+                 help="1 = FID against --samples_fid real images, likewise")
+  p.add_argument("--score_every", type=int, default=10,
+                 help="epochs between IS/FID evaluations")
+  p.add_argument("--samples_inception", type=int, default=50000)
+  p.add_argument("--samples_fid", type=int, default=10000)
+  p.add_argument("--inception_weights", default=None,
+                 help="InceptionV3 weights, an npz of torchvision's "
+                      "state_dict; without it the scores are random "
+                      "weights' and named unverified_*")
   return p
 
 
@@ -292,6 +307,8 @@ def _apply_smoke(args) -> None:
   args.checkpoint_ratio = 2
   args.display_ratio = 1
   args.steps_per_call = 1
+  args.compute_inception_score = 0
+  args.compute_fid = 0
 
 
 def _parse_filters(spec: Optional[str]):
@@ -414,8 +431,17 @@ def build_experiment(args, group: mesh.Group = None,
       fallback_cooldown=args.fallback_cooldown,
       residual_probe_every=args.residual_probe_every,
       ema_standing_batches=args.ema_standing_stats,
-      profile_dir=args.profile_dir, debug_nans=args.debug_nans)
-  return Trainer(ds, state, gan_cfg, tcfg, group=group)
+      profile_dir=args.profile_dir, debug_nans=args.debug_nans,
+      score_every=args.score_every)
+  scorer = None
+  if args.compute_inception_score or args.compute_fid:
+    scorer = make_scorer(
+        ds, compute_is=bool(args.compute_inception_score),
+        compute_fid=bool(args.compute_fid),
+        samples_inception=args.samples_inception,
+        samples_fid=args.samples_fid,
+        inception_weights=args.inception_weights, group=group)
+  return Trainer(ds, state, gan_cfg, tcfg, group=group, scorer=scorer)
 
 
 def _load_weights_npz(module, path: str, key_map_path: Optional[str] = None,
@@ -543,6 +569,10 @@ def _run(args, group: mesh.Group = None) -> int:
     # (mean 0, cov I).
     path = trainer.save_sample_grid(args.start_epoch)
     trainer.logger.line(f"wrote sample grid {path}")
+    if trainer.scorer is not None:
+      scores = trainer.scorer(trainer)
+      trainer.logger.line("; ".join(f"{k} = {v:.4f}"
+                                    for k, v in scores.items()))
     return 0
   trainer.train()
   return 0

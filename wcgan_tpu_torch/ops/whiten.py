@@ -114,6 +114,17 @@ def newton_schulz_inv_sqrt(cov: torch.Tensor, num_iters: int = 15,
   return z / torch.sqrt(scale)
 
 
+def newton_schulz_sqrt(cov: torch.Tensor, num_iters: int = 15,
+                       eps: float = 1e-5,
+                       scaling: str = "trace") -> torch.Tensor:
+  """The principal square root of ``cov`` + jitter: the Y branch of the
+  same coupled iteration, Y_k -> A^{1/2}, so the root is Y sqrt(s). The
+  FID's matmul-only method (``evaluation.metrics``) runs on it."""
+  a, scale, ident = _jittered_normalized(cov, eps, scaling)
+  y, _ = _ns_iterate(a, ident, num_iters)
+  return y * torch.sqrt(scale)
+
+
 def cholesky_inv_sqrt(cov: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
   """The oracle: lower-triangular L^{-1} with L L^T = cov + jitter I, so
   W cov W^T = I."""

@@ -20,9 +20,10 @@ thin widths and 32x32, bf16, with random flips and 2 images a rank:
   (2.28e-2 for the flagship G on the CPU) whatever the sharding, and
   which orders flip it is chance.
 
-The rank functions (``moments_rank``, ``forward_rank``, ``step_rank``)
-run under ``launch.launch``: the tests hold them against the JAX package,
-and ``chip_smoke.py`` runs them on the card. They take numpy arrays of the
+The rank functions (``moments_rank``, ``forward_rank``, ``step_rank``,
+``trainer_rank``, ``scorer_rank``) run under ``launch.launch``: the tests
+hold them against the JAX package, and ``chip_smoke.py`` runs them on the
+card. They take numpy arrays of the
 global batch and state dicts, and return their results on the CPU.
 """
 
@@ -176,17 +177,12 @@ def deterministic_rank(ctx: launch.RankContext) -> None:
   torch.backends.cudnn.benchmark = False
 
 
-def trainer_rank(ctx: launch.RankContext, argv: Sequence[str],
-                 synthetic: Dict[str, int]) -> Dict[str, Any]:
+def _experiment(ctx: launch.RankContext, argv: Sequence[str],
+                synthetic: Dict[str, int]):
   """The CLI's experiment of ``argv`` on this rank, on the synthetic
   dataset of ``synthetic``'s shape and class count ({"resolution",
   "classes", "n", "seed"}; the synthetic dataset of ``--dataset`` has 10
-  classes): one epoch to warm up, then one call of the trainer's step
-  chain (``steps_per_call`` outer steps on the device data), counted
-  and timed without the epoch's bookkeeping. Returns the chain's K1
-  launches, all-reduce calls and bytes by kind, seconds, outer steps and
-  mean metrics, the state after it, and the rows of the dataset this
-  rank holds."""
+  classes)."""
   args = cli_run.build_parser().parse_args(cli_run.expand_preset(
       list(argv)))
   args.device = str(ctx.device)
@@ -196,7 +192,19 @@ def trainer_rank(ctx: launch.RankContext, argv: Sequence[str],
   dataset = ArrayDataset(images, labels, args.batch_size,
                          num_classes=synthetic["classes"], z_dim=args.z_dim,
                          seed=args.seed)
-  trainer = cli_run.build_experiment(args, ctx.group, dataset=dataset)
+  return cli_run.build_experiment(args, ctx.group, dataset=dataset)
+
+
+def trainer_rank(ctx: launch.RankContext, argv: Sequence[str],
+                 synthetic: Dict[str, int]) -> Dict[str, Any]:
+  """The CLI's experiment of ``argv`` on this rank (``_experiment``):
+  one epoch to warm up, then one call of the trainer's step chain
+  (``steps_per_call`` outer steps on the device data), counted and timed
+  without the epoch's bookkeeping. Returns the chain's K1 launches,
+  all-reduce calls and bytes by kind, seconds, outer steps and mean
+  metrics, the state after it, and the rows of the dataset this rank
+  holds."""
+  trainer = _experiment(ctx, argv, synthetic)
   trainer.cfg.number_of_epochs = 1
   trainer.train()
   sync = (torch.cuda.synchronize if ctx.device.type == "cuda"
@@ -214,6 +222,26 @@ def trainer_rank(ctx: launch.RankContext, argv: Sequence[str],
           "steps": trainer._steps_per_call, "metrics": metrics,
           "state": to_cpu(full_state(trainer.state)),
           "rows": len(trainer._device_data[0])}
+
+
+def scorer_rank(ctx: launch.RankContext, argv: Sequence[str],
+                synthetic: Dict[str, int]) -> Dict[str, Any]:
+  """One call of the scorer that the CLI builds from ``argv`` (its
+  scoring flags) on this rank's experiment (``_experiment``), over the
+  group; with ``ctx.group`` None, one process. Returns the scores, the
+  collectives by kind, the seconds and the scorer's log lines."""
+  trainer = _experiment(ctx, argv, synthetic)
+  lines: List[str] = []
+  trainer.logger.line = lines.append
+  sync = (torch.cuda.synchronize if ctx.device.type == "cuda"
+          else lambda: None)
+  mesh.STATS.reset()
+  t0 = time.perf_counter()
+  scores = trainer.scorer(trainer)
+  sync()
+  return {"scores": scores, "calls": dict(mesh.STATS.calls),
+          "bytes": dict(mesh.STATS.bytes),
+          "seconds": time.perf_counter() - t0, "log": lines}
 
 
 def batch_rank(ctx: launch.RankContext,

@@ -19,12 +19,16 @@ that the caller passes to every layer and step that reduces over it
   all-reduce (gradients and losses), outside autograd;
 - ``shard_block``: the contiguous block of rows of one rank, as
   ``NamedSharding(mesh, P('data'))`` lays the leading dim out;
+  ``split_block`` the same for a count the ranks need not divide;
+- ``all_gather_rows``: every rank's rows, concatenated in rank order on
+  every rank (the scorer's activations; ``NamedSharding``'s gather on
+  fetch);
 - ``rank_generator``: a rank's own ``torch.Generator``, derived from the
   replicated one and the rank (the reference's
   ``fold_in(rng, axis_index)``).
 
-``STATS`` counts the all-reduces issued in this process, with their
-bytes, by what they reduce.
+``STATS`` counts the collectives issued in this process, with their
+bytes, by what they carry.
 """
 
 from __future__ import annotations
@@ -42,9 +46,10 @@ Group = Optional[dist.ProcessGroup]
 
 @dataclasses.dataclass
 class CollectiveStats:
-  """All-reduce calls and bytes by kind ('moments': whitening moments and
-  BatchNorm statistics, forward and backward; 'grads': gradients and
-  losses of an update)."""
+  """Collective calls and bytes by kind: all-reduces of 'moments'
+  (whitening moments and BatchNorm statistics, forward and backward) and
+  'grads' (gradients and losses of an update), and the all-gathers of
+  'rows' (``all_gather_rows``, this rank's rows padded)."""
 
   calls: Dict[str, int] = dataclasses.field(default_factory=dict)
   bytes: Dict[str, int] = dataclasses.field(default_factory=dict)
@@ -142,6 +147,37 @@ def shard_block(n: int, rank_: int, world: int) -> Tuple[int, int]:
     raise ValueError(f"{n} rows do not split into {world} equal blocks")
   per = n // world
   return rank_ * per, (rank_ + 1) * per
+
+
+def split_block(n: int, rank_: int, world: int) -> Tuple[int, int]:
+  """[start, stop) of rank ``rank_``'s rows of ``n`` split into ``world``
+  contiguous blocks as equal as they can be: the first ``n % world``
+  blocks hold one row more. ``shard_block`` where ``world`` divides
+  ``n``."""
+  per, extra = divmod(n, world)
+  start = rank_ * per + min(rank_, extra)
+  return start, start + per + int(rank_ < extra)
+
+
+def all_gather_rows(t: torch.Tensor, group: Group) -> torch.Tensor:
+  """The rows of ``t`` (k, ...) of every rank of ``group``, concatenated in
+  rank order, on every rank (``t`` itself when ``group`` is None). The
+  ranks may hold different k; the trailing shape and the dtype must
+  agree. Each rank's block is padded to the longest, since gloo and NCCL
+  gather equal blocks; counted as 'rows'."""
+  if group is None:
+    return t
+  world = world_size(group)
+  rows = torch.tensor([t.shape[0]], dtype=torch.int64, device=t.device)
+  counts = [torch.empty_like(rows) for _ in range(world)]
+  dist.all_gather(counts, rows, group=group)
+  counts = [int(c) for c in counts]
+  padded = t.new_zeros((max(counts),) + tuple(t.shape[1:]))
+  padded[:t.shape[0]] = t
+  blocks = [torch.empty_like(padded) for _ in range(world)]
+  STATS.add("rows", padded)
+  dist.all_gather(blocks, padded, group=group)
+  return torch.cat([b[:c] for b, c in zip(blocks, counts)])
 
 
 def rank_generator(gen: torch.Generator, rank_: int) -> torch.Generator:

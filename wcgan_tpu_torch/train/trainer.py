@@ -51,7 +51,11 @@ rank 0 alone: the reference fails there too (its standing pass applies
 G, whose layers name the mesh axis, outside ``shard_map``), so the
 combination is refused.
 
-The scorer (``score_every``) is not ported yet.
+Scoring: with a ``scorer`` (``evaluation.scorer.make_scorer``) and
+``score_every`` N, every N epochs, after the grid and the checkpoint, the
+scorer's IS/FID go to ``log.txt`` and ``metrics.jsonl`` and into the dict
+``train()`` returns. Under a group every rank calls the scorer (it
+gathers over the ranks); rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -60,7 +64,7 @@ import dataclasses
 import math
 import os
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,6 +119,7 @@ class TrainerConfig:
   profile_dir: Optional[str] = None  # Chrome trace of a few step calls
   debug_nans: bool = False        # raise at a step call's first
                                   # non-finite metric
+  score_every: int = 0            # epochs between IS/FID scores; 0 = off
 
 
 class _Silent:
@@ -149,10 +154,12 @@ class Trainer:
 
   def __init__(self, dataset: ArrayDataset, state: GANTrainState,
                gan_cfg: step_lib.GANConfig, cfg: TrainerConfig,
-               group: mesh.Group = None):
+               group: mesh.Group = None,
+               scorer: Optional[Callable[..., Dict[str, float]]] = None):
     check_ema_under_mesh(group is not None, gan_cfg.g_ema_decay,
                          cfg.ema_standing_batches)
     self.ds = dataset
+    self.scorer = scorer
     self.state = state
     self.gan_cfg = gan_cfg
     self.cfg = cfg
@@ -720,7 +727,7 @@ class Trainer:
     cfg, ds = self.cfg, self.ds
     ratio = self.gan_cfg.training_ratio
     probe_n = cfg.residual_probe_every
-    means: Dict[str, float] = {}
+    last: Dict[str, float] = {}
     for epoch in range(cfg.start_epoch, cfg.number_of_epochs):
       t0 = time.perf_counter()
       self._maybe_rotate_window()
@@ -772,4 +779,13 @@ class Trainer:
         self.save_sample_grid(epoch)
       if cfg.checkpoint_ratio and (epoch + 1) % cfg.checkpoint_ratio == 0:
         self.save_checkpoint(epoch)
-    return means
+      if (self.scorer is not None and cfg.score_every
+          and (epoch + 1) % cfg.score_every == 0):
+        scores = self.scorer(self)
+        self.logger.line(
+            f"Epoch {epoch}: " + "; ".join(
+                f"{k} = {v:.4f}" for k, v in scores.items()))
+        self.logger.jsonl(dict(epoch=epoch, **scores))
+        last.update(scores)
+      last.update(means)
+    return last

@@ -20,6 +20,8 @@ key; only layouts differ:
   (``conv1/conv/kernel``, ``fc_out/dense/kernel``), as flax nests them.
 
 Both directions take and give numpy arrays, so this module needs no JAX.
+``inception_from_jax`` moves the JAX package's InceptionV3 variables into
+torchvision's ``state_dict`` layout (``evaluation/inception_v3.py``).
 
 ``export_npz`` and ``load_npz`` read and write the JAX package's
 weights-only npz (``Trainer.export_weights``, ``--generator_checkpoint``):
@@ -213,3 +215,26 @@ def load_npz(module: nn.Module, loaded: Mapping[str, np.ndarray],
     unused = sorted(set(loaded) - used)
     if unused:
       emit(f"  ({len(unused)} checkpoint key(s) unused: {unused})")
+
+
+# flax BatchNorm leaf -> torchvision's name for it.
+_BN_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+             "var": "running_var"}
+
+
+def inception_from_jax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+  """The JAX package's InceptionV3 variables (``params`` and
+  ``batch_stats``, numpy) as a torchvision ``inception_v3`` state_dict of
+  numpy arrays, the input of ``evaluation.inception_v3.load_state``: conv
+  kernels HWIO -> OIHW, BatchNorm scale/bias/mean/var -> weight, bias,
+  running_mean, running_var, the ``fc`` kernel transposed."""
+  out = {}
+  for coll in ("params", "batch_stats"):
+    for path, leaf in _flatten(variables[coll]):
+      leaf = np.asarray(leaf, np.float32)
+      if path[-1] == "kernel":
+        path, leaf = path[:-1] + ("weight",), _kernel_to_torch(leaf, path)
+      elif path[-2:-1] == ("bn",):
+        path = path[:-1] + (_BN_NAMES[path[-1]],)
+      out[".".join(path)] = np.ascontiguousarray(leaf)
+  return out
