@@ -38,7 +38,8 @@ K2 generate forward for K2's kernels, launches per call and the device's
 busy share. Then the conditional slice (slice 6):
 
 - k1-widths: K1 at C = 64, 128 and 512, f32 and bf16 rows, at every R of
-  the conditional models and a ragged R, within TOL and bitwise
+  the conditional models and of the digits G and a ragged R, within TOL
+  and bitwise
   repeatable, timed in turns with its bound and torch.cov;
 - cond-slice: cWC + projection-D (preset cifar10_cwc_resnet_proj: G
   256x3 ucconv, 10 classes) and cWC-sa (preset tiny_imagenet_cwcsa's
@@ -110,6 +111,15 @@ clocks, and the same scorer on the split path within a stated tolerance;
 then the CLI with ``--score_every 1`` for 2 epochs and ``--phase test``
 with scoring.
 
+Last, slice 10, real data (``digits``): the bundled digits load with
+sklearn blocked; the README's conditional digits run (G (128, 128) cWC
+``ucconv`` at 16x16, projection-D, bf16, batch 64) through the CLI at full
+width, cut from 300 to 100 epochs (500 outer steps, K1 30 a step), with
+checkpoints at epochs 24, 49, 74 and 99; then the port's feature-FID /
+IS-analog tool (its judge trained to >= 0.90, FID at epoch 99 below epoch
+24's and below half the noise ceiling) and its conditional-fidelity tool
+(>= 0.30, three times chance) on them.
+
 Every phase that fails stops the script with a non-zero exit. The last line is
 {"ok": true, "device": {...}}; the line before it lists each kernel with
 its launches on its path, error and times. Without a GPU it exits
@@ -147,6 +157,8 @@ from wcgan_tpu_torch.models import layers as L
 from wcgan_tpu_torch.models.generator import Generator, GeneratorConfig
 from wcgan_tpu_torch.ops import _build, cuda_wc, losses, whiten
 from wcgan_tpu_torch.parallel import dryrun, launch, mesh
+from wcgan_tpu_torch.tools import digits_quality
+from wcgan_tpu_torch.tools.digits_quality import card as nvidia_smi
 from wcgan_tpu_torch.train import step as step_lib
 from wcgan_tpu_torch.train.state import OptimConfig, create_state
 from wcgan_tpu_torch.train.step import GANConfig, make_outer_step
@@ -201,13 +213,6 @@ def check(ok: bool, what) -> None:
 
 def log(phase: str, msg: str) -> None:
   print(f"[{phase}] {msg}", flush=True)
-
-
-def nvidia_smi() -> str:
-  out = subprocess.run(
-      ["nvidia-smi", "--query-gpu=name,power.limit",
-       "--format=csv,noheader"], capture_output=True, text=True, check=True)
-  return out.stdout.strip().splitlines()[0]
 
 
 def max_err(a, b) -> float:
@@ -1074,6 +1079,10 @@ CWCSA_LAYERS = ((512, 1024), (512, 4096), (512, 4096), (256, 16384),
                 (64, 262144))
 D_WC_LAYERS = ((128, 16384), (128, 16384), (128, 4096), (128, 4096),
                (128, 4096), (128, 4096))
+# The digits G (128, 128) from 4x4 to 16x16 at batch 64: blocks 1-2
+# nc1/nc2 and the last coloring.
+DIGITS_LAYERS = ((128, 1024), (128, 4096), (128, 4096), (128, 16384),
+                 (128, 16384))
 RAGGED_R = 1000
 
 
@@ -1136,12 +1145,13 @@ def phase_k1_widths(dev: torch.device):
   conditional models plus a ragged R, f32 and bf16 rows: within TOL of
   its yardstick, bitwise repeatable, cov == cov^T. Then bf16 timing in
   turns against the plain version and torch.cov with each (C, R)'s bound,
-  and the sums over one cWC-sa outer step (54 calls) and over D's WC
-  layers in one WGAN-GP outer step (96 calls). Returns the worst error
-  and those sums."""
+  and the sums over one cWC-sa outer step (54 calls), over D's WC layers
+  in one WGAN-GP outer step (96 calls) and over one digits outer step (30
+  calls). Returns the worst error and those sums."""
   gen = torch.Generator(device=dev).manual_seed(11)
   shapes = sorted({(c, r) for c, r in CWCSA_LAYERS + _doubled(CWCSA_LAYERS)
-                   + D_WC_LAYERS + _doubled(D_WC_LAYERS) if c != 256})
+                   + D_WC_LAYERS + _doubled(D_WC_LAYERS) + DIGITS_LAYERS
+                   + _doubled(DIGITS_LAYERS) if c != 256})
   worst = 0.0
   for c in sorted({c for c, _ in shapes}):
     worst = max(worst, _k1_held(
@@ -1157,7 +1167,8 @@ def phase_k1_widths(dev: torch.device):
   sums = {}
   for name, layers, reps in (
       ("cWC-sa outer step, 54 calls", CWCSA_LAYERS, 5),
-      ("WC in D, one WGAN-GP outer step, 96 calls", D_WC_LAYERS, 15)):
+      ("WC in D, one WGAN-GP outer step, 96 calls", D_WC_LAYERS, 15),
+      ("digits G, one outer step, 30 calls", DIGITS_LAYERS, 5)):
     calls = [l for l in layers for _ in range(reps)] + list(
         _doubled(layers))
     sums[name] = [sum(per[l][i] for l in calls) for i in range(6)]
@@ -2493,6 +2504,77 @@ def _dp_eval(dev: torch.device) -> None:
       f"{ranks[0]['bytes'].get('rows', 0) / 2**20:.2f} MiB")
 
 
+# The digits phase (slice 10): the README's conditional digits run
+# (tools/digits_quality.py: G (128, 128) cWC ucconv at 16x16, projection-D,
+# hinge, bf16, batch 64, 5 outer steps an epoch) through the CLI at full
+# width, cut from 300 epochs to DIGITS_EPOCHS, a checkpoint every 25; then
+# both quality tools on its checkpoints. At 50 epochs the fidelity was
+# 0.253 on an H100 (PERF.md §6), under the gate: the class
+# conditioning comes after the digits' shapes (FID 24.8 at epoch 49, 1.9
+# at 99 in a 300-epoch run).
+DIGITS_EPOCHS = 100
+DIGITS_K1_PER_STEP = 30     # 5 WC layers x 6 train-mode G forwards
+DIGITS_JUDGE_ACC = 0.90     # the judge's training accuracy (reference 0.941)
+DIGITS_FIDELITY = 0.30      # three times chance
+
+
+def phase_digits() -> int:
+  """The digits data without sklearn, a conditional digits run on it
+  through the CLI, K1 counted, and its judges: the feature judge's
+  accuracy, its calibration (floor below ceiling, real IS above noise),
+  feature-FID at the last checkpoint below the first's and below half the
+  noise ceiling, and the conditional fidelity of the last checkpoint.
+  Returns K1's launches."""
+  t_phase = time.perf_counter()
+  out_dir = os.path.join("build", "chip_smoke_digits")
+  shutil.rmtree(out_dir, ignore_errors=True)
+  # The card's machine has no sklearn. While this entry stands an import
+  # of sklearn raises, so the phase fails on any machine if the digits
+  # path imports it.
+  saved = sys.modules.get("sklearn")
+  sys.modules["sklearn"] = None
+  try:
+    ds = get_dataset("digits", batch_size=64, conditional=True)
+    check(ds.images.shape == (1797, 16, 16, 1) and ds.num_classes == 10,
+          ds.images.shape)
+    res = digits_quality.train_and_judge(
+        "PROJECTIVE", DIGITS_EPOCHS, out_dir, "cuda",
+        emit=lambda l: log("digits", l))
+  finally:
+    if saved is None:
+      del sys.modules["sklearn"]
+    else:
+      sys.modules["sklearn"] = saved
+  steps = DIGITS_EPOCHS * digits_quality.STEPS_PER_EPOCH
+  check(res["k1_launches"] == DIGITS_K1_PER_STEP * steps,
+        (res["k1_launches"], steps))
+  fid, fidelity = res["fid"], res["fidelity"]
+  traj = {ep: (f, i) for ep, f, i, _ in fid["trajectory"]}
+  first, last = 24, DIGITS_EPOCHS - 1
+  check(sorted(traj) == list(range(first, DIGITS_EPOCHS, 25)), sorted(traj))
+  check(fid["judge_accuracy"] >= DIGITS_JUDGE_ACC, fid["judge_accuracy"])
+  check(fid["floor"] < fid["ceiling"] and fid["is_real"] > fid["is_noise"],
+        fid)
+  check(traj[last][0] < traj[first][0]
+        and traj[last][0] < 0.5 * fid["ceiling"], traj)
+  check(fidelity["fidelity"] >= DIGITS_FIDELITY, fidelity)
+  log("digits", f"python -m wcgan_tpu_torch --dataset digits --gan_type "
+      f"PROJECTIVE ... --bf16 cut to {DIGITS_EPOCHS} of 300 epochs "
+      f"({steps} outer steps) on {nvidia_smi()}: {res['wall_s']:.1f} s with "
+      f"the process's warm-up (median epoch "
+      f"{float(np.median(res['epoch_seconds'])):.3f} s); K1 "
+      f"{res['k1_launches']} ({DIGITS_K1_PER_STEP} a step); judge accuracy "
+      f"{fid['judge_accuracy']:.3f}; FID floor {fid['floor']:.3f} ceiling "
+      f"{fid['ceiling']:.3f}; feature-FID by epoch "
+      + ", ".join(f"{ep} {v[0]:.3f}" for ep, v in sorted(traj.items()))
+      + f"; IS-analog {traj[first][1]:.3f} -> {traj[last][1]:.3f} "
+      f"(real {fid['is_real']:.3f}, noise {fid['is_noise']:.3f}); fidelity "
+      f"{fidelity['fidelity']:.3f}; tools {res['fid_wall_s']:.1f} s + "
+      f"{res['fidelity_wall_s']:.1f} s; phase "
+      f"{time.perf_counter() - t_phase:.1f} s")
+  return res["k1_launches"]
+
+
 def main() -> int:
   dev = phase_device()
   phase_build()
@@ -2522,6 +2604,7 @@ def main() -> int:
   stl10_launches = phase_presets(dev)
   eval_k1, eval_k2 = phase_eval(dev)
   dp_launches = phase_dp(dev)
+  digits_launches = phase_digits()
   loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
       "wcgan_tpu", "jax", "jaxlib", "flax", "optax", "orbax"))
   check(not loaded, f"chip_smoke imported {loaded}")
@@ -2545,7 +2628,10 @@ def main() -> int:
               "presets: stl10_wc_resnet_sn at full width, 2 outer steps":
                   stl10_launches,
               "eval: one scorer call, the cold standing recompute": eval_k1,
-              "dp": dp_launches}
+              "dp": dp_launches,
+              f"digits: {DIGITS_EPOCHS} epochs, "
+              f"{DIGITS_EPOCHS * digits_quality.STEPS_PER_EPOCH} outer steps":
+                  digits_launches}
   k2_paths = {"sampling: generate(1024, batch=256)": k2_launches,
               "run: EMA generate(1024, batch=256)": run_k2_launches,
               "cond-sampling: conditional generate(1024, batch=256)":

@@ -41,8 +41,15 @@ def _run(args):
                         capture_output=True, text=True, timeout=300)
 
 
-def test_cli_trains_on_cpu_without_jax(tmp_path):
-  proc = _run(["--device", "cpu", "--output_dir", str(tmp_path), *TINY])
+@pytest.fixture(scope="module")
+def cpu_run(tmp_path_factory):
+  """(the finished process, its --output_dir) of one tiny CPU run."""
+  out = tmp_path_factory.mktemp("cpu_run")
+  return _run(["--device", "cpu", "--output_dir", str(out), *TINY]), out
+
+
+def test_cli_trains_on_cpu_without_jax(cpu_run):
+  proc, tmp_path = cpu_run
   assert proc.returncode == 0, proc.stdout + proc.stderr
   assert "NO_JAX_IMPORTED" in proc.stdout
   assert "allow_tf32=False" in proc.stdout
@@ -50,14 +57,30 @@ def test_cli_trains_on_cpu_without_jax(tmp_path):
   epochs = [l for l in lines if l.startswith("Epoch ")]
   assert len(epochs) == 2
   assert "d_loss = " in epochs[0] and "imgs/sec = " in epochs[0]
+  # The device is written once, in log.txt, not in the epoch records.
+  assert sum(l.startswith("wcgan_tpu_torch on cpu") for l in lines) == 1
   records = [json.loads(l) for l in
              (tmp_path / "tiny" / "metrics.jsonl").read_text().splitlines()]
   assert [r["epoch"] for r in records] == [0, 1]
-  assert all(r["imgs_per_sec"] > 0 and r["device"] == "cpu"
-             for r in records)
+  assert all(r["imgs_per_sec"] > 0 and "device" not in r for r in records)
   # --display_ratio defaults to 1: a sample grid after every epoch.
   assert sorted(p.name for p in (tmp_path / "tiny").glob("*.png")) == [
       "epoch_00000.png", "epoch_00001.png"]
+
+
+def test_soak_report_reads_the_port_metrics_as_finite(cpu_run):
+  """The reference's scripts/soak_report.py, unchanged, on the port's
+  metrics.jsonl: every value of an epoch record is a finite number."""
+  proc, out = cpu_run
+  assert proc.returncode == 0, proc.stdout + proc.stderr
+  report = subprocess.run(
+      [sys.executable, os.path.join(REPO, "scripts", "soak_report.py"),
+       str(out / "tiny" / "metrics.jsonl"), "--steps_per_epoch", "2"],
+      capture_output=True, text=True, timeout=60)
+  assert report.returncode == 0, report.stderr
+  assert "epochs logged: **2**" in report.stdout, report.stdout
+  assert "all metrics finite across the whole run: **True**" in (
+      report.stdout), report.stdout
 
 
 def test_cli_cuda_without_gpu_fails(tmp_path):

@@ -3,8 +3,7 @@ package's numpy modules behave exactly as the originals.
 
 The port (``wcgan_tpu_torch/`` and ``chip_smoke.py``) runs where there is
 no JAX. It keeps its own copies of ``wcgan_tpu.data``, ``wcgan_tpu.utils``,
-``wcgan_tpu.cli.presets`` and the two functions of
-``wcgan_tpu.tools.h5_convert`` it calls; these tests import both sides and
+``wcgan_tpu.cli.presets`` and ``wcgan_tpu.tools.h5_convert``; these tests import both sides and
 compare them (the tests may import JAX's package, the port may not)."""
 
 import ast
@@ -73,6 +72,9 @@ def test_entry_points_load_no_jax_package_module():
           "import wcgan_tpu_torch.parallel.launch\n"
           "import wcgan_tpu_torch.parallel.dryrun\n"
           "import wcgan_tpu_torch.evaluation.scorer\n"
+          "import wcgan_tpu_torch.tools.eval_digits_fid\n"
+          "import wcgan_tpu_torch.tools.eval_conditional_fidelity\n"
+          "import wcgan_tpu_torch.tools.digits_quality\n"
           "print(sorted(m for m in sys.modules if m.split('.')[0] in "
           f"{FORBIDDEN!r}))\n")
   env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -189,6 +191,127 @@ def test_h5_flat_copy_matches(tmp_path, rng):
     assert sorted(a) == sorted(b)
     for k in a:
       np.testing.assert_array_equal(a[k], b[k])
+
+
+def _write_h5(path, tree):
+  import h5py
+  with h5py.File(path, "w") as f:
+    for k, v in tree.items():
+      f.create_dataset(k, data=v)
+
+
+def _read_h5(path):
+  import h5py
+  out = {}
+  with h5py.File(path, "r") as f:
+    f.visititems(lambda name, obj: out.__setitem__(name, np.asarray(obj))
+                 if isinstance(obj, h5py.Dataset) else None)
+  return out
+
+
+def _assert_same_arrays(a, b):
+  assert sorted(a) == sorted(b)
+  for k in a:
+    assert a[k].dtype == b[k].dtype, k
+    np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def _weights(rng):
+  return {"gen/conv/kernel": rng.standard_normal((3, 3)).astype(np.float32),
+          "gen/bias": rng.standard_normal(3), "disc/w": np.arange(4),
+          "['block0']/['nc1']/['gamma']": rng.standard_normal(5)}
+
+
+@pytest.mark.parametrize("key_map", [None, {"re:^gen/": "g/", "disc/w": "d/w"}])
+def test_h5_to_npz_copy_matches(tmp_path, rng, key_map):
+  pytest.importorskip("h5py")
+  src = tmp_path / "w.h5"
+  _write_h5(src, _weights(rng))
+  out = []
+  for mod, sub in ((j_h5, "a"), (t_h5, "b")):
+    manifest = mod.h5_to_npz(str(src), str(tmp_path / f"{sub}.npz"), key_map)
+    with np.load(tmp_path / f"{sub}.npz") as data:
+      out.append((manifest, dict(data)))
+  (ma, a), (mb, b) = out
+  assert ma == mb
+  _assert_same_arrays(a, b)
+
+
+def test_npz_to_h5_copy_matches(tmp_path, rng):
+  pytest.importorskip("h5py")
+  np.savez(tmp_path / "w.npz", **_weights(rng))
+  for mod, sub in ((j_h5, "a"), (t_h5, "b")):
+    mod.npz_to_h5(str(tmp_path / "w.npz"), str(tmp_path / f"{sub}.h5"))
+  _assert_same_arrays(_read_h5(tmp_path / "a.h5"), _read_h5(tmp_path / "b.h5"))
+
+
+H5_COMMANDS = {
+    "to_npz": ["to_npz", "w.h5", "out.npz"],
+    "to_npz_with_map": ["to_npz", "w.h5", "out.npz", "map.json"],
+    "to_h5": ["to_h5", "w.npz", "out.h5"],
+    "unknown": ["to_zip", "w.h5", "out.zip"],
+    "too_few": ["to_npz", "w.h5"],
+}
+
+
+@pytest.mark.parametrize("cmd", sorted(H5_COMMANDS))
+def test_h5_convert_main_copy_matches(cmd, tmp_path, rng, capsys):
+  """Each module's ``main`` in a directory of its own with the same
+  inputs: the same return code and output files, the same printed lines
+  (the usage text apart: each names its own module)."""
+  pytest.importorskip("h5py")
+  tree = _weights(rng)
+  results = []
+  for mod, sub in ((j_h5, "a"), (t_h5, "b")):
+    d = tmp_path / sub
+    d.mkdir()
+    _write_h5(d / "w.h5", tree)
+    np.savez(d / "w.npz", **tree)
+    (d / "map.json").write_text(json.dumps({"re:^gen/": "g/"}))
+    argv = [str(d / a) if i else a for i, a in enumerate(H5_COMMANDS[cmd])]
+    rc = mod.main(argv)
+    results.append((rc, capsys.readouterr().out.replace(str(d), "<dir>")))
+  (rc_a, out_a), (rc_b, out_b) = results
+  assert rc_a == rc_b
+  if cmd == "too_few":
+    assert rc_b == 2 and "Usage:" in out_a and "Usage:" in out_b
+    assert "python -m wcgan_tpu_torch.tools.h5_convert to_npz" in out_b
+    return
+  assert out_a == out_b
+  if cmd.startswith("to_npz"):
+    with np.load(tmp_path / "a" / "out.npz") as a, \
+        np.load(tmp_path / "b" / "out.npz") as b:
+      _assert_same_arrays(dict(a), dict(b))
+  elif cmd == "to_h5":
+    _assert_same_arrays(_read_h5(tmp_path / "a" / "out.h5"),
+                        _read_h5(tmp_path / "b" / "out.h5"))
+  else:
+    assert rc_b == 2 and "unknown command 'to_zip'" in out_b
+
+
+def test_h5_convert_runs_as_a_module(tmp_path, rng):
+  """``python -m wcgan_tpu_torch.tools.h5_convert`` against ``python -m
+  wcgan_tpu.tools.h5_convert``: to_npz, then to_h5 on its output."""
+  pytest.importorskip("h5py")
+  _write_h5(tmp_path / "w.h5", _weights(rng))
+  outs = {}
+  for pkg in ("wcgan_tpu", "wcgan_tpu_torch"):
+    npz, h5 = tmp_path / f"{pkg}.npz", tmp_path / f"{pkg}.h5"
+    printed = []
+    for argv in (["to_npz", str(tmp_path / "w.h5"), str(npz)],
+                 ["to_h5", str(npz), str(h5)]):
+      proc = subprocess.run(
+          [sys.executable, "-m", f"{pkg}.tools.h5_convert", *argv], cwd=ROOT,
+          env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
+          text=True, timeout=120)
+      assert proc.returncode == 0, proc.stderr
+      printed.append(proc.stdout)
+    with np.load(npz) as data:
+      outs[pkg] = (printed, dict(data), _read_h5(h5))
+  a, b = outs["wcgan_tpu"], outs["wcgan_tpu_torch"]
+  assert a[0] == b[0] and "gen/bias (3,)" in b[0][0]
+  _assert_same_arrays(a[1], b[1])
+  _assert_same_arrays(a[2], b[2])
 
 
 def test_presets_copy_matches():

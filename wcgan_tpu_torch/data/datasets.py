@@ -200,17 +200,30 @@ def _synthetic(resolution: int, num_classes: int, n: int = 4096,
       y
 
 
+DIGITS_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "digits.npz")
+
+
+def digits_arrays() -> Tuple[np.ndarray, np.ndarray]:
+  """sklearn's bundled digits as it ships them, read from ``digits.npz``
+  beside this file: ``images`` (1797, 8, 8) uint8 in 0..16 and ``labels``
+  (1797,) uint8 (``load_digits()``'s ``images`` and ``target``, saved
+  once), so no sklearn is needed."""
+  with np.load(DIGITS_NPZ) as d:
+    return d["images"], d["labels"]
+
+
 def _load_digits(resolution: int = 16):
   """sklearn's bundled 1,797 real 8x8 handwritten digits — the only real
   image data available on a zero-egress box without archives. Upscaled
   2x (nearest) to 16x16 so the standard 2-up-block generator applies.
-  Not in the reference; kept as a no-files real-data validation set."""
-  from sklearn.datasets import load_digits
-  d = load_digits()
-  x = (d.images / 16.0 * 255.0).astype(np.uint8)[..., None]
+  Not in the reference; kept as a no-files real-data validation set.
+  The arrays are the reference's, from ``digits_arrays``."""
+  images, labels = digits_arrays()
+  x = (images / 16.0 * 255.0).astype(np.uint8)[..., None]
   f = resolution // 8
   x = np.repeat(np.repeat(x, f, axis=1), f, axis=2)
-  return x, d.target.astype(np.int32)
+  return x, labels.astype(np.int32)
 
 
 # name -> (resolution, channels, num_classes or 0)

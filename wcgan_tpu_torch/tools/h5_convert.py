@@ -1,14 +1,24 @@
-"""Checkpoint key renames and Keras .h5 flattening for the weight loader.
+"""Checkpoint key renames and Keras .h5 <-> npz conversion.
 
-The port's own copy of the two functions of ``wcgan_tpu/tools/h5_convert.py``
-that ``python -m wcgan_tpu_torch`` calls (numpy only; h5py is imported
-when a ``.h5`` is read). They behave exactly as the originals;
-tests/test_torch_imports.py compares them.
+The port's own copy of ``wcgan_tpu/tools/h5_convert.py`` (numpy only;
+h5py is imported when a ``.h5`` is read or written). It behaves exactly as
+the original; tests/test_torch_imports.py compares them.
+
+- ``h5_to_npz``: flatten any Keras-weights .h5 into a flat npz
+  (``<layer>/<weight_name>`` keys), optionally renamed by a key-map table
+  (:func:`apply_key_map`);
+- ``npz_to_h5``: write a weights-only npz into a Keras-style .h5 tree.
+
+Usage:
+  python -m wcgan_tpu_torch.tools.h5_convert to_npz  in.h5  out.npz [map.json]
+  python -m wcgan_tpu_torch.tools.h5_convert to_h5   in.npz out.h5
 """
 
 from __future__ import annotations
 
+import json
 import re
+import sys
 from typing import Dict, Optional
 
 import numpy as np
@@ -57,3 +67,44 @@ def h5_flat(h5_path: str,
   with h5py.File(h5_path, "r") as f:
     f.visititems(visit)
   return apply_key_map(out, key_map)
+
+
+def h5_to_npz(h5_path: str, npz_path: str,
+              key_map: Optional[Dict[str, str]] = None) -> Dict[str, tuple]:
+  """Flatten an .h5 weight file to npz; returns {key: shape} manifest."""
+  out = h5_flat(h5_path, key_map)
+  np.savez(npz_path, **out)
+  return {k: v.shape for k, v in out.items()}
+
+
+def npz_to_h5(npz_path: str, h5_path: str) -> None:
+  import h5py
+  data = dict(np.load(npz_path))
+  with h5py.File(h5_path, "w") as f:
+    for key, val in data.items():
+      f.create_dataset(key, data=val)
+
+
+def main(argv) -> int:
+  if len(argv) < 3:
+    print(__doc__)
+    return 2
+  cmd, src, dst = argv[0], argv[1], argv[2]
+  if cmd == "to_npz":
+    key_map = None
+    if len(argv) > 3:
+      with open(argv[3]) as f:
+        key_map = json.load(f)
+    manifest = h5_to_npz(src, dst, key_map)
+    for k, shape in sorted(manifest.items()):
+      print(k, shape)
+  elif cmd == "to_h5":
+    npz_to_h5(src, dst)
+  else:
+    print(f"unknown command {cmd!r}")
+    return 2
+  return 0
+
+
+if __name__ == "__main__":
+  raise SystemExit(main(sys.argv[1:]))

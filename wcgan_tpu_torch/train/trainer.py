@@ -287,9 +287,12 @@ class Trainer:
     st.g_version += 1
     self._outer_steps_done = int(ck["outer_steps_done"])
 
-  def latest_checkpoint(self) -> Optional[str]:
+  def checkpoint_epochs(self) -> List[int]:
+    """The epochs of the full-state checkpoints ``epoch_<n>``, sorted;
+    weights-only npz files and names whose suffix is not an integer are
+    skipped."""
     if not os.path.isdir(self.ckpt_dir):
-      return None
+      return []
     epochs = []
     for d in os.listdir(self.ckpt_dir):
       if d.startswith("epoch_") and not d.endswith(".npz"):
@@ -297,9 +300,11 @@ class Trainer:
           epochs.append(int(d.split("_")[1]))
         except ValueError:
           continue
-    if not epochs:
-      return None
-    return self.checkpoint_path(max(epochs))
+    return sorted(epochs)
+
+  def latest_checkpoint(self) -> Optional[str]:
+    epochs = self.checkpoint_epochs()
+    return self.checkpoint_path(epochs[-1]) if epochs else None
 
   def export_weights(self, epoch: int) -> None:
     """Weights-only ``epoch_{epoch}_{generator,discriminator}.npz`` under
@@ -763,7 +768,6 @@ class Trainer:
                              extra=f"imgs/sec = {imgs_per_sec:.1f}")
       diag = self.diagnostics()
       self.logger.jsonl(dict(epoch=epoch, **means, **diag,
-                             device=str(self.device),
                              imgs_per_sec=imgs_per_sec, seconds=dt))
       # An under-converged inverse square root feeds back into the
       # conditioning while the losses still look healthy.

@@ -21,7 +21,8 @@ key; only layouts differ:
 
 Both directions take and give numpy arrays, so this module needs no JAX.
 ``inception_from_jax`` moves the JAX package's InceptionV3 variables into
-torchvision's ``state_dict`` layout (``evaluation/inception_v3.py``).
+torchvision's ``state_dict`` layout (``evaluation/inception_v3.py``), and
+``judge_from_flax`` the digits judge's (``tools/eval_digits_fid.py``).
 
 ``export_npz`` and ``load_npz`` read and write the JAX package's
 weights-only npz (``Trainer.export_weights``, ``--generator_checkpoint``):
@@ -237,4 +238,20 @@ def inception_from_jax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
       elif path[-2:-1] == ("bn",):
         path = path[:-1] + (_BN_NAMES[path[-1]],)
       out[".".join(path)] = np.ascontiguousarray(leaf)
+  return out
+
+
+def judge_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+  """The digits judge's flax params (``Conv_0``, ``Conv_1``, ``Dense_0``,
+  ``Dense_1``, each a kernel and a bias; numpy; with or without the
+  ``params`` level) as the ``state_dict`` of
+  ``tools.eval_digits_fid.Judge``, whose submodules carry flax's names:
+  conv kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in)."""
+  params = params.get("params", params)
+  out = {}
+  for path, leaf in _flatten(params):
+    leaf = np.asarray(leaf, np.float32)
+    if path[-1] == "kernel":
+      path, leaf = path[:-1] + ("weight",), _kernel_to_torch(leaf, path)
+    out[".".join(path)] = torch.tensor(leaf)
   return out
