@@ -35,7 +35,11 @@ the checkpoint, ``diagnostics()``, the recompute and EMA sampling. One
 training outer step
 is profiled (``torch.profiler``) for K1's share of kernel time, and one
 K2 generate forward for K2's kernels, launches per call and the device's
-busy share. Then the conditional slice (slice 6):
+busy share. Then slice 11's ``bench`` phase: the port's
+benchmark (``wcgan_tpu_torch.bench``) cut short, the headline's measured
+windows (K1 42 a step), its FLOP count, MFU and one profiled window (busy
+share), the sampling arms (K2 7 a forward and 0) and the cfg1 row, its
+record printed on one line. Then the conditional slice (slice 6):
 
 - k1-widths: K1 at C = 64, 128 and 512, f32 and bf16 rows, at every R of
   the conditional models and of the digits G and a ragged R, within TOL
@@ -145,10 +149,11 @@ import time
 import numpy as np
 import torch
 
+from wcgan_tpu_torch import bench
 from wcgan_tpu_torch.cli import run as cli_run
 from wcgan_tpu_torch.cli.presets import PRESETS
 from wcgan_tpu_torch.data import get_dataset
-from wcgan_tpu_torch.device import place
+from wcgan_tpu_torch.device import card as nvidia_smi, place
 from wcgan_tpu_torch.evaluation import inception_v3, metrics
 from wcgan_tpu_torch.evaluation import scorer as scorer_lib
 from wcgan_tpu_torch.models.discriminator import (Discriminator,
@@ -158,7 +163,6 @@ from wcgan_tpu_torch.models.generator import Generator, GeneratorConfig
 from wcgan_tpu_torch.ops import _build, cuda_wc, losses, whiten
 from wcgan_tpu_torch.parallel import dryrun, launch, mesh
 from wcgan_tpu_torch.tools import digits_quality
-from wcgan_tpu_torch.tools.digits_quality import card as nvidia_smi
 from wcgan_tpu_torch.train import step as step_lib
 from wcgan_tpu_torch.train.state import OptimConfig, create_state
 from wcgan_tpu_torch.train.step import GANConfig, make_outer_step
@@ -705,6 +709,84 @@ def phase_profile(state, gan) -> None:
       f"{wall:.1f} ms of wall (busy {total / wall:.2f}); K1 {k1_ms:.3f} ms "
       f"({k1_ms / total:.1%}; {len(k1)} launches of its 4 kernels, {gram} "
       f"Gram) against 6.6 ms of 65.1 in the slice-1 profile")
+
+
+# The bench phase (slice 11): wcgan_tpu_torch.bench at reduced sizes.
+BENCH_STEPS, BENCH_REPEATS = 10, 2
+BENCH_FORWARDS = 10
+BENCH_CFG1_STEPS = 5
+
+
+def _positive(*values) -> bool:
+  return all(np.isfinite(v) and v > 0 for v in values)
+
+
+def phase_bench(dev: torch.device):
+  """The bench's own functions on the card, cut short: the headline
+  ``measure`` (bf16, batch 64, BENCH_REPEATS windows of BENCH_STEPS outer
+  steps: K1 42 a step), ``--sampling``'s two arms in bf16 (BENCH_FORWARDS
+  forwards a window at batch 256: K2 7 a forward with ``kernel_eval``, 0
+  on the split path), the cfg1 shape row (BENCH_CFG1_STEPS steps a window:
+  K1 8 a step), then one ``--profile`` window of the headline (busy share,
+  K1 in the trace) and the headline's FLOP count (on the plain moments: no
+  K1). Every value finite and positive, ``mfu`` and ``busy`` in (0, 1].
+  Prints the record on one line; returns the K1 and K2 launches by path,
+  each counted from 0 just before its run (``measure`` and
+  ``bench_sampling`` reset the counts before their windows)."""
+  t_phase = time.perf_counter()
+  head = bench.build_bench("headline", device="cuda", seed=0)
+  m = bench.measure(head, BENCH_STEPS, BENCH_REPEATS)
+  head_k1 = cuda_wc.MOMENTS_LAUNCHES
+  samp = bench.bench_sampling("bfloat16", forwards=BENCH_FORWARDS,
+                              repeats=BENCH_REPEATS, device="cuda")
+  cfg1 = bench.build_bench("cfg1", device="cuda", seed=0)
+  c1 = bench.measure(cfg1, BENCH_CFG1_STEPS, BENCH_REPEATS)
+  cfg1_k1 = cuda_wc.MOMENTS_LAUNCHES
+  del cfg1
+  prof = bench.profile(head)                   # last, as the record has it
+  cuda_wc.MOMENTS_LAUNCHES = 0
+  flops = bench.count_flops(head)
+  check(cuda_wc.MOMENTS_LAUNCHES == 0, ("FLOP count launched K1",
+                                        cuda_wc.MOMENTS_LAUNCHES))
+  del head
+  eff = bench.mfu(flops, m["median"], 5 * 64, "bfloat16", dev)
+  record = {"bench": {"headline": m, **eff, "profile": prof,
+                      "sampling": samp, "cfg1": c1}}
+  print(json.dumps(record), flush=True)
+  arms = (samp["k2_kernel"], samp["split"])
+  check(_positive(m["median"], m["min"], m["max"], c1["median"], c1["min"],
+                  flops, prof["wall_ms"], prof["kernel_ms"],
+                  *(a[k] for a in arms for k in ("median", "min", "max"))),
+        record)
+  check(m["k1_launches_per_step"] == 42 and c1["k1_launches_per_step"] == 8,
+        (m["k1_launches_per_step"], c1["k1_launches_per_step"]))
+  check(prof["k1_launches"] == 42 * bench.PROFILE_STEPS
+        and prof["k1_kernels"] >= prof["k1_launches"], prof)
+  check(arms[0]["k2_launches_per_forward"] == 7
+        and arms[1]["k2_launches_per_forward"] == 0, arms)
+  check(0 < eff["mfu"] <= 1 and 0 < prof["busy"] <= 1,
+        (eff["mfu"], prof["busy"]))
+  windows = BENCH_FORWARDS * BENCH_REPEATS
+  log("bench", f"on {nvidia_smi()}: headline {m['median']:.1f} imgs/s "
+      f"({m['min']:.1f}-{m['max']:.1f}, {BENCH_REPEATS} windows of "
+      f"{BENCH_STEPS} steps; K1 {m['k1_launches_per_step']:g} a step); "
+      f"{flops / 1e12:.4f} TFLOP a step, MFU {eff['mfu']:.4%} of "
+      f"{eff['peak']}; profile of {bench.PROFILE_STEPS} steps: "
+      f"{prof['kernels']} kernels, {prof['kernel_ms']:.3f} ms in "
+      f"{prof['wall_ms']:.1f} ms (busy {prof['busy']:.4f}; unprofiled "
+      f"{prof['wall_ms_unprofiled']:.1f} ms), K1 {prof['k1_share']:.2%}; "
+      f"sampling bf16 K2 {arms[0]['median']:.1f} imgs/s, split "
+      f"{arms[1]['median']:.1f}; cfg1 {c1['median']:.1f} imgs/s; phase "
+      f"{time.perf_counter() - t_phase:.1f} s")
+  k1 = {f"bench: headline measure, {BENCH_STEPS * BENCH_REPEATS} outer "
+        f"steps": head_k1,
+        f"bench: profile window, {bench.PROFILE_STEPS} outer steps":
+            prof["k1_launches"],
+        f"bench: cfg1 measure, {BENCH_CFG1_STEPS * BENCH_REPEATS} outer "
+        f"steps": cfg1_k1}
+  k2 = {f"bench: sampling, K2 arm, {windows} forwards":
+            int(arms[0]["k2_launches_per_forward"] * windows)}
+  return k1, k2
 
 
 def _u8_diff(a: np.ndarray, b: np.ndarray):
@@ -2587,6 +2669,7 @@ def main() -> int:
   phase_step_parity(dev)
   launches, state, gan = phase_slice(dev)
   phase_profile(state, gan)
+  bench_k1, bench_k2 = phase_bench(dev)
   k2_launches, npz = phase_sampling(dev, state, gan)
   phase_cli(npz)
   run_step_launches, standing_launches, run_k2_launches = phase_run(dev)
@@ -2618,7 +2701,7 @@ def main() -> int:
   # (bf16 rows are held to 2 ulps, printed above).
   # launches: the sum over the paths in launches_by_path, each counted from
   # 0 just before its run.
-  k1_paths = {"training slice, 10 outer steps": launches,
+  k1_paths = {"training slice, 10 outer steps": launches, **bench_k1,
               "run: one outer step from a saved and from its restored "
               "state": run_step_launches,
               "run: one standing-statistics recompute": standing_launches,
@@ -2633,6 +2716,7 @@ def main() -> int:
               f"{DIGITS_EPOCHS * digits_quality.STEPS_PER_EPOCH} outer steps":
                   digits_launches}
   k2_paths = {"sampling: generate(1024, batch=256)": k2_launches,
+              **bench_k2,
               "run: EMA generate(1024, batch=256)": run_k2_launches,
               "cond-sampling: conditional generate(1024, batch=256)":
                   cond_k2,

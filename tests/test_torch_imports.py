@@ -75,6 +75,7 @@ def test_entry_points_load_no_jax_package_module():
           "import wcgan_tpu_torch.tools.eval_digits_fid\n"
           "import wcgan_tpu_torch.tools.eval_conditional_fidelity\n"
           "import wcgan_tpu_torch.tools.digits_quality\n"
+          "import wcgan_tpu_torch.bench, wcgan_tpu_torch.tools.bench_shapes\n"
           "print(sorted(m for m in sys.modules if m.split('.')[0] in "
           f"{FORBIDDEN!r}))\n")
   env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -27,3 +29,11 @@ def place(module: torch.nn.Module, device: torch.device) -> torch.nn.Module:
   """Move ``module`` to ``device`` with its 4-D weights in channels_last,
   the layout of the port's activations."""
   return module.to(device=device, memory_format=torch.channels_last)
+
+
+def card() -> str:
+  """The card's name and power limit as nvidia-smi gives them."""
+  out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True)
+  return out.stdout.strip().splitlines()[0]

@@ -18,7 +18,8 @@ is in eval mode, so the rows, and so every rank's scores, are one
 process's up to float32 reordering.
 
 The network runs in true float32 (``metrics.true_float32``: TF32 off for
-its convolutions and products, whatever the caller set).
+its convolutions and products, whatever the caller set), unless
+``conv_tf32`` asks for TF32 convolutions.
 """
 
 from __future__ import annotations
@@ -79,10 +80,14 @@ def make_scorer(dataset, compute_is: bool = True, compute_fid: bool = True,
                 samples_inception: int = 50000, samples_fid: int = 10000,
                 inception_weights: Optional[str] = None,
                 batch: int = 100,
-                group: mesh.Group = None) -> Callable[..., Dict[str, float]]:
+                group: mesh.Group = None,
+                conv_tf32: bool = False) -> Callable[..., Dict[str, float]]:
   """The Trainer's scorer callback. InceptionV3 is built at the first
   call, on the trainer's device; the real images' moments (FID) are
-  computed once and cached across calls."""
+  computed once and cached across calls. ``conv_tf32`` lets cuDNN run
+  InceptionV3's convolutions in TF32 (its products and the IS/FID math
+  stay true float32): a measurement arm of ``wcgan_tpu_torch.bench``; the
+  CLI never sets it."""
   cache = {}
 
   def get_net(device: torch.device) -> Tuple[ApplyFn, bool]:
@@ -98,6 +103,7 @@ def make_scorer(dataset, compute_is: bool = True, compute_fid: bool = True,
       @torch.no_grad()
       def apply_fn(images_u8: torch.Tensor):
         with metrics.true_float32():
+          torch.backends.cudnn.allow_tf32 = conv_tf32
           pool, logits = net(inception_v3.preprocess(images_u8))
         return pool, torch.softmax(logits.float(), dim=-1)
 

@@ -18,7 +18,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 from typing import Callable, Dict, List
@@ -26,6 +25,7 @@ from typing import Callable, Dict, List
 import torch
 
 from wcgan_tpu_torch.cli import run as cli_run
+from wcgan_tpu_torch.device import card
 from wcgan_tpu_torch.ops import cuda_wc
 from wcgan_tpu_torch.tools import eval_conditional_fidelity as fidelity
 from wcgan_tpu_torch.tools import eval_digits_fid as digits_fid
@@ -92,14 +92,6 @@ def train_and_judge(gan_type: str, epochs: int, out: str, device: str,
       tool + ["--gan_type", gan_type]), emit)
   result["fidelity_wall_s"] = time.perf_counter() - t0
   return result
-
-
-def card() -> str:
-  """The card's name and power limit as nvidia-smi gives them."""
-  out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, check=True)
-  return out.stdout.strip().splitlines()[0]
 
 
 def main(argv=None) -> int:
