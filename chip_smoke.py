@@ -39,7 +39,19 @@ busy share. Then slice 11's ``bench`` phase: the port's
 benchmark (``wcgan_tpu_torch.bench``) cut short, the headline's measured
 windows (K1 42 a step), its FLOP count, MFU and one profiled window (busy
 share), the sampling arms (K2 7 a forward and 0) and the cfg1 row, its
-record printed on one line. Then the conditional slice (slice 6):
+record printed on one line. Then slice 12's ``graph`` phase, the compiled
+step (``make_jit_step``, ``make_jit_dataset_step``: CUDA graphs): the
+headline with EMA from one seed, a captured chain of 8 dataset steps
+against the eager chain from the same state and generator (float32 within
+GRAPH_RTOL of each tensor's largest value, the eager-vs-eager floor
+printed beside it; then bf16), the generators' states after it, K1 42 a
+step across replays; the CLI's float32 trainer checkpointed after a
+captured chain and resumed in a fresh trainer (which warms up and
+captures anew) against the uninterrupted run; the headline's imgs/s and
+device span a step, captured and eager in turns; one captured
+``d_fake_stats='running'`` + ``kernel_eval`` step (K2's cooperative setup
+inside the graph: 35 K2, 7 K1 a replay). Then the conditional slice
+(slice 6):
 
 - k1-widths: K1 at C = 64, 128 and 512, f32 and bf16 rows, at every R of
   the conditional models and of the digits G and a ragged R, within TOL
@@ -163,6 +175,7 @@ from wcgan_tpu_torch.models.generator import Generator, GeneratorConfig
 from wcgan_tpu_torch.ops import _build, cuda_wc, losses, whiten
 from wcgan_tpu_torch.parallel import dryrun, launch, mesh
 from wcgan_tpu_torch.tools import digits_quality
+from wcgan_tpu_torch.train import schedules
 from wcgan_tpu_torch.train import step as step_lib
 from wcgan_tpu_torch.train.state import OptimConfig, create_state
 from wcgan_tpu_torch.train.step import GANConfig, make_outer_step
@@ -679,10 +692,35 @@ def phase_slice(dev: torch.device):
   return launches, state, gan
 
 
+def _traced_kernels(fn):
+  """``fn()`` under torch.profiler: (its kernels, its wall ms). The tracer
+  may miss the first launches of a session (a few kernels, more in later
+  sessions of a process): throwaway launches take them, and only the
+  kernels that start inside ``fn``'s range count."""
+  from torch.profiler import ProfilerActivity, profile, record_function
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    warm = torch.zeros((1,), device="cuda")
+    for _ in range(64):
+      warm.add_(1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with record_function("chip_smoke_traced"):
+      fn()
+      torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+  (start,) = [e.time_range.start for e in prof.events()
+              if e.name == "chip_smoke_traced"
+              and e.device_type == torch.autograd.DeviceType.CPU]
+  return [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and not bench._is_annotation(e)
+          and e.time_range.start >= start], wall
+
+
 def phase_profile(state, gan) -> None:
   """One training outer step of the slice under torch.profiler: K1's
   device time and its share of all kernel time."""
-  from torch.profiler import ProfilerActivity, profile
   step = make_outer_step(gan)
   dev = state.generator.device
   real = torch.randint(0, 256, (5, 64, 32, 32, 3), dtype=torch.uint8,
@@ -691,14 +729,7 @@ def phase_profile(state, gan) -> None:
   labels = torch.zeros((5, 64), dtype=torch.int32, device=dev)
   step(state, real, labels)
   torch.cuda.synchronize()
-  t0 = time.perf_counter()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    step(state, real, labels)
-    torch.cuda.synchronize()
-  wall = (time.perf_counter() - t0) * 1e3
-  kernels = [e for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+  kernels, wall = _traced_kernels(lambda: step(state, real, labels))
   total = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
   k1 = [e for e in kernels if any(n in e.name for n in K1_KERNELS)]
   k1_ms = sum(e.time_range.elapsed_us() for e in k1) / 1e3
@@ -787,6 +818,274 @@ def phase_bench(dev: torch.device):
   k2 = {f"bench: sampling, K2 arm, {windows} forwards":
             int(arms[0]["k2_launches_per_forward"] * windows)}
   return k1, k2
+
+
+# --- slice 12: the compiled step -------------------------------------------
+
+GRAPH_CHAIN = 8                # the CLI's default --steps_per_call
+GRAPH_RTOL = 1e-4              # captured chain against eager, float32,
+                               # relative to each tensor's largest value
+GRAPH_TIME_STEPS, GRAPH_TIME_ROUNDS = 5, 3
+GRAPH_CKPT_ARGS = ["--device", "cuda", "--dataset", "synthetic", "--arch",
+                   "res", "--batches_per_epoch", "8", "--generator_ema",
+                   "0.999", "--display_ratio", "0", "--name", "graph"]
+
+
+def _graph_tensors(st) -> dict:
+  """Every tensor of a train state by name: G's and D's parameters and
+  buffers, both Adams' slots and counts, the EMA shadow."""
+  out = {}
+  for m in ("g", "d"):
+    module, opt = getattr(st, m), getattr(st, f"{m}_opt")
+    out.update({f"{m}.{n}": t for n, t in module.state_dict().items()})
+    for n, p in module.named_parameters():
+      for k, v in opt.state.get(p, {}).items():
+        out[f"{m}_opt.{n}.{k}"] = v
+  out.update({f"g_ema.{n}": t for n, t in (st.g_ema or {}).items()})
+  return out
+
+
+def _graph_rel(a: dict, b: dict):
+  """(largest |a - b| relative to b's largest magnitude over the tensors
+  of b, its name): each tensor measured against its own scale."""
+  worst, where = 0.0, "all equal"
+  for k, y in b.items():
+    x, y = a[k].detach().double(), y.detach().double()
+    scale = float(y.abs().max()) if y.numel() else 0.0
+    err = float((x - y).abs().max()) / max(scale, 1e-30) if y.numel() else 0.
+    if err > worst:
+      worst, where = err, k
+  return worst, where
+
+
+def _graph_copy_state(dst, src) -> None:
+  """``src``'s values into ``dst``'s tensors, Adam's slots as copies (a
+  live state dict holds the live slots, which ``load_adam`` would
+  share)."""
+  dst.g.load_state_dict(src.g.state_dict())
+  dst.d.load_state_dict(src.d.state_dict())
+  for opt, sched in (("g_opt", "g_sched"), ("d_opt", "d_sched")):
+    schedules.load_adam(getattr(dst, opt),
+                        copy.deepcopy(getattr(src, opt).state_dict()))
+    getattr(dst, sched).load_state_dict(getattr(src, sched).state_dict())
+  with torch.no_grad():
+    for n, t in dst.g_ema.items():
+      t.copy_(src.g_ema[n])
+  dst.generator.set_state(src.generator.get_state())
+  dst.step, dst.g_version = src.step, src.g_version
+
+
+def _graph_parity(dev, dtype: str):
+  """The headline from one seed: (A) a chain of GRAPH_CHAIN dataset steps
+  captured (after its warm-up chain and its first replay, A's state is
+  copied into B and C), (B) the eager chain from the same state and
+  generator, (C) a second eager chain, B's noise floor. Returns the worst
+  relative differences A-B and C-B over every tensor and metric, the
+  generators' agreement and the K1 launches of two more replays."""
+  g_cfg, d_cfg, spec = bench.build_models("headline", dtype=dtype)
+  gan = GANConfig(loss=spec["loss"], training_ratio=spec["ratio"],
+                  generator_batch_multiple=2, random_flip=True,
+                  g_ema_decay=0.999)
+  data_x = torch.randint(0, 256, (1024, 32, 32, 3), dtype=torch.uint8,
+                         generator=torch.Generator(device=dev).manual_seed(5),
+                         device=dev)
+  data_y = torch.zeros((1024,), dtype=torch.int32, device=dev)
+  arms = [create_state(g_cfg, d_cfg, OptimConfig(), spec["ratio"], dev,
+                       seed=0, g_ema_decay=0.999) for _ in range(3)]
+  jit = step_lib.make_jit_dataset_step(gan, 64, GRAPH_CHAIN)
+  eager = step_lib._multi(step_lib.make_dataset_step(gan, 64), GRAPH_CHAIN)
+  with _deterministic():
+    jit(arms[0], data_x, data_y)                      # warm-up chain
+    jit(arms[0], data_x, data_y)                      # capture, replay
+    check(jit.calls["capture"] == 1, jit.calls)
+    for other in arms[1:]:
+      _graph_copy_state(other, arms[0])
+    metrics = [jit(arms[0], data_x, data_y)] + [
+        eager(st, data_x, data_y) for st in arms[1:]]
+    torch.cuda.synchronize()
+  check(jit.last == "replay" and arms[0].step == 3 * GRAPH_CHAIN,
+        (jit.last, arms[0].step))
+  tensors = [{**_graph_tensors(st), **{f"metric.{k}": v
+                                        for k, v in m.items()}}
+             for st, m in zip(arms, metrics)]
+  ab, ab_at = _graph_rel(tensors[0], tensors[1])
+  cb, cb_at = _graph_rel(tensors[2], tensors[1])
+  gens = [st.generator.get_state() for st in arms]
+  same_gen = torch.equal(gens[0], gens[1]) and torch.equal(gens[2], gens[1])
+  cuda_wc.MOMENTS_LAUNCHES = 0
+  for _ in range(2):
+    jit(arms[0], data_x, data_y)
+  torch.cuda.synchronize()
+  k1 = cuda_wc.MOMENTS_LAUNCHES
+  values = {k: float(v) for k, v in metrics[0].items()}
+  check(all(np.isfinite(v) for v in values.values()), values)
+  return ab, ab_at, cb, cb_at, same_gen, k1, len(tensors[1]), values
+
+
+def _graph_trainer(out_dir: str, *extra):
+  args = cli_run.build_parser().parse_args(
+      GRAPH_CKPT_ARGS + ["--output_dir", out_dir, "--checkpoints_dir",
+                         os.path.join(out_dir, "ckpt"), *extra])
+  return cli_run.build_experiment(args)
+
+
+def _graph_checkpoint(dev):
+  """The CLI's trainer (full width, float32, chains of GRAPH_CHAIN, EMA):
+  T1 runs 4 chains (a warm-up, a capture, 2 replays) and saves after the
+  second; T2 restores it into a fresh trainer and runs 2 (a warm-up and a
+  capture). T2 against T1 after chain 3 and after chain 4."""
+  out_dir = os.path.join("build", "chip_smoke_graph")
+  shutil.rmtree(out_dir, ignore_errors=True)
+  t1 = _graph_trainer(out_dir)
+  check(isinstance(t1.step_fn, step_lib.JitStep), type(t1.step_fn))
+  errs = []
+  with _deterministic():
+    for _ in range(2):
+      t1.step_fn(t1.state, *t1._device_data)
+    t1.save_checkpoint(1)
+    t2 = _graph_trainer(out_dir)
+    t2.restore_checkpoint(t1.checkpoint_path(1))
+    for _ in range(2):
+      m1 = t1.step_fn(t1.state, *t1._device_data)
+      m2 = t2.step_fn(t2.state, *t2._device_data)
+      torch.cuda.synchronize()
+      errs.append(_graph_rel(
+          {**_graph_tensors(t2.state), **{f"metric.{k}": v
+                                          for k, v in m2.items()}},
+          {**_graph_tensors(t1.state), **{f"metric.{k}": v
+                                          for k, v in m1.items()}}))
+  check(t1.step_fn.calls == {"warm-up": 1, "capture": 1, "replay": 2,
+                             "eager": 0}
+        and t2.step_fn.calls == {"warm-up": 1, "capture": 1, "replay": 0,
+                                 "eager": 0},
+        (t1.step_fn.calls, t2.step_fn.calls))
+  check(torch.equal(t1.state.generator.get_state(),
+                    t2.state.generator.get_state()) and
+        t1.state.step == t2.state.step == 4 * GRAPH_CHAIN,
+        (t1.state.step, t2.state.step))
+  return errs
+
+
+def _graph_timing(dev):
+  """The headline (bf16, batch 64) compiled and eager on one state,
+  GRAPH_TIME_ROUNDS windows of GRAPH_TIME_STEPS steps each in turns:
+  imgs/s on the host clock and the device's span a step between CUDA
+  events (for the eager arm that span holds the card's idle gaps)."""
+  head = bench.build_bench("headline", device="cuda", seed=0)
+  step_fn, state, (real, labels), _ = head
+  arms = {"captured": step_fn, "eager": step_fn.eager}
+  for fn in (step_fn, step_fn, step_fn.eager):
+    fn(state, real, labels)
+  rates = {k: [] for k in arms}
+  spans = {k: [] for k in arms}
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  for r in range(GRAPH_TIME_ROUNDS):
+    for name in (list(arms) if r % 2 == 0 else list(arms)[::-1]):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      start.record()
+      for _ in range(GRAPH_TIME_STEPS):
+        arms[name](state, real, labels)
+      end.record()
+      torch.cuda.synchronize()
+      rates[name].append(GRAPH_TIME_STEPS * 5 * 64
+                         / (time.perf_counter() - t0))
+      spans[name].append(start.elapsed_time(end) / GRAPH_TIME_STEPS)
+  return {k: (float(np.median(rates[k])), min(rates[k]), max(rates[k]),
+              float(np.median(spans[k]))) for k in arms}
+
+
+def _graph_k2(dev):
+  """One captured headline step (bf16) with d_fake_stats 'running' and
+  kernel_eval: K2 on G's 7 WC layers in each of the 5 D-phase forwards
+  (35) and K1 in the G update (7), counted over one replay; or the error
+  of the capture, which must name K2."""
+  g_cfg, d_cfg, spec = bench.build_models("headline")
+  g_cfg = dataclasses.replace(g_cfg, kernel_eval=True)
+  gan = GANConfig(loss=spec["loss"], training_ratio=spec["ratio"],
+                  generator_batch_multiple=2, random_flip=True,
+                  d_fake_stats="running")
+  state = create_state(g_cfg, d_cfg, OptimConfig(), spec["ratio"], dev,
+                       seed=0)
+  real = torch.randint(0, 256, (5, 64, 32, 32, 3), dtype=torch.uint8,
+                       generator=torch.Generator(device=dev).manual_seed(6),
+                       device=dev)
+  step = step_lib.make_jit_step(gan)
+  try:
+    for _ in range(2):
+      step(state, real, None)
+  except RuntimeError as err:
+    check("whiten_color_apply" in str(err), f"K2 capture error: {err}")
+    return None, str(err)
+  cuda_wc.MOMENTS_LAUNCHES = cuda_wc.WC_APPLY_LAUNCHES = 0
+  metrics = step(state, real, None)
+  torch.cuda.synchronize()
+  counts = (cuda_wc.MOMENTS_LAUNCHES, cuda_wc.WC_APPLY_LAUNCHES)
+  check(step.last == "replay" and counts == (7, 35), (step.last, counts))
+  check(all(np.isfinite(float(v)) for v in metrics.values()), metrics)
+  return counts, None
+
+
+def phase_graph(dev: torch.device):
+  """Slice 12, the compiled step (``make_jit_step``,
+  ``make_jit_dataset_step``: CUDA graphs): the captured chain against the
+  eager one in float32 (gated at GRAPH_RTOL, the eager-vs-eager floor
+  beside it) and in bf16, the generators' states after it, K1 42 a step
+  across replays; a checkpoint taken after a captured chain and restored
+  into a fresh trainer against the uninterrupted run; the headline's
+  imgs/s and device span a step, captured and eager in turns; K2 in a
+  captured step. Returns the K1 and K2 launches by path."""
+  t_phase = time.perf_counter()
+  paths_k1, paths_k2 = {}, {}
+  for dtype in ("float32", "bfloat16"):
+    ab, ab_at, cb, cb_at, same_gen, k1, n, values = _graph_parity(dev, dtype)
+    torch.cuda.empty_cache()
+    check(same_gen, f"generator states differ after the chain ({dtype})")
+    check(k1 == 42 * 2 * GRAPH_CHAIN, (dtype, k1))
+    if dtype == "float32":
+      check(ab <= GRAPH_RTOL, (ab, ab_at, cb, cb_at))
+    paths_k1[f"graph: {dtype} headline, 2 replays of a chain of "
+             f"{GRAPH_CHAIN}"] = k1
+    log("graph", f"{dtype} headline, a chain of {GRAPH_CHAIN} dataset steps "
+        f"(EMA 0.999, deterministic kernels) from one state and generator: "
+        f"captured vs eager max rel diff {ab:.3e} ({ab_at}), eager vs eager "
+        f"{cb:.3e} ({cb_at}) over {n} tensors and the metrics; generator "
+        f"states equal after the chain: {same_gen}; K1 {k1} in 2 replays "
+        f"({k1 // (2 * GRAPH_CHAIN)} a step); last "
+        + ", ".join(f"{k} {v:.4f}" for k, v in values.items()))
+  errs = _graph_checkpoint(dev)
+  torch.cuda.empty_cache()
+  for chain, (err, at) in zip((3, 4), errs):
+    check(err <= GRAPH_RTOL, (chain, err, at))
+  log("graph", f"checkpoint after 2 chains (warm-up, capture) of the CLI's "
+      f"float32 trainer, restored into a fresh trainer: after chain 3 "
+      f"(restored: warm-up; live: replay) max rel diff {errs[0][0]:.3e} "
+      f"({errs[0][1]}), after chain 4 (restored: capture; live: replay) "
+      f"{errs[1][0]:.3e} ({errs[1][1]}); generators and steps equal")
+  times = _graph_timing(dev)
+  torch.cuda.empty_cache()
+  check(_positive(*(v for t in times.values() for v in t)), times)
+  cap, eag = times["captured"], times["eager"]
+  log("graph", f"headline bf16 b64 on {nvidia_smi()}, {GRAPH_TIME_ROUNDS} "
+      f"windows of {GRAPH_TIME_STEPS} steps each in turns: captured "
+      f"{cap[0]:.1f} imgs/s ({cap[1]:.1f}-{cap[2]:.1f}), device span "
+      f"{cap[3]:.3f} ms a step; eager {eag[0]:.1f} imgs/s ({eag[1]:.1f}-"
+      f"{eag[2]:.1f}), device span {eag[3]:.3f} ms a step (its idle gaps "
+      f"included); {cap[0] / eag[0]:.2f}x")
+  counts, err = _graph_k2(dev)
+  torch.cuda.empty_cache()
+  if counts is None:
+    log("graph", f"K2 under capture: refused, by name: {err}")
+  else:
+    paths_k1["graph: one captured d_fake_stats running step"] = counts[0]
+    paths_k2["graph: one captured d_fake_stats running + kernel_eval step"] \
+        = counts[1]
+    log("graph", f"K2 captured: one replay of a d_fake_stats='running' + "
+        f"kernel_eval step launched K1 {counts[0]}, K2 {counts[1]} (the "
+        f"cooperative setup inside the graph)")
+  log("graph", f"phase {time.perf_counter() - t_phase:.1f} s")
+  return paths_k1, paths_k2
 
 
 def _u8_diff(a: np.ndarray, b: np.ndarray):
@@ -1503,20 +1802,12 @@ def phase_cond_slice(dev: torch.device):
 def _profile_cond_step(state, gan) -> None:
   """One bf16 cWC outer step under torch.profiler: kernel time, busy
   share over the device span, K1's share."""
-  from torch.profiler import ProfilerActivity, profile
   dev = state.generator.device
   real, labels, _ = _cond_inputs(dev, gan, 64, 32, seed=9)
   step = make_outer_step(gan)
   step(state, real, labels)
   torch.cuda.synchronize()
-  t0 = time.perf_counter()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    step(state, real, labels)
-    torch.cuda.synchronize()
-  wall = (time.perf_counter() - t0) * 1e3
-  kernels = [e for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+  kernels, wall = _traced_kernels(lambda: step(state, real, labels))
   total = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
   span = (max(e.time_range.end for e in kernels)
           - min(e.time_range.start for e in kernels)) / 1e3
@@ -2670,6 +2961,7 @@ def main() -> int:
   launches, state, gan = phase_slice(dev)
   phase_profile(state, gan)
   bench_k1, bench_k2 = phase_bench(dev)
+  graph_k1, graph_k2 = phase_graph(dev)
   k2_launches, npz = phase_sampling(dev, state, gan)
   phase_cli(npz)
   run_step_launches, standing_launches, run_k2_launches = phase_run(dev)
@@ -2702,6 +2994,7 @@ def main() -> int:
   # launches: the sum over the paths in launches_by_path, each counted from
   # 0 just before its run.
   k1_paths = {"training slice, 10 outer steps": launches, **bench_k1,
+              **graph_k1,
               "run: one outer step from a saved and from its restored "
               "state": run_step_launches,
               "run: one standing-statistics recompute": standing_launches,
@@ -2716,7 +3009,7 @@ def main() -> int:
               f"{DIGITS_EPOCHS * digits_quality.STEPS_PER_EPOCH} outer steps":
                   digits_launches}
   k2_paths = {"sampling: generate(1024, batch=256)": k2_launches,
-              **bench_k2,
+              **bench_k2, **graph_k2,
               "run: EMA generate(1024, batch=256)": run_k2_launches,
               "cond-sampling: conditional generate(1024, batch=256)":
                   cond_k2,

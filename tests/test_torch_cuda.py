@@ -672,3 +672,180 @@ def test_remat_g_update_counts_the_recompute(dev):
     assert abs(m_r[k] - m_p[k]) <= 1e-3 * max(1.0, abs(m_p[k])), k
   for n in s_p:
     assert float((s_r[n] - s_p[n]).abs().max()) <= 1e-4, n
+
+
+# --- the compiled step: CUDA graphs ---------------------------------------------
+
+
+def test_k1_inside_a_capture_matches_plain(dev):
+  """K1 captured in a CUDA graph (its launches on the capture stream, its
+  workspace from the graph's pool), replayed on new rows written into the
+  captured input, against the plain version."""
+  x = torch.randn((16384, 256), device=dev, dtype=torch.bfloat16)
+  cuda_wc.moments_cuda(x)
+  graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  before = cuda_wc.MOMENTS_LAUNCHES
+  with torch.cuda.stream(side), torch.cuda.graph(graph, stream=side):
+    mean, cov = cuda_wc.moments_cuda(x)
+  torch.cuda.current_stream().wait_stream(side)
+  assert cuda_wc.MOMENTS_LAUNCHES == before + 1
+  for seed in (1, 2):
+    x.copy_(torch.randn(x.shape, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            seed)))
+    graph.replay()
+    assert _max_err((mean, cov), cuda_wc.moments_reference(x)) <= ATOL
+
+
+def _jit_states(dev, d_fake_stats="batch", kernel_eval=None):
+  from wcgan_tpu_torch.models.discriminator import DiscriminatorConfig
+  from wcgan_tpu_torch.models.generator import GeneratorConfig
+  from wcgan_tpu_torch.train.state import OptimConfig, create_state
+  from wcgan_tpu_torch.train.step import GANConfig
+  gan = GANConfig(training_ratio=2, z_dim=32, random_flip=True,
+                  g_ema_decay=0.9, d_fake_stats=d_fake_stats)
+  g_cfg = GeneratorConfig(z_dim=32, filters=(64, 64, 64),
+                          kernel_eval=kernel_eval)
+  states = [create_state(g_cfg, DiscriminatorConfig(filters=(64,) * 4),
+                         OptimConfig(lr_decay_schedule="linear",
+                                     total_outer_steps=20), 2, dev, seed=3,
+                         g_ema_decay=0.9) for _ in range(2)]
+  data = (torch.randint(0, 256, (256, 32, 32, 3), dtype=torch.uint8,
+                        device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(4)),
+          torch.zeros((256,), dtype=torch.int32, device=dev))
+  return gan, states, data
+
+
+def test_captured_chain_matches_the_eager_chain(dev):
+  """make_jit_dataset_step (a chain of 3, float32, deterministic kernels)
+  against the eager chain from the same state and generator: a warm-up,
+  a capture and a replay against three eager chains, every parameter,
+  buffer, Adam slot and EMA tensor within 1e-4 of its largest value, the
+  generators equal, the host counts and K1's launches (21 a step) counted
+  on each replay."""
+  from wcgan_tpu_torch.train.state import full_state
+  from wcgan_tpu_torch.train.step import (_multi, make_dataset_step,
+                                          make_jit_dataset_step)
+  gan, (jit_st, ref_st), data = _jit_states(dev)
+  jit = make_jit_dataset_step(gan, 16, 3)
+  eager = _multi(make_dataset_step(gan, 16), 3)
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  torch.backends.cudnn.deterministic = True
+  try:
+    for call in range(3):
+      before = cuda_wc.MOMENTS_LAUNCHES
+      m_j = jit(jit_st, *data)
+      launched = cuda_wc.MOMENTS_LAUNCHES - before
+      m_e = eager(ref_st, *data)
+      assert launched == 3 * 21, (call, launched)
+      assert jit_st.step == ref_st.step == 3 * (call + 1)
+      assert jit_st.g_version == ref_st.g_version
+      for k in m_e:
+        assert abs(float(m_j[k]) - float(m_e[k])) <= 1e-4 * max(
+            1.0, abs(float(m_e[k]))), (call, k)
+  finally:
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+  assert jit.calls == {"warm-up": 1, "capture": 1, "replay": 1, "eager": 0}
+  assert torch.equal(jit_st.generator.get_state(),
+                     ref_st.generator.get_state())
+  got, want = full_state(jit_st), full_state(ref_st)
+  assert got["g_sched"] == want["g_sched"] == {"last_epoch": 9}
+
+  def tensors(st):
+    out = {**{f"g.{k}": v for k, v in st.g.state_dict().items()},
+           **{f"d.{k}": v for k, v in st.d.state_dict().items()},
+           **{f"ema.{k}": v for k, v in st.g_ema.items()}}
+    for m in ("g", "d"):
+      opt = getattr(st, f"{m}_opt")
+      for n, p in getattr(st, m).named_parameters():
+        out.update({f"{m}_opt.{n}.{k}": v for k, v in opt.state[p].items()})
+    return out
+
+  a, b = tensors(jit_st), tensors(ref_st)
+  assert a.keys() == b.keys()
+  for k in b:
+    scale = max(float(b[k].abs().max()), 1e-30)
+    assert float((a[k] - b[k]).abs().max()) <= 1e-4 * scale, k
+
+
+def test_captured_metrics_are_fresh_each_call(dev):
+  from wcgan_tpu_torch.train.step import make_jit_dataset_step
+  gan, (st, _), data = _jit_states(dev)
+  jit = make_jit_dataset_step(gan, 16, 2)
+  outs = [jit(st, *data) for _ in range(4)]
+  kept = {k: v.clone() for k, v in outs[2].items()}
+  jit(st, *data)
+  torch.cuda.synchronize()
+  assert jit.last == "replay"
+  for k in kept:
+    assert len({o[k].data_ptr() for o in outs}) == 4, k
+    assert torch.equal(outs[2][k], kept[k]), k
+
+
+def test_k2_captured_in_a_running_stats_step(dev):
+  """d_fake_stats 'running' with kernel_eval: the D phase samples through
+  K2 (7 WC layers x 2 D updates) inside the graph, K1 runs in the G
+  update (7); a replay counts both. If the cooperative setup could not be
+  captured, the capture would raise naming whiten_color_apply."""
+  from wcgan_tpu_torch.train.step import make_jit_step
+  gan, (st, _), (data, _) = _jit_states(dev, "running", True)
+  step = make_jit_step(gan)
+  real = data[:32].view(2, 16, 32, 32, 3)
+  try:
+    step(st, real, None)
+    step(st, real, None)
+  except RuntimeError as err:
+    assert "whiten_color_apply" in str(err), err
+    return
+  k1, k2 = cuda_wc.MOMENTS_LAUNCHES, cuda_wc.WC_APPLY_LAUNCHES
+  metrics = step(st, real, None)
+  torch.cuda.synchronize()
+  assert step.last == "replay"
+  assert (cuda_wc.MOMENTS_LAUNCHES - k1, cuda_wc.WC_APPLY_LAUNCHES - k2) == \
+      (7, 14)
+  assert all(np.isfinite(float(v)) for v in metrics.values())
+
+
+def test_trainer_captures_and_restores_on_card(dev, tmp_path):
+  """The CLI's trainer runs the compiled chain on the card: a warm-up, a
+  capture, replays; a restore invalidates it (the next call warms up, the
+  one after captures anew) and Adam's counts stay on the card."""
+  tt = _trainer(tmp_path)
+  for _ in range(3):
+    tt.step_fn(tt.state, *tt._device_data)
+  assert tt.step_fn.calls == {"warm-up": 1, "capture": 1, "replay": 1,
+                              "eager": 0}
+  tt.save_checkpoint(0)
+  tt.restore_checkpoint(tt.checkpoint_path(0))
+  p = next(tt.state.g.parameters())
+  assert tt.state.g_opt.state[p]["step"].is_cuda
+  assert tt.state.g_opt.param_groups[0]["lr"] is tt.state.g_sched.lr
+  for kind in ("warm-up", "capture", "replay"):
+    tt.step_fn(tt.state, *tt._device_data)
+    assert tt.step_fn.last == kind
+
+
+def test_profile_dir_and_debug_nans_on_replays(dev, tmp_path):
+  """--profile_dir traces the step calls after the capture (replays: K1's
+  kernels are in the trace) and --debug_nans checks each replay's
+  metrics; anomaly detection stays on through the capture."""
+  import json
+  prof = tmp_path / "prof"
+  tt = _trainer(tmp_path, "--number_of_epochs", "3", "--batches_per_epoch",
+                "4", "--profile_dir", str(prof), "--debug_nans")
+  assert tt.cfg.debug_nans
+  torch.autograd.set_detect_anomaly(True)
+  try:
+    tt.train()
+  finally:
+    torch.autograd.set_detect_anomaly(False)
+  assert tt.step_fn.calls == {"warm-up": 1, "capture": 1, "replay": 4,
+                              "eager": 0}
+  log = (tmp_path / "o" / "lane" / "log.txt").read_text()
+  assert "wrote profiler trace" in log and "(3 step calls)" in log
+  names = {e.get("name", "") for e in json.loads(
+      (prof / "trace.json").read_text())["traceEvents"]}
+  assert any("centered_gram_tf32x3" in n for n in names)

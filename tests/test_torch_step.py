@@ -168,11 +168,24 @@ def test_running_state_matches(model, coll, one_step):
 
 
 @pytest.mark.parametrize("name", ["none", "linear", "half-linear",
-                                  "linear-end"])
+                                  "linear-end", "tensor:none",
+                                  "tensor:linear", "tensor:half-linear",
+                                  "tensor:linear-end"])
 def test_lr_factors_match_optax(name):
+  """The host factor, and ('tensor:') the factor of a device count that
+  the captured step's LR follows, which also equals the host factor over
+  t = 0 ... total + 2."""
+  form, _, name = name.rpartition(":")
   total = 37
   sched_j = jschedules.lr_schedule(name, 1.0, total)
   factor = schedules.lr_factor(name, total)
+  if form == "tensor":
+    on_count = schedules.lr_factor_tensor(name, total)
+    for t in range(total + 3):
+      np.testing.assert_allclose(float(on_count(torch.tensor(t))),
+                                 factor(t), atol=1e-6,
+                                 err_msg=f"{name} t={t}")
+    factor = lambda t: float(on_count(torch.tensor(t)))  # noqa: E731
   for t in (0, 1, 17, 18, 19, 32, 33, 34, 36, 37, 50):
     np.testing.assert_allclose(factor(t), float(sched_j(t)), atol=1e-6,
                                err_msg=f"{name} t={t}")

@@ -6,6 +6,7 @@
   python -m wcgan_tpu_torch.bench --gap | --swing | --variants [--quick]
   python -m wcgan_tpu_torch.bench --sampling
   python -m wcgan_tpu_torch.bench --profile [--config cfg2] [--dfake-running]
+                                  # the compiled step, then the eager one
   python -m wcgan_tpu_torch.bench --scoring [--inception-tf32]
 
 Every mode runs on ``--device cuda`` (the default; it raises without a
@@ -15,23 +16,32 @@ package's ``bench.py`` (``_measure``, ``main``), ``bench_ablate.py``
 ``scripts/mfu.py``, on the shapes of ``tools/bench_shapes.py``.
 
 The record (no mode flag) prints the reference's line, ``metric``,
-``value`` (imgs/s at batch 64, bf16 unless ``--f32``), ``unit`` and
-``vs_baseline``, with ``value_b128`` (batch twice ``--batch``) and
-``value_dfake_running`` (``d_fake_stats="running"``) unless ``--no-b128``
-/ ``--no-dfake``; beside them each value's ``spread`` (min, max),
-``k1_launches_per_step``, ``flops_per_outer_step`` and ``mfu`` with its
-``peak``, the device's ``busy`` share in a profiled window, the device,
+``value`` (imgs/s of the compiled step at batch 64, bf16 unless ``--f32``),
+``unit`` and ``vs_baseline``, with ``value_eager`` (the eager step, in
+turns with ``value`` on the same state), ``value_b128`` (batch twice
+``--batch``) and ``value_dfake_running`` (``d_fake_stats="running"``)
+unless ``--no-b128`` / ``--no-dfake``; beside them each value's
+``spread`` (min, max), ``k1_launches_per_step``, ``flops_per_outer_step``
+and ``mfu`` with its ``peak``, the device's ``busy`` share and kernels a
+step in a profiled window of each arm, the capture's seconds, the device,
 the precision switches and the versions.
 
-How a value is measured (``measure``): a fresh state, 2 warm-up outer
-steps (the first builds K1 with nvcc and lets cuDNN pick its algorithms),
-then ``--repeats`` windows of ``--steps`` outer steps on the host clock,
-each fenced by ``torch.cuda.synchronize()``; imgs/s is ratio x batch x
-steps over a window's seconds; the value is the median of the windows.
-K1's launches are counted over the windows. Precision is the CLI's
+The step measured is the reference bench's: the compiled outer step
+(``train/step.py::make_jit_step``, as ``bench.py`` measures ``jax.jit`` of
+the step), on CUDA one CUDA-graph replay a step. How a value is measured
+(``measure``): a fresh state, 2 warm-up outer steps (the first runs
+eagerly, builds K1 with nvcc and lets cuDNN pick its algorithms; the
+second captures the graph), then ``--repeats`` windows of ``--steps``
+outer steps on the host clock, each fenced by
+``torch.cuda.synchronize()``; imgs/s is ratio x batch x steps over a
+window's seconds; the value is the median of the windows. K1's launches
+are counted over the windows (a replay adds the launches its capture
+counted). ``measure_turns`` measures the compiled and the eager step on
+one state, their windows in turns. Precision is the CLI's
 (``cli/run.py::set_precision``: TF32 off for matmuls and cuDNN).
 
-FLOPs (``count_flops``) are those of one outer step as
+FLOPs (``count_flops``) are those of one eager outer step (the counter
+cannot see inside a graph) as
 ``torch.utils.flop_counter.FlopCounterMode`` counts them (products and
 convolutions, forward and backward; elementwise work is not counted),
 with the moments on the plain path: K1 is a call into a library the
@@ -180,6 +190,58 @@ def measure(bench: Bench, steps: int = 30, repeats: int = 3) -> dict:
   return out
 
 
+def _eager(step_fn):
+  """The eager step a compiled one wraps (itself when it is eager)."""
+  return getattr(step_fn, "eager", step_fn)
+
+
+def measure_turns(bench: Bench, steps: int = 30, repeats: int = 3
+                  ) -> Dict[str, dict]:
+  """``measure`` of the compiled step (``captured``) and of the eager
+  step it wraps (``eager``) on one state, ``repeats`` windows each in
+  turns (captured first in even rounds, eager first in odd ones). Each
+  arm: imgs/s median, min and max, K1's launches a step, peak memory (the
+  eager arm's over its windows; the captured arm's over its capture, the
+  most its graph's pool holds at once, beside the state). Also the
+  capture's seconds on the host clock, synchronised."""
+  step_fn, state, (real, labels), _ = bench
+  arms = {"captured": step_fn, "eager": _eager(step_fn)}
+  dev = real.device
+  for _ in range(WARMUP_STEPS):
+    arms["eager"](state, real, labels)
+  step_fn(state, real, labels)                 # the compiled step's warm-up
+  fence(dev)
+  _reset_memory(dev)
+  t0 = time.perf_counter()
+  step_fn(state, real, labels)                 # its capture, then a replay
+  fence(dev)
+  capture_s = time.perf_counter() - t0
+  memory = {"captured": _memory_mib(dev), "eager": None}
+  rates = {k: [] for k in arms}
+  launches = dict.fromkeys(arms, 0)
+  for r in range(repeats):
+    for name in (list(arms) if r % 2 == 0 else list(arms)[::-1]):
+      if name == "eager":
+        _reset_memory(dev)
+      before = cuda_wc.MOMENTS_LAUNCHES
+      t0 = time.perf_counter()
+      for _ in range(steps):
+        out = arms[name](state, real, labels)
+      fence(dev)
+      rates[name].append(steps * _imgs_per_step(bench)
+                         / (time.perf_counter() - t0))
+      launches[name] += cuda_wc.MOMENTS_LAUNCHES - before
+      if name == "eager" and dev.type == "cuda":
+        memory["eager"] = max(memory["eager"] or 0.0, _memory_mib(dev))
+      if not np.all(np.isfinite([float(v) for v in out.values()])):
+        raise RuntimeError(f"non-finite step metrics {out} ({name})")
+  result = {name: {**_spread(rates[name]),
+                   "k1_launches_per_step": launches[name] / (steps * repeats),
+                   "max_memory_mib": memory[name]} for name in arms}
+  result["captured"]["capture_s"] = capture_s
+  return result
+
+
 @contextlib.contextmanager
 def plain_moments(*models: torch.nn.Module):
   """Every WC layer of ``models`` on the plain moments (``use_kernel``
@@ -197,13 +259,13 @@ def plain_moments(*models: torch.nn.Module):
 
 
 def count_flops(bench: Bench) -> int:
-  """FLOPs of one outer step of ``bench`` (it advances the state), on the
-  plain moments, as FlopCounterMode counts them."""
+  """FLOPs of one eager outer step of ``bench`` (it advances the state),
+  on the plain moments, as FlopCounterMode counts them."""
   from torch.utils.flop_counter import FlopCounterMode
   step_fn, state, (real, labels), _ = bench
   counter = FlopCounterMode(display=False)
   with plain_moments(state.g, state.d), counter:
-    step_fn(state, real, labels)
+    _eager(step_fn)(state, real, labels)
   return counter.get_total_flops()
 
 
@@ -233,18 +295,24 @@ def _is_annotation(event) -> bool:
       event.name.startswith("Optimizer.")
 
 
-def profile(bench: Bench, steps: int = PROFILE_STEPS, top: int = 10) -> dict:
-  """A window of ``steps`` outer steps under ``torch.profiler``: kernels,
-  kernel ms, wall ms, the busy share (kernel time over the profiled
-  window's wall time), the ``top`` kernels by device time, K1's share;
-  and the same window's wall time unprofiled before it (the profiler's
-  overhead) and after it (what tracing leaves behind in the process), and
-  K1's launches in the profiled window. Off the card there are no
-  kernels: those fields are None."""
+def profile(bench: Bench, steps: int = PROFILE_STEPS, top: int = 10,
+            eager: bool = False) -> dict:
+  """A window of ``steps`` outer steps of the bench's step (the eager
+  step it wraps with ``eager``) under ``torch.profiler``: kernels, and
+  kernels a step, kernel ms, wall ms, the busy share (kernel time over
+  the profiled window's wall time), the ``top`` kernels by device time,
+  K1's share; and the same window's wall time unprofiled before it (the
+  profiler's overhead) and after it (what tracing leaves behind in the
+  process), and K1's launches in the profiled window. Two calls come
+  first (a compiled step's warm-up and capture). Off the card there are
+  no kernels: those fields are None."""
   from torch.profiler import ProfilerActivity, profile as torch_profile
   step_fn, state, (real, labels), _ = bench
+  if eager:
+    step_fn = _eager(step_fn)
   dev = real.device
-  step_fn(state, real, labels)
+  for _ in range(2):
+    step_fn(state, real, labels)
 
   def window_ms() -> float:
     fence(dev)
@@ -266,7 +334,8 @@ def profile(bench: Bench, steps: int = PROFILE_STEPS, top: int = 10) -> dict:
          "profiler_overhead": wall_ms / plain_ms - 1.0,
          "wall_ms_unprofiled_after": window_ms(),
          "k1_launches": k1_launches, "kernels": None,
-         "kernel_ms": None, "busy": None, "top_kernels": None,
+         "kernels_per_step": None, "kernel_ms": None, "busy": None,
+         "top_kernels": None,
          "k1_kernels": None, "k1_ms": None, "k1_share": None}
   if dev.type != "cuda":
     return out
@@ -281,8 +350,9 @@ def profile(bench: Bench, steps: int = PROFILE_STEPS, top: int = 10) -> dict:
   k1 = [v for k, v in by_name.items() if any(n in k for n in K1_KERNELS)]
   k1_ms = sum(ms for _, ms in k1)
   ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+  kernels = sum(n for n, _ in by_name.values())
   out.update(
-      kernels=sum(n for n, _ in by_name.values()), kernel_ms=kernel_ms,
+      kernels=kernels, kernels_per_step=kernels / steps, kernel_ms=kernel_ms,
       busy=kernel_ms / wall_ms, k1_kernels=sum(n for n, _ in k1),
       k1_ms=k1_ms,
       k1_share=k1_ms / kernel_ms if kernel_ms else None,
@@ -557,16 +627,20 @@ def record(a, dtype: str) -> dict:
   dev = resolve_device(a.device)
   bench = build_bench("headline", batch=a.batch, dtype=dtype,
                       device=a.device, seed=a.seed)
-  b = measure(bench, a.steps, a.repeats)
+  turns = measure_turns(bench, a.steps, a.repeats)
+  b, e = turns["captured"], turns["eager"]
   rec = {
       "metric": "imgs/sec/chip, G+D outer step, CIFAR-10 WC-ResNet "
                 f"(batch {a.batch}, D:G 5:1, {dtype})",
       "value": b["median"],
       "unit": "imgs/sec/chip",
       "vs_baseline": b["median"] / BASELINE_IMGS_PER_SEC,
+      "value_eager": e["median"],
   }
-  spread = {"value": [b["min"], b["max"]]}
-  memory = {"value": b["max_memory_mib"]}
+  spread = {"value": [b["min"], b["max"]],
+            "value_eager": [e["min"], e["max"]]}
+  memory = {"value": b["max_memory_mib"],
+            "value_eager": e["max_memory_mib"]}
   if not a.no_b128:
     m = measure(build_bench("headline", batch=2 * a.batch, dtype=dtype,
                             device=a.device, seed=a.seed),
@@ -581,16 +655,23 @@ def record(a, dtype: str) -> dict:
     rec["value_dfake_running"] = m["median"]
     spread["value_dfake_running"] = [m["min"], m["max"]]
     memory["value_dfake_running"] = m["max_memory_mib"]
-  # The profile comes last: CUDA tracing may slow the process's later
+  # The profiles come last: CUDA tracing may slow the process's later
   # launches. The busy share is the device's; off the card there is none.
-  prof = profile(bench) if dev.type == "cuda" else None
+  on_card = dev.type == "cuda"
+  prof = profile(bench) if on_card else None
+  prof_eager = profile(bench, eager=True) if on_card else None
   flops = count_flops(bench)
   per_step = _imgs_per_step(bench)
   rec.update(
       spread=spread, windows=a.repeats, steps_per_window=a.steps,
       k1_launches_per_step=b["k1_launches_per_step"],
+      k1_launches_per_step_eager=e["k1_launches_per_step"],
+      capture_s=b["capture_s"],
       **mfu(flops, b["median"], per_step, dtype, dev),
-      busy=prof and prof["busy"], profile=prof, max_memory_mib=memory,
+      busy=prof and prof["busy"], busy_eager=prof_eager and prof_eager["busy"],
+      kernels_per_step=prof and prof["kernels_per_step"],
+      kernels_per_step_eager=prof_eager and prof_eager["kernels_per_step"],
+      profile=prof, profile_eager=prof_eager, max_memory_mib=memory,
       device=device_info(dev), **switches(), torch=torch.__version__,
       cuda=torch.version.cuda, dtype=dtype, batch=a.batch)
   return rec
@@ -707,7 +788,8 @@ def main(argv=None) -> int:
     bench = build_bench(a.config, batch=a.batch, dtype=dtype,
                         d_fake_stats=dfake, device=a.device, seed=a.seed)
     emit({"mode": "profile", "config": a.config, "dtype": dtype,
-          "batch": a.batch, "d_fake_stats": dfake, **profile(bench)})
+          "batch": a.batch, "d_fake_stats": dfake, **profile(bench),
+          "eager": profile(bench, eager=True)})
   elif a.scoring:
     emit(bench_scoring(a.device, a.seed, a.samples_is, a.samples_fid,
                        inception_tf32=a.inception_tf32))

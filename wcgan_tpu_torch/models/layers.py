@@ -13,6 +13,15 @@ with ``conv_singular``) in the SN wrappers. Parameters stay float32; each layer
 casts them to the activation dtype where it uses them, as flax's ``dtype=``
 does.
 
+Every statistics and SN buffer advances in place (``_advance``): a buffer
+keeps its identity and address for the life of the module, which a step
+captured as a CUDA graph (``train/step.py::make_jit_step``) needs, since a
+replay reads and writes the addresses it was captured on. Where autograd
+would save a buffer that a later pass of the same update advances before
+the backward runs (the running statistics 'dr' whitens with, ``u`` under
+``fully_diff``, the buffers a ``remat`` recomputation reads), the pass
+reads a copy, so the backward sees the values its forward saw.
+
 The layers with batch statistics (``DecorrelationNorm``, ``BatchNorm``,
 ``NormLayer``, ``NormColor``) take ``group``, the reference's
 ``axis_name``: a process group over which their train-mode statistics are
@@ -43,6 +52,20 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
   """(N, C, H, W) channels_last -> its (N*H*W, C) rows, without a copy
   (``view`` raises if the layout would need one)."""
   return x.permute(0, 2, 3, 1).view(-1, x.shape[1])
+
+
+def _advance(buffer: torch.Tensor, new: torch.Tensor) -> None:
+  """Write ``new`` into ``buffer`` in place, outside autograd. The write
+  bumps the buffer's version, so a backward that saved the old values
+  raises rather than reading the new ones."""
+  with torch.no_grad():
+    buffer.copy_(new)
+
+
+def _saved(t: torch.Tensor) -> torch.Tensor:
+  """``t`` as a pass that autograd may save reads it: a copy while grad
+  is on (a later pass may advance ``t`` before the backward), else ``t``."""
+  return t.clone() if torch.is_grad_enabled() else t
 
 
 def _unrows(x2d: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -153,14 +176,17 @@ class DecorrelationNorm(nn.Module):
                                                      self.group)
     if self.moments_sink is not None:
       self.moments_sink(batch_mean, batch_cov)
+    running = (self.mean, self.cov)
+    if self.mode == "dr":            # whitens with them: backward reads them
+      running = tuple(_saved(t) for t in running)
     mean, stat_src, new_mean, new_cov = whiten_ops.stats_select_and_ema(
-        batch_mean, batch_cov, self.mean, self.cov,
-        use_batch=self.mode == "d", momentum=self.momentum)
+        batch_mean, batch_cov, *running, use_batch=self.mode == "d",
+        momentum=self.momentum)
     out = whiten_ops.whiten_apply(x2d, mean, whiten_ops.inv_sqrt(stat_src,
                                                                  **wc))
     if update_stats:
-      self.mean = new_mean.detach()
-      self.cov = new_cov.detach()
+      _advance(self.mean, new_mean)
+      _advance(self.cov, new_cov)
     return _unrows(out, x)
 
 
@@ -208,8 +234,8 @@ class BatchNorm(nn.Module):
         self.moments_sink(mean, var)
       if update_stats:
         m = self.momentum
-        self.mean = (m * self.mean + (1 - m) * mean).detach()
-        self.var = (m * self.var + (1 - m) * var).detach()
+        _advance(self.mean, m * self.mean + (1 - m) * mean)
+        _advance(self.var, m * self.var + (1 - m) * var)
     else:
       mean, var = self.mean, self.var
     out = (x2d - mean) * torch.rsqrt(var + self.eps)
@@ -412,14 +438,15 @@ class NormColor(nn.Module):
                                                      self.group)
     if self.moments_sink is not None:
       self.moments_sink(batch_mean, batch_cov)
+    running = (self.mean, self.cov)
+    if self.norm_code == "dr":       # whitens with them: backward reads them
+      running = tuple(_saved(t) for t in running)
     mean, stat_src, new_mean, new_cov = whiten_ops.stats_select_and_ema(
-        batch_mean, batch_cov, self.mean, self.cov,
-        use_batch=self.norm_code == "d", momentum=self.momentum)
+        batch_mean, batch_cov, *running, use_batch=self.norm_code == "d",
+        momentum=self.momentum)
     if update_stats:
-      # Rebinding (not copy_) leaves the old tensors, which 'dr' feeds into
-      # the graph, unmodified for backward.
-      self.mean = new_mean.detach()
-      self.cov = new_cov.detach()
+      _advance(self.mean, new_mean)
+      _advance(self.cov, new_cov)
     return mean, stat_src
 
   def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None,
@@ -542,14 +569,14 @@ def remat_call(module: nn.Module, args: Tuple, kwargs: Dict[str, Any],
   reference's ``nn.remat``. Where grad is off it is a plain call.
 
   The recomputation must repeat the forward, not advance it a second time:
-  it runs on the buffers the first call read (running statistics, SN
-  vectors: the first call rebinds them, so the tensors it read are intact),
+  it runs on copies of the buffers the first call read (running
+  statistics, SN vectors: the first call advances them in place),
   with ``quiet`` merged into ``kwargs`` (the flags that advance them off),
   and records no batch statistics (``capture_batch_moments``). Its K1
   launches are real launches and are counted as such."""
   if not torch.is_grad_enabled():
     return module(*args, **kwargs)
-  read = dict(module.named_buffers())
+  read = {name: b.clone() for name, b in module.named_buffers()}
   calls = [0]
 
   def run(*inputs):
@@ -633,6 +660,14 @@ class Dense(nn.Linear):
     return _add_bias(F.linear(x, self.weight.to(x.dtype)), self.bias)
 
 
+def _sn_vector(u: torch.Tensor, fully_diff: bool) -> torch.Tensor:
+  """The power iteration's start ``u`` as a pass reads it. Without
+  ``fully_diff`` the iteration runs without grad and autograd saves only
+  its result; with it autograd saves ``u`` itself, so the pass reads a
+  copy."""
+  return _saved(u) if fully_diff else u
+
+
 class SNConv(nn.Module):
   """'SAME'-padded 2-D conv with a spectral-normalized kernel, the
   reference's ``SNConv``; the power-iteration state advances only when
@@ -671,20 +706,21 @@ class SNConv(nn.Module):
   def _normalized(self, x: torch.Tensor, update_sn: bool) -> torch.Tensor:
     if not self.conv_singular:
       w_bar, u_new = sn_ops.spectral_normalize(
-          self.weight, self.u, n_iters=self.sn_iters,
-          fully_diff=self.fully_diff)
+          self.weight, _sn_vector(self.u, self.fully_diff),
+          n_iters=self.sn_iters, fully_diff=self.fully_diff)
       if update_sn:
-        self.u = u_new.detach()
+        _advance(self.u, u_new)
       return w_bar
     if tuple(x.shape[2:]) != tuple(self.u_map.shape[2:]):
       raise ValueError(f"SNConv(conv_singular) was built for inputs of "
                        f"{tuple(self.u_map.shape[2:])}, got "
                        f"{tuple(x.shape[2:])}")
     sigma, u_new = sn_ops.conv_power_iteration(
-        self.weight, self.u_map, stride=self.stride, n_iters=self.sn_iters,
+        self.weight, _sn_vector(self.u_map, self.fully_diff),
+        stride=self.stride, n_iters=self.sn_iters,
         fully_diff=self.fully_diff)
     if update_sn:
-      self.u_map = u_new.detach()
+      _advance(self.u_map, u_new)
     return self.weight / sigma.to(self.weight.dtype)
 
   def forward(self, x: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
@@ -710,10 +746,10 @@ class SNDense(nn.Module):
 
   def forward(self, x: torch.Tensor, update_sn: bool = False) -> torch.Tensor:
     w_bar, u_new = sn_ops.spectral_normalize(
-        self.weight, self.u, n_iters=self.sn_iters,
-        fully_diff=self.fully_diff)
+        self.weight, _sn_vector(self.u, self.fully_diff),
+        n_iters=self.sn_iters, fully_diff=self.fully_diff)
     if update_sn:
-      self.u = u_new.detach()
+      _advance(self.u, u_new)
     return _add_bias(F.linear(x, w_bar.to(x.dtype)), self.bias)
 
 
@@ -736,10 +772,10 @@ class SNEmbed(nn.Module):
   def forward(self, labels: torch.Tensor,
               update_sn: bool = False) -> torch.Tensor:
     w_bar_t, u_new = sn_ops.spectral_normalize(
-        self.embedding.T, self.u, n_iters=self.sn_iters,
-        fully_diff=self.fully_diff)
+        self.embedding.T, _sn_vector(self.u, self.fully_diff),
+        n_iters=self.sn_iters, fully_diff=self.fully_diff)
     if update_sn:
-      self.u = u_new.detach()
+      _advance(self.u, u_new)
     return w_bar_t.T[labels.long()]
 
 

@@ -71,6 +71,27 @@ def _spd_jitter(cov: torch.Tensor, eps: float) -> torch.Tensor:
   return eps * mean_diag + 2.0 * neg_diag + 1e-12
 
 
+class _Trace(torch.autograd.Function):
+  """``torch.trace`` with a backward that stays on the device. Trace's own
+  backward writes its gradient on the diagonal with ``index_fill_`` of a
+  tensor value, which reads it on the host, and a captured step (a CUDA
+  graph) cannot do that. This one writes it with ``index_copy``: the same
+  values, and, differentiated again (WGAN-GP's double backward), the same
+  gather and sum of the diagonal, so the same rounding."""
+
+  @staticmethod
+  def forward(ctx, a):
+    ctx.n = a.shape[-1]
+    return torch.trace(a)
+
+  @staticmethod
+  def backward(ctx, grad):
+    n = ctx.n
+    diagonal = torch.arange(0, n * n, n + 1, device=grad.device)
+    return torch.zeros(n * n, dtype=grad.dtype, device=grad.device
+                       ).index_copy(0, diagonal, grad.expand(n)).view(n, n)
+
+
 def _jittered_normalized(cov: torch.Tensor, eps: float,
                          scaling: str = "trace"):
   """((cov + jitter I) / s, s, I) with s the trace or the Frobenius norm;
@@ -80,7 +101,7 @@ def _jittered_normalized(cov: torch.Tensor, eps: float,
   ident = torch.eye(c, dtype=torch.float32, device=cov.device)
   a = cov + _spd_jitter(cov, eps) * ident
   if scaling == "trace":
-    scale = torch.trace(a)
+    scale = _Trace.apply(a)
   elif scaling == "fro":
     scale = torch.sqrt(torch.sum(a * a))
   else:
@@ -127,10 +148,13 @@ def newton_schulz_sqrt(cov: torch.Tensor, num_iters: int = 15,
 
 def cholesky_inv_sqrt(cov: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
   """The oracle: lower-triangular L^{-1} with L L^T = cov + jitter I, so
-  W cov W^T = I."""
+  W cov W^T = I. A matrix that is not positive definite gives NaN, as
+  ``jnp.linalg.cholesky`` does, decided on the device (a captured step
+  cannot read the factorization's status on the host)."""
   cov = cov.float()
   ident = torch.eye(cov.shape[-1], dtype=torch.float32, device=cov.device)
-  chol = torch.linalg.cholesky(cov + _spd_jitter(cov, eps) * ident)
+  chol, info = torch.linalg.cholesky_ex(cov + _spd_jitter(cov, eps) * ident)
+  chol = torch.where(info == 0, chol, torch.full_like(chol, float("nan")))
   return torch.linalg.solve_triangular(chol, ident, upper=False)
 
 

@@ -26,7 +26,7 @@ from wcgan_tpu_torch.models.discriminator import preset_filters as d_presets
 from wcgan_tpu_torch.models.generator import GeneratorConfig
 from wcgan_tpu_torch.models.generator import preset_filters as g_presets
 from wcgan_tpu_torch.train.state import OptimConfig, create_state
-from wcgan_tpu_torch.train.step import GANConfig, make_outer_step
+from wcgan_tpu_torch.train.step import GANConfig, make_jit_step
 
 # One row per BASELINE config's per-chip shape. "headline" is the shape
 # of the record (the reference's bench.py). cfg5 is the per-chip slice of
@@ -83,8 +83,10 @@ def bench_from(g_cfg: GeneratorConfig, d_cfg: DiscriminatorConfig,
                spec: dict, gan: GANConfig, batch: int = 64,
                device: str = "cuda", seed: int = 0):
   """``(step_fn, state, (real, labels), spec)`` of one program: a fresh
-  state from ``seed`` (Adam 2e-4, betas 0 / 0.9) on ``device``, the outer
-  step of ``gan``, and one uint8 real batch (ratio, batch, res, res, 3)
+  state from ``seed`` (Adam 2e-4, betas 0 / 0.9) on ``device``, the
+  compiled outer step of ``gan`` (``make_jit_step``, as the reference's
+  bench jits it; ``step_fn.eager`` is the eager step), and one uint8 real
+  batch (ratio, batch, res, res, 3)
   with int32 labels (ratio, batch), drawn on the device from a
   ``torch.Generator`` seeded with ``seed + 1``."""
   dev = resolve_device(device)
@@ -95,7 +97,7 @@ def bench_from(g_cfg: GeneratorConfig, d_cfg: DiscriminatorConfig,
                        device=dev, dtype=torch.uint8)
   labels = torch.randint(0, max(spec["ncls"], 1), (ratio, batch),
                          generator=gen, device=dev, dtype=torch.int32)
-  return make_outer_step(gan), state, (real, labels), spec
+  return make_jit_step(gan), state, (real, labels), spec
 
 
 def build_bench(config: str, batch: int = 64, dtype: str = "bfloat16",

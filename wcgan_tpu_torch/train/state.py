@@ -2,8 +2,9 @@
 
 Counterpart of ``wcgan_tpu/train/state.py``. The reference threads an
 immutable pytree through a jitted step; here the step updates this object
-in place: G and D (parameters plus their ``wc_stats``/``u`` buffers), the
-two Adams with their LR schedulers, the outer-step count, the
+in place: G and D (parameters plus their ``wc_stats``/``u`` buffers, each
+tensor advanced in place, never rebound), the two Adams with their LR
+schedules (the LR a tensor on the device), the outer-step count, the
 ``torch.Generator`` that draws z, the flips and the device-data picks, and
 the EMA shadow of G's parameters (``g_ema``, the reference's
 ``GANTrainState.g_ema``).
@@ -44,8 +45,8 @@ class GANTrainState:
   d: Discriminator
   g_opt: torch.optim.Adam
   d_opt: torch.optim.Adam
-  g_sched: torch.optim.lr_scheduler.LambdaLR
-  d_sched: torch.optim.lr_scheduler.LambdaLR
+  g_sched: schedules.LRSchedule
+  d_sched: schedules.LRSchedule
   generator: torch.Generator
   step: int = 0                   # counts OUTER steps
   # EMA of G's parameters, name -> tensor over ``g.named_parameters()``

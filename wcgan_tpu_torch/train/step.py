@@ -40,6 +40,12 @@ pass that must not see the update runs before the pass that makes it.
 dataset that lives there, and ``_multi`` chains outer steps, as the
 reference's device-data path does.
 
+The compiled step (the reference's ``make_jit_step`` and
+``make_jit_dataset_step``, ``jax.jit`` of the step and of its
+``steps_per_call`` chain): on CUDA each is a ``torch.cuda.CUDAGraph`` of one
+outer step or of a whole chain, one replay a call (``JitStep``); on the CPU
+the same callables run the eager body on the same static buffers.
+
 Data parallelism (the reference's ``make_sharded_step`` and
 ``make_sharded_dataset_step``): with a process ``group`` every rank runs
 the outer step on its own rows of the global batch, its models built with
@@ -57,11 +63,13 @@ the step's key; injected ``noise`` overrides them, rank by rank.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence
+import traceback
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from wcgan_tpu_torch.ops import cuda_wc
 from wcgan_tpu_torch.ops import losses as loss_ops
 from wcgan_tpu_torch.parallel import mesh
 from wcgan_tpu_torch.train.state import GANTrainState
@@ -362,15 +370,305 @@ def make_dataset_step(cfg: GANConfig, batch_size: int,
 def _multi(fn: Callable[..., Dict[str, torch.Tensor]], steps_per_call: int
            ) -> Callable[..., Dict[str, torch.Tensor]]:
   """``steps_per_call`` outer steps of ``fn`` per call, returning their
-  mean metrics. The steps run eagerly; the chain sets the epoch length
-  and the probe cadence, as the reference's one-program chain does."""
+  mean metrics; the chain sets the epoch length and the probe cadence, as
+  the reference's one-program chain does. Run as it is, the steps run
+  eagerly; ``make_jit_dataset_step`` captures the whole chain as one CUDA
+  graph. ``noise``, when given, holds each step's draws along a leading
+  axis of ``steps_per_call``."""
   if steps_per_call <= 1:
     return fn
 
   def multi(state: GANTrainState, data_x: torch.Tensor,
-            data_y: torch.Tensor) -> Dict[str, torch.Tensor]:
-    metrics = [fn(state, data_x, data_y) for _ in range(steps_per_call)]
+            data_y: torch.Tensor, noise: Optional[Dict] = None
+            ) -> Dict[str, torch.Tensor]:
+    if noise is None:
+      metrics = [fn(state, data_x, data_y) for _ in range(steps_per_call)]
+    else:
+      metrics = [fn(state, data_x, data_y,
+                    noise={k: v[i] for k, v in noise.items()})
+                 for i in range(steps_per_call)]
     return {k: torch.stack([m[k] for m in metrics]).mean()
             for k in metrics[0]}
 
   return multi
+
+
+# --- the compiled step ---------------------------------------------------------
+
+
+def _state_tensors(state: GANTrainState) -> List[torch.Tensor]:
+  """Every tensor of ``state`` a step reads or writes: G's and D's
+  parameters and buffers, the optimizers' slots, counts and LRs, the
+  schedules' counts, the EMA shadow."""
+  out = [*state.g.parameters(), *state.g.buffers(), *state.d.parameters(),
+         *state.d.buffers()]
+  for opt in (state.g_opt, state.d_opt):
+    for slots in opt.state.values():
+      out.extend(v for v in slots.values() if torch.is_tensor(v))
+    out.extend(g["lr"] for g in opt.param_groups if torch.is_tensor(g["lr"]))
+  for sched in (state.g_sched, state.d_sched):
+    count = getattr(sched, "count", None)
+    if torch.is_tensor(count):
+      out.append(count)
+  if state.g_ema:
+    out.extend(state.g_ema.values())
+  return out
+
+
+def _state_key(state: GANTrainState) -> Tuple:
+  """What a captured graph is bound to in ``state``: its objects, and each
+  tensor's identity and address."""
+  return ((id(state), id(state.g), id(state.d), id(state.g_opt),
+           id(state.d_opt), id(state.g_sched), id(state.d_sched),
+           id(state.generator)),
+          tuple((id(t), t.data_ptr()) for t in _state_tensors(state)))
+
+
+def _input_key(copied: Sequence, held: Sequence,
+               noise: Optional[Dict]) -> Tuple:
+  """What a captured graph is bound to in a call's inputs: the shapes,
+  dtypes and devices of those copied into static buffers, the identity of
+  those read where they lie, and the noise's keys and shapes."""
+  def spec(a):
+    if a is None:
+      return None
+    if torch.is_tensor(a):
+      return (tuple(a.shape), a.dtype, a.device)
+    a = np.asarray(a)
+    return (a.shape, a.dtype.str, "host")
+
+  return (tuple(spec(a) for a in copied),
+          tuple((id(a), a.data_ptr(), spec(a)) if torch.is_tensor(a)
+                else None for a in held),
+          None if noise is None else tuple(
+              sorted((k, spec(v)) for k, v in noise.items())))
+
+
+def _capture_failure(name: str, err: BaseException) -> RuntimeError:
+  """The error of a failed capture, naming the call that could not be
+  captured: the innermost frame of the package (or of the kernels'
+  wrapper) where it was raised."""
+  frames = [f for f in traceback.extract_tb(err.__traceback__)
+            if "wcgan_tpu_torch" in f.filename]
+  where = (f" at {frames[-1].filename.split('wcgan_tpu_torch')[-1]}"
+           f":{frames[-1].lineno} ({frames[-1].name}: {frames[-1].line})"
+           if frames else "")
+  return RuntimeError(f"CUDA graph capture of {name} failed{where}: "
+                      f"{type(err).__name__}: {err}")
+
+
+class JitStep:
+  """A step function run through static buffers, the port's ``jax.jit``
+  of a step: ``step(state, *inputs, noise=None)`` with the signature of
+  the eager ``fn`` it wraps (``eager``), whose call runs ``steps`` outer
+  steps.
+
+  The inputs at the positions ``copied`` are copied into static buffers
+  on the state's device before each call (a host-fed batch; ``None``
+  stays ``None``); the others are read where they lie (the device
+  dataset; the step keeps no reference to them, so a dataset the caller
+  drops is freed). ``noise``, when given, is copied into static buffers
+  too.
+
+  On CUDA, after a warm-up call, each call is one replay of a
+  ``torch.cuda.CUDAGraph`` of ``fn``:
+
+  - the first call (and the first after ``invalidate()`` or after anything
+    the graph is bound to changes: the state's tensors, an optimizer or
+    schedule, the inputs' shapes, dtypes and devices, the device data's
+    tensors, the noise's keys) runs ``fn`` eagerly on a side stream. It is
+    a real call, it builds the kernels and creates Adam's slots;
+  - the next call captures ``fn`` on that stream, with ``state.generator``
+    registered with the graph, so that each replay draws fresh numbers and
+    advances the generator as eager calls would, then replays it; later
+    calls replay. A capture that fails raises, naming the call that could
+    not be captured; nothing falls back to eager;
+  - the host-side counts a call advances (``state.step``,
+    ``state.g_version`` and the kernels' launch counts
+    ``cuda_wc.MOMENTS_LAUNCHES``, ``WC_APPLY_LAUNCHES``) are those of the
+    captured call, added on each replay;
+  - the metrics are new tensors on each call (copies of the graph's
+    outputs);
+  - ``torch.autograd`` anomaly detection stays on in the capture without
+    its NaN check, which reads the device on the host (a caller's check of
+    the metrics, ``debug_nans``, runs on every call).
+
+  On the CPU every call after the warm-up runs ``fn`` eagerly on the
+  static buffers. ``last`` says what the last call did: 'warm-up',
+  'capture', 'replay' or 'eager' (the CPU's), and ``calls`` counts each."""
+
+  def __init__(self, fn: Callable[..., Dict[str, torch.Tensor]], steps: int,
+               copied: Sequence[bool], name: str):
+    self.eager = fn
+    self.steps = steps
+    self.name = name
+    self._copied = tuple(copied)
+    self._stream = None
+    self.calls = {"warm-up": 0, "capture": 0, "replay": 0, "eager": 0}
+    self.last: Optional[str] = None
+    self.invalidate()
+
+  def invalidate(self) -> None:
+    """Drop the graph and the static buffers: the next call warms up
+    again, the one after it captures anew."""
+    self._graph = None
+    self._key = None
+    self._static: Optional[List[Any]] = None
+    self._static_noise: Optional[Dict[str, torch.Tensor]] = None
+    self._out: Optional[Dict[str, torch.Tensor]] = None
+    self._advance = None
+
+  def _split(self, inputs):
+    copied = [a for a, c in zip(inputs, self._copied) if c]
+    held = [a for a, c in zip(inputs, self._copied) if not c]
+    return copied, held
+
+  @staticmethod
+  def _host(a) -> torch.Tensor:
+    if torch.is_tensor(a):
+      return a
+    # np.array copies: arrays from other frameworks are often read-only.
+    return torch.from_numpy(np.array(a))
+
+  def _fill(self, inputs, noise, device) -> None:
+    """Copy the inputs into the static buffers (made on first use; None
+    where an input is read where it lies)."""
+    if self._static is None:
+      self._static = [
+          torch.empty_like(self._host(a), device=device)
+          if c and a is not None else None
+          for a, c in zip(inputs, self._copied)]
+      self._static_noise = None if noise is None else {
+          k: torch.empty_like(self._host(v), device=device)
+          for k, v in noise.items()}
+    for buf, a in zip(self._static, inputs):
+      if buf is not None:
+        buf.copy_(self._host(a))
+    if noise is not None:
+      for k, v in noise.items():
+        self._static_noise[k].copy_(self._host(v))
+
+  def _run(self, state, inputs):
+    """``fn`` on the static buffers and the inputs read where they lie."""
+    args = [a if buf is None else buf for a, buf in zip(inputs, self._static)]
+    return self.eager(state, *args, noise=self._static_noise)
+
+  def __call__(self, state: GANTrainState, *inputs,
+               noise: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+    if len(inputs) != len(self._copied):
+      raise TypeError(f"{self.name} takes {len(self._copied)} inputs after "
+                      f"the state, got {len(inputs)}")
+    device = state.generator.device
+    inputs_key = _input_key(*self._split(inputs), noise)
+    if self._key != (_state_key(state), inputs_key):
+      out = self._warm_up(state, inputs, noise, device)
+      # Bound to the state as the warm-up left it (with Adam's slots).
+      self._key = (_state_key(state), inputs_key)
+      return out
+    self._fill(inputs, noise, device)
+    if device.type != "cuda":
+      self._note("eager")
+      return self._run(state, inputs)
+    if self._graph is None:
+      self._capture(state, inputs, device)
+      self._note("capture")
+    else:
+      self._note("replay")
+    self._graph.replay()
+    state.step += self._advance[0]
+    state.g_version += self._advance[1]
+    cuda_wc.MOMENTS_LAUNCHES += self._advance[2]
+    cuda_wc.WC_APPLY_LAUNCHES += self._advance[3]
+    return {k: v.clone() for k, v in self._out.items()}
+
+  def _note(self, kind: str) -> None:
+    self.calls[kind] += 1
+    self.last = kind
+
+  def _side_stream(self, device) -> "torch.cuda.Stream":
+    if self._stream is None:
+      self._stream = torch.cuda.Stream(device)
+    return self._stream
+
+  def _warm_up(self, state, inputs, noise, device):
+    self.invalidate()
+    self._fill(inputs, noise, device)
+    self._note("warm-up")
+    if device.type != "cuda":
+      out = self._run(state, inputs)
+    else:
+      current = torch.cuda.current_stream(device)
+      side = self._side_stream(device)
+      side.wait_stream(current)
+      with torch.cuda.stream(side):
+        out = self._run(state, inputs)
+      current.wait_stream(side)
+      for v in out.values():
+        v.record_stream(current)
+    return out
+
+  def _capture(self, state, inputs, device) -> None:
+    """Capture one call of ``fn`` on the side stream; the state's host
+    counts and the launch counts are put back, and what the call advances
+    them by is kept for the replays."""
+    before = (state.step, state.g_version, cuda_wc.MOMENTS_LAUNCHES,
+              cuda_wc.WC_APPLY_LAUNCHES)
+    graph = torch.cuda.CUDAGraph()
+    if state.generator.device.type == "cuda":
+      graph.register_generator_state(state.generator)
+    current = torch.cuda.current_stream(device)
+    side = self._side_stream(device)
+    side.wait_stream(current)
+    anomaly = torch.is_anomaly_enabled()
+    try:
+      with torch.cuda.stream(side), torch.autograd.set_detect_anomaly(
+          anomaly, check_nan=False):
+        with torch.cuda.graph(graph, stream=side):
+          out = self._run(state, inputs)
+    except Exception as err:
+      raise _capture_failure(self.name, err) from err
+    finally:
+      after = (state.step, state.g_version, cuda_wc.MOMENTS_LAUNCHES,
+               cuda_wc.WC_APPLY_LAUNCHES)
+      state.step, state.g_version = before[0], before[1]
+      cuda_wc.MOMENTS_LAUNCHES, cuda_wc.WC_APPLY_LAUNCHES = before[2:]
+    current.wait_stream(side)
+    self._advance = tuple(a - b for a, b in zip(after, before))
+    self._graph, self._out = graph, out
+
+
+def _refuse_group(name: str, group: mesh.Group) -> None:
+  if group is not None:
+    raise ValueError(
+        f"{name} runs on one process: a CUDA graph cannot capture gloo's "
+        "collectives, and the capture over NCCL is not ported yet; use "
+        "make_sharded_step / make_sharded_dataset_step (eager) with a "
+        "process group")
+
+
+def make_jit_step(cfg: GANConfig, group: mesh.Group = None) -> JitStep:
+  """The compiled outer step, the reference's ``make_jit_step``:
+  ``step(state, real_u8, labels, noise=None)`` as ``make_outer_step``'s,
+  with the batch, the labels and the noise copied into static buffers on
+  the state's device; on CUDA one CUDA-graph replay a call (``JitStep``).
+  Refuses a process ``group``."""
+  _refuse_group("make_jit_step", group)
+  return JitStep(make_outer_step(cfg), 1, (True, True), "make_jit_step")
+
+
+def make_jit_dataset_step(cfg: GANConfig, batch_size: int,
+                          steps_per_call: int = 1,
+                          group: mesh.Group = None) -> JitStep:
+  """The compiled chain of ``steps_per_call`` dataset steps, the
+  reference's ``make_jit_dataset_step``: ``step(state, data_x, data_y,
+  noise=None)`` as ``_multi(make_dataset_step(cfg, batch_size),
+  steps_per_call)``'s (the noise with a leading axis of
+  ``steps_per_call`` when it chains more than one step), the dataset read
+  where it lies; on CUDA one CUDA graph of the whole chain, one replay a
+  call (``JitStep``), the counterpart of the reference's ``lax.scan``. A
+  new dataset tensor (a rotated window) means a new capture. Refuses a
+  process ``group``."""
+  _refuse_group("make_jit_dataset_step", group)
+  return JitStep(_multi(make_dataset_step(cfg, batch_size), steps_per_call),
+                 max(steps_per_call, 1), (False, False),
+                 "make_jit_dataset_step")

@@ -30,19 +30,27 @@ and file names are the reference's):
   BatchNorms' ``batch_stats``, everywhere (checkpoint, standing
   statistics, the sampling cache); ``diagnostics()`` reads the WC layers
   only, since a BatchNorm has no covariance;
+- the step: on one process the compiled step, the reference's
+  ``make_jit_dataset_step`` with device data and ``make_jit_step``
+  without (on CUDA a CUDA graph a call, ``step.JitStep``; on the CPU the
+  eager body on static buffers). A restore and each rung of the fallback
+  ladder invalidate it, so that its next call warms up and captures anew;
 - debugging: ``profile_dir`` writes a ``torch.profiler`` Chrome trace of
-  the run's first few step calls after the first (the reference traces
-  with ``jax.profiler``); ``debug_nans`` checks each step call's metrics
-  and raises at the first non-finite one (the CLI also turns on
-  ``torch.autograd`` anomaly detection, the reference's
-  ``jax_debug_nans``).
+  the run's first few step calls after the first (after the first two on
+  CUDA, where the second captures the graph: the trace holds replays; the
+  reference traces with ``jax.profiler``); ``debug_nans`` checks each step
+  call's metrics and raises at the first non-finite one (the CLI also
+  turns on ``torch.autograd`` anomaly detection, the reference's
+  ``jax_debug_nans``; a capture keeps it on without its NaN check).
 
 Data parallelism (the reference's ``mesh=``): with a process ``group``
 the state must have been built with it (``create_state(group=...)``) and
 each rank runs this loop on its own process. The device data is rounded
 down to a multiple of the ranks (windows too), and rank r stages its
 contiguous block of the rows, as ``NamedSharding(P('data'))`` lays them
-out; the step functions are the data-parallel ones. Rank 0 alone writes
+out; the step functions are the data-parallel ones, run eagerly (the
+capture over NCCL is not ported; gloo's collectives cannot be captured),
+which the log says in one line. Rank 0 alone writes
 (``log.txt``, ``metrics.jsonl``, grids, checkpoints, traces); every rank
 computes ``diagnostics()`` from the replicated statistics, so the guard
 acts alike on all. EMA sampling with standing statistics re-estimates
@@ -76,6 +84,7 @@ from wcgan_tpu_torch.utils.images import make_grid, save_png
 from wcgan_tpu_torch.utils.logging import MetricsLogger
 from wcgan_tpu_torch import weights
 from wcgan_tpu_torch.parallel import mesh
+from wcgan_tpu_torch.train import schedules
 from wcgan_tpu_torch.train import state as state_lib
 from wcgan_tpu_torch.train import step as step_lib
 from wcgan_tpu_torch.train.state import GANTrainState
@@ -178,6 +187,7 @@ class Trainer:
     self._steps_per_call = 1
     self._step_calls = 0            # monotone; profiler window
     self._profiler = None
+    self._profile_from = 0          # the step call the trace starts at
     if cfg.device_data:
       # A chain longer than the epoch would run more outer steps than
       # configured, so it is clamped to the epoch.
@@ -199,21 +209,37 @@ class Trainer:
         self._window_next = self._make_window()
       else:
         self._device_data = self._take(self._stage(np.arange(n)))
+    if group is not None:
+      self.logger.line(
+          "the outer step runs eagerly under --mesh (a CUDA graph cannot "
+          "capture gloo's collectives; the capture over NCCL is not "
+          "ported)")
     self.step_fn = self._make_step_fn()
 
   def _make_step_fn(self):
     """The step function for the current ``gan_cfg``: chains of
     ``steps_per_call`` dataset steps with device data, else one outer step
-    on host-fed batches. The fallback ladder rebuilds it after changing
-    ``gan_cfg``."""
+    on host-fed batches; the compiled ones (``make_jit_dataset_step``,
+    ``make_jit_step``) on one process, the eager data-parallel ones under
+    a group. The fallback ladder rebuilds it after changing ``gan_cfg``."""
     if self.cfg.device_data:
+      if self.group is None:
+        return step_lib.make_jit_dataset_step(
+            self.gan_cfg, self.ds.batch_size, self._steps_per_call)
       return step_lib._multi(
           step_lib.make_dataset_step(self.gan_cfg, self.ds.batch_size,
                                      self.group),
           self._steps_per_call)
     if self.group is not None:
       return step_lib.make_sharded_step(self.gan_cfg, self.group)
-    return step_lib.make_outer_step(self.gan_cfg)
+    return step_lib.make_jit_step(self.gan_cfg)
+
+  def _invalidate_step(self) -> None:
+    """Drop the compiled step's graph (after a restore or a change of G):
+    its next call warms up and captures anew, never replays stale."""
+    invalidate = getattr(self.step_fn, "invalidate", None)
+    if invalidate is not None:
+      invalidate()
 
   @property
   def device(self) -> torch.device:
@@ -260,10 +286,11 @@ class Trainer:
   def restore_checkpoint(self, path: str) -> None:
     """Load a ``save_checkpoint`` directory into the live state, in place:
     every tensor keeps its device and layout and takes the saved values
-    bit for bit."""
+    bit for bit (Adam's slots are new tensors, each ``step`` count where
+    the live Adam keeps it: on the card when capturable, else on the
+    CPU). The compiled step is invalidated."""
     st = self.state
-    # Loaded to the CPU, then copied into the live tensors: Adam keeps each
-    # `step` where it is given, and without `capturable` it wants the CPU.
+    # Loaded to the CPU, then copied into the live tensors.
     ck = torch.load(os.path.join(path, CKPT_FILE), map_location="cpu",
                     weights_only=True)
     have = None if st.g_ema is None else sorted(st.g_ema)
@@ -274,8 +301,8 @@ class Trainer:
           f"run has {have is not None} (--generator_ema must match)")
     st.g.load_state_dict(ck["g"])
     st.d.load_state_dict(ck["d"])
-    st.g_opt.load_state_dict(ck["g_opt"])
-    st.d_opt.load_state_dict(ck["d_opt"])
+    schedules.load_adam(st.g_opt, ck["g_opt"])
+    schedules.load_adam(st.d_opt, ck["d_opt"])
     st.g_sched.load_state_dict(ck["g_sched"])
     st.d_sched.load_state_dict(ck["d_sched"])
     if st.g_ema is not None:
@@ -286,6 +313,7 @@ class Trainer:
     st.step = int(ck["step"])
     st.g_version += 1
     self._outer_steps_done = int(ck["outer_steps_done"])
+    self._invalidate_step()
 
   def checkpoint_epochs(self) -> List[int]:
     """The epochs of the full-state checkpoints ``epoch_<n>``, sorted;
@@ -474,8 +502,9 @@ class Trainer:
       2. 'dr' norm codes -> 'd';
       3. ns_iters x2, once.
     Rungs 2 and 3 change the live G in place (``Generator.reconfigure``);
-    its state carries over unchanged, and the eager step reads the new
-    settings at its next call."""
+    its state carries over unchanged, and the compiled step is
+    invalidated, so that its next call warms up and captures the new
+    settings."""
     if self.gan_cfg.d_fake_stats == "running":
       self.save_checkpoint(epoch)
       self.gan_cfg = dataclasses.replace(self.gan_cfg, d_fake_stats="batch")
@@ -492,6 +521,7 @@ class Trainer:
       g.reconfigure(
           block_norm="d" if g_cfg.block_norm == "dr" else g_cfg.block_norm,
           last_norm="d" if g_cfg.last_norm == "dr" else g_cfg.last_norm)
+      self._invalidate_step()
       self._standing_cache = None
       self.logger.line(
           f"Epoch {epoch}: --wc_residual_action fallback — demoting "
@@ -503,6 +533,7 @@ class Trainer:
       self.save_checkpoint(epoch)
       new_iters = 2 * g_cfg.ns_iters
       g.reconfigure(ns_iters=new_iters)
+      self._invalidate_step()
       self._ns_escalated = True
       self._standing_cache = None
       self.logger.line(
@@ -686,23 +717,31 @@ class Trainer:
       self._stop_profiler()
       self._drop_pending_window()
 
+  def _profile_start(self) -> int:
+    """The step call a ``profile_dir`` trace starts at: the one after the
+    warm-up, and on CUDA after the compiled step's capture too."""
+    compiled = isinstance(self.step_fn, step_lib.JitStep)
+    return 2 if compiled and self.device.type == "cuda" else 1
+
   def _call_step(self, *batches) -> Dict[str, torch.Tensor]:
     """One ``step_fn`` call. With ``profile_dir`` the ``PROFILE_CALLS``
-    calls after the first (which warms up) run under ``torch.profiler``;
-    with ``debug_nans`` the call's metrics are checked at once."""
+    calls after the warm-up (``_profile_start``) run under
+    ``torch.profiler``; with ``debug_nans`` the call's metrics are checked
+    at once."""
     cfg = self.cfg
-    if (cfg.profile_dir and self.is_main and self._step_calls == 1
-        and self._profiler is None):
+    if (cfg.profile_dir and self.is_main and self._profiler is None
+        and self._step_calls == self._profile_start()):
       from torch.profiler import ProfilerActivity, profile
       activities = [ProfilerActivity.CPU]
       if self.device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
       self._profiler = profile(activities=activities)
+      self._profile_from = self._step_calls
       self._profiler.start()
     metrics = self.step_fn(self.state, *batches)
     self._step_calls += 1
     if (self._profiler is not None
-        and self._step_calls > self.PROFILE_CALLS):
+        and self._step_calls - self._profile_from >= self.PROFILE_CALLS):
       self._stop_profiler()
     if cfg.debug_nans:
       bad = {k: float(v) for k, v in metrics.items()
@@ -726,7 +765,7 @@ class Trainer:
     path = os.path.join(self.cfg.profile_dir, "trace.json")
     prof.export_chrome_trace(path)
     self.logger.line(f"wrote profiler trace {path} "
-                     f"({self._step_calls - 1} step calls)")
+                     f"({self._step_calls - self._profile_from} step calls)")
 
   def _train_epochs(self, batches: int) -> Dict[str, float]:
     cfg, ds = self.cfg, self.ds
