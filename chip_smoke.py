@@ -50,8 +50,17 @@ captured chain and resumed in a fresh trainer (which warms up and
 captures anew) against the uninterrupted run; the headline's imgs/s and
 device span a step, captured and eager in turns; one captured
 ``d_fake_stats='running'`` + ``kernel_eval`` step (K2's cooperative setup
-inside the graph: 35 K2, 7 K1 a replay). Then the conditional slice
-(slice 6):
+inside the graph: 35 K2, 7 K1 a replay). Then slice 13's ``sample-graph``
+phase, the compiled sampling programs (``Trainer.sample``, ``sample_u8``,
+``generate`` and the standing pass as CUDA graphs): the headline G (EMA
+0.999, 16 batches of standing statistics) with ``kernel_eval=True`` and on
+the split path, in float32 and bf16, every surface captured against the
+eager forward on the same tensors bit for bit (deterministic kernels),
+fresh, after a trainer epoch of replayed G updates, after a restore and
+after a ladder rung; the captured standing pass against the eager one,
+K1 7 and K2 7 a replay; captured and eager imgs/s in turns. Every other
+sampling path of the script runs these graphs too. Then the conditional
+slice (slice 6):
 
 - k1-widths: K1 at C = 64, 128 and 512, f32 and bf16 rows, at every R of
   the conditional models and of the digits G and a ragged R, within TOL
@@ -110,9 +119,16 @@ state bit-equal on both ranks); float32 at full width against one process
 on the global batch (the G forward within 2e-5, one outer step within
 STEP_RTOL, K1 route and plain route, each or twice the process's own
 spread on a reordered batch); ``dryrun_multichip`` on the two ranks; and
-``--mesh 1 --device cuda`` through the CLI, a one-rank NCCL group, with a
-checkpoint and ``--resume auto``; and the CLI's scorer under ``--mesh 2``
-(2,048 IS / 1,024 FID samples) on the two ranks against one process.
+``--mesh 1 --device cuda`` through the CLI, a one-rank NCCL group running
+the compiled chain, with a checkpoint and ``--resume auto``; and the
+CLI's scorer under ``--mesh 2`` (2,048 IS / 1,024 FID samples) on the two
+ranks against one process. Then slice 13's ``nccl`` phase: config 5's
+compiled chain with an NCCL group (one CUDA graph a call on each rank,
+its all-reduces inside) against the eager chain, float32, one rank, and
+with two or more cards two ranks (on one card it says in one line that it
+did not run). ``python3 chip_smoke.py --phase nccl`` runs that phase alone
+on every card of the machine, the last size also in bf16, timed captured
+against eager.
 
 Before it, slice 9, evaluation (``eval``), at the reference's scorer
 defaults (50,000 IS / 10,000 FID samples, batch 100) with random
@@ -160,6 +176,7 @@ import time
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from wcgan_tpu_torch import bench
 from wcgan_tpu_torch.cli import run as cli_run
@@ -784,7 +801,8 @@ def phase_bench(dev: torch.device):
   record = {"bench": {"headline": m, **eff, "profile": prof,
                       "sampling": samp, "cfg1": c1}}
   print(json.dumps(record), flush=True)
-  arms = (samp["k2_kernel"], samp["split"])
+  arms = (samp["k2_kernel"], samp["split"], samp["k2_kernel_eager"],
+          samp["split_eager"])
   check(_positive(m["median"], m["min"], m["max"], c1["median"], c1["min"],
                   flops, prof["wall_ms"], prof["kernel_ms"],
                   *(a[k] for a in arms for k in ("median", "min", "max"))),
@@ -794,7 +812,9 @@ def phase_bench(dev: torch.device):
   check(prof["k1_launches"] == 42 * bench.PROFILE_STEPS
         and prof["k1_kernels"] >= prof["k1_launches"], prof)
   check(arms[0]["k2_launches_per_forward"] == 7
-        and arms[1]["k2_launches_per_forward"] == 0, arms)
+        and arms[1]["k2_launches_per_forward"] == 0
+        and arms[2]["k2_launches_per_forward"] == 7
+        and arms[3]["k2_launches_per_forward"] == 0, arms)
   check(0 < eff["mfu"] <= 1 and 0 < prof["busy"] <= 1,
         (eff["mfu"], prof["busy"]))
   windows = BENCH_FORWARDS * BENCH_REPEATS
@@ -806,8 +826,9 @@ def phase_bench(dev: torch.device):
       f"{prof['kernels']} kernels, {prof['kernel_ms']:.3f} ms in "
       f"{prof['wall_ms']:.1f} ms (busy {prof['busy']:.4f}; unprofiled "
       f"{prof['wall_ms_unprofiled']:.1f} ms), K1 {prof['k1_share']:.2%}; "
-      f"sampling bf16 K2 {arms[0]['median']:.1f} imgs/s, split "
-      f"{arms[1]['median']:.1f}; cfg1 {c1['median']:.1f} imgs/s; phase "
+      f"sampling bf16 captured K2 {arms[0]['median']:.1f} imgs/s, split "
+      f"{arms[1]['median']:.1f}, eager K2 {arms[2]['median']:.1f}, split "
+      f"{arms[3]['median']:.1f}; cfg1 {c1['median']:.1f} imgs/s; phase "
       f"{time.perf_counter() - t_phase:.1f} s")
   k1 = {f"bench: headline measure, {BENCH_STEPS * BENCH_REPEATS} outer "
         f"steps": head_k1,
@@ -815,8 +836,10 @@ def phase_bench(dev: torch.device):
             prof["k1_launches"],
         f"bench: cfg1 measure, {BENCH_CFG1_STEPS * BENCH_REPEATS} outer "
         f"steps": cfg1_k1}
-  k2 = {f"bench: sampling, K2 arm, {windows} forwards":
-            int(arms[0]["k2_launches_per_forward"] * windows)}
+  k2 = {f"bench: sampling, captured K2 arm, {windows} forwards":
+            int(arms[0]["k2_launches_per_forward"] * windows),
+        f"bench: sampling, eager K2 arm, {windows} forwards":
+            int(arms[2]["k2_launches_per_forward"] * windows)}
   return k1, k2
 
 
@@ -843,19 +866,6 @@ def _graph_tensors(st) -> dict:
         out[f"{m}_opt.{n}.{k}"] = v
   out.update({f"g_ema.{n}": t for n, t in (st.g_ema or {}).items()})
   return out
-
-
-def _graph_rel(a: dict, b: dict):
-  """(largest |a - b| relative to b's largest magnitude over the tensors
-  of b, its name): each tensor measured against its own scale."""
-  worst, where = 0.0, "all equal"
-  for k, y in b.items():
-    x, y = a[k].detach().double(), y.detach().double()
-    scale = float(y.abs().max()) if y.numel() else 0.0
-    err = float((x - y).abs().max()) / max(scale, 1e-30) if y.numel() else 0.
-    if err > worst:
-      worst, where = err, k
-  return worst, where
 
 
 def _graph_copy_state(dst, src) -> None:
@@ -908,8 +918,8 @@ def _graph_parity(dev, dtype: str):
   tensors = [{**_graph_tensors(st), **{f"metric.{k}": v
                                         for k, v in m.items()}}
              for st, m in zip(arms, metrics)]
-  ab, ab_at = _graph_rel(tensors[0], tensors[1])
-  cb, cb_at = _graph_rel(tensors[2], tensors[1])
+  ab, ab_at = dryrun.worst_rel(tensors[0], tensors[1])
+  cb, cb_at = dryrun.worst_rel(tensors[2], tensors[1])
   gens = [st.generator.get_state() for st in arms]
   same_gen = torch.equal(gens[0], gens[1]) and torch.equal(gens[2], gens[1])
   cuda_wc.MOMENTS_LAUNCHES = 0
@@ -949,7 +959,7 @@ def _graph_checkpoint(dev):
       m1 = t1.step_fn(t1.state, *t1._device_data)
       m2 = t2.step_fn(t2.state, *t2._device_data)
       torch.cuda.synchronize()
-      errs.append(_graph_rel(
+      errs.append(dryrun.worst_rel(
           {**_graph_tensors(t2.state), **{f"metric.{k}": v
                                           for k, v in m2.items()}},
           {**_graph_tensors(t1.state), **{f"metric.{k}": v
@@ -1086,6 +1096,321 @@ def phase_graph(dev: torch.device):
         f"cooperative setup inside the graph)")
   log("graph", f"phase {time.perf_counter() - t_phase:.1f} s")
   return paths_k1, paths_k2
+
+
+# --- slice 13: the compiled sampling programs and the NCCL step ---------------
+
+SG_OUT = os.path.join("build", "chip_smoke_sample_graph")
+SG_N = 1024                     # generate(SG_N, batch=256)
+SG_FORWARDS, SG_ROUNDS = 20, 3  # timed batch-256 forwards a window, windows
+
+
+def _sg_trainer(dev, dtype: str, kernel_eval: bool) -> Trainer:
+  """The headline (G 256x3, D 128x4) with EMA 0.999 and 16 batches of
+  standing statistics, in a trainer on synthetic CIFAR-10-shaped data on
+  the card: epochs of 3 chains of 2 steps (a warm-up, a capture, a
+  replay)."""
+  g_cfg, d_cfg, spec = bench.build_models("headline", dtype=dtype)
+  g_cfg = dataclasses.replace(g_cfg, kernel_eval=kernel_eval)
+  gan = GANConfig(loss=spec["loss"], training_ratio=spec["ratio"],
+                  generator_batch_multiple=2, random_flip=True,
+                  g_ema_decay=0.999)
+  state = create_state(g_cfg, d_cfg, OptimConfig(), spec["ratio"], dev,
+                       seed=0, g_ema_decay=0.999)
+  ds = get_dataset("synthetic", batch_size=64, seed=0, z_dim=g_cfg.z_dim,
+                   synthetic_size=1024)
+  out_dir = os.path.join(SG_OUT, f"{dtype}_{'k2' if kernel_eval else 'split'}")
+  shutil.rmtree(out_dir, ignore_errors=True)
+  return Trainer(ds, state, gan, TrainerConfig(
+      name="sg", output_dir=out_dir,
+      checkpoints_dir=os.path.join(out_dir, "ckpt"), number_of_epochs=1,
+      batches_per_epoch=6, steps_per_call=2, display_ratio=0,
+      checkpoint_ratio=0))
+
+
+def _sg_eager_generate(trainer: Trainer, n: int, batch: int = 256,
+                       rng_seed: int = 1234) -> np.ndarray:
+  """``Trainer.generate`` through the eager forward: the same draws."""
+  rng = np.random.default_rng(rng_seed)
+  out = []
+  for i in range(0, n, batch):
+    b = min(batch, n - i)
+    out.append(trainer.sample_eager(*trainer._draw(rng, batch), u8=True)
+               [:b].cpu().numpy())
+  return np.concatenate(out)
+
+
+def _sg_eager_standing(trainer: Trainer, n: int, rng_seed: int = 4321):
+  """The standing statistics from eager train-mode forwards: the draws,
+  sums and scaling of ``Trainer.standing_g_state``."""
+  g = trainer.state.g
+  rng = np.random.default_rng(rng_seed)
+  acc = {}
+  with torch.no_grad(), L.capture_batch_moments(g) as moments:
+    for _ in range(n):
+      functional_call(g, trainer.state.g_ema,
+                      trainer._draw(rng, trainer.ds.batch_size),
+                      {"train": True, "update_stats": False})
+      acc = {k: acc[k] + v if k in acc else v for k, v in moments.items()}
+  return {k: v * (1.0 / n) for k, v in acc.items()}
+
+
+def _sg_programs(trainer: Trainer, kind: str) -> dict:
+  """The calls of ``kind``'s programs by kind of call, summed."""
+  out = dict.fromkeys(("warm-up", "capture", "replay", "eager"), 0)
+  for (k, _), p in trainer._programs.items():
+    if k == kind:
+      for c, v in p.calls.items():
+        out[c] += v
+  return out
+
+
+def _sg_compare(trainer: Trainer, z64, z256):
+  """Every sampling surface captured against its eager forward on the
+  same tensors: ``sample`` on 64 z, ``sample_u8`` on 256 (three calls
+  each: after a binding change a warm-up, a capture, a replay) and
+  ``generate(SG_N, batch=256)``. Returns (all bit-equal, the largest
+  difference of the float images)."""
+  equal, worst = True, 0.0
+  for _ in range(3):
+    a, b = trainer.sample(z64), trainer.sample_eager(z64)
+    equal &= torch.equal(a, b)
+    worst = max(worst, float((a.float() - b.float()).abs().max()))
+    equal &= torch.equal(trainer.sample_u8(z256),
+                         trainer.sample_eager(z256, u8=True))
+  equal &= np.array_equal(trainer.generate(SG_N, batch=256),
+                          _sg_eager_generate(trainer, SG_N))
+  return equal, worst
+
+
+def _sg_events(trainer: Trainer, z64, z256) -> dict:
+  """``_sg_compare`` on a fresh trainer, after a trainer epoch (3 chains:
+  replayed G updates; the sampling graphs replay on, their standing
+  statistics recomputed into place), after a restore (a chain between
+  the save and the restore) and after a ladder rung (ns_iters x2): each
+  event's (bit-equal, largest float difference, the sampling programs'
+  warm-ups so far)."""
+  out = {}
+
+  def record(event):
+    torch.cuda.synchronize()
+    out[event] = _sg_compare(trainer, z64, z256) + (
+        _sg_programs(trainer, "sample_u8")["warm-up"],)
+
+  record("fresh")
+  trainer.train()
+  check(trainer.step_fn.calls["replay"] == 1, trainer.step_fn.calls)
+  record("epoch")
+  trainer.save_checkpoint(0)
+  trainer.step_fn(trainer.state, *trainer._device_data)
+  trainer.restore_checkpoint(trainer.checkpoint_path(0))
+  record("restore")
+  check(trainer._apply_whitening_fallback(1), "no ladder rung left")
+  record("rung")
+  check(out["epoch"][2] == out["fresh"][2]
+        and out["restore"][2] == out["epoch"][2] + 1
+        and out["rung"][2] == out["restore"][2] + 1,
+        ("sampling warm-ups by event", out))
+  return out
+
+
+def _sg_rates(trainer: Trainer, z256) -> dict:
+  """Batch-256 ``sample_u8`` forwards, captured and eager on the same G,
+  SG_ROUNDS windows of SG_FORWARDS each in turns: imgs/s (host clock,
+  fenced) median, min, max, and the device span a forward between CUDA
+  events (for the eager arm it holds the card's idle gaps)."""
+  arms = {"captured": lambda: trainer.sample_u8(z256),
+          "eager": lambda: trainer.sample_eager(z256, u8=True)}
+  for _ in range(3):        # a warm-up and a capture under these settings
+    for fn in arms.values():
+      fn()
+  rates = {k: [] for k in arms}
+  spans = {k: [] for k in arms}
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  for r in range(SG_ROUNDS):
+    for name in (list(arms) if r % 2 == 0 else list(arms)[::-1]):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      start.record()
+      for _ in range(SG_FORWARDS):
+        arms[name]()
+      end.record()
+      torch.cuda.synchronize()
+      rates[name].append(SG_FORWARDS * 256 / (time.perf_counter() - t0))
+      spans[name].append(start.elapsed_time(end) / SG_FORWARDS)
+  return {k: (float(np.median(rates[k])), min(rates[k]), max(rates[k]),
+              float(np.median(spans[k]))) for k in arms}
+
+
+def phase_sample_graph(dev: torch.device):
+  """Slice 13, the compiled sampling programs: ``sample``, ``sample_u8``
+  and ``generate`` as CUDA graphs on the headline G (256x3, EMA 0.999, 16
+  batches of standing statistics), with ``kernel_eval=True`` (K2) and on
+  the split path, in float32 and bf16: captured against the eager forward
+  on the same tensors, bit-equal (deterministic kernels), fresh and after
+  a trainer epoch, a restore and a ladder rung; the captured standing
+  pass against the eager one, bit-equal, and K1 7 and K2 7 a replay;
+  captured and eager imgs/s in turns (bf16). Returns the K1 and K2
+  launches by path."""
+  t_phase = time.perf_counter()
+  gen = torch.Generator(device=dev).manual_seed(13)
+  z64 = torch.randn((64, 128), device=dev, generator=gen)
+  z256 = torch.randn((256, 128), device=dev, generator=gen)
+  paths_k1, paths_k2, rates = {}, {}, {}
+  for dtype in ("float32", "bfloat16"):
+    for kernel_eval in (True, False):
+      arm = f"{dtype} {'K2' if kernel_eval else 'split'}"
+      trainer = _sg_trainer(dev, dtype, kernel_eval)
+      with _deterministic():
+        events = _sg_events(trainer, z64, z256)
+        standing = _sg_eager_standing(trainer, 16)
+        trainer._standing_cache = None
+        torch.cuda.synchronize()
+        cuda_wc.MOMENTS_LAUNCHES = cuda_wc.WC_APPLY_LAUNCHES = 0
+        replays = _sg_programs(trainer, "standing_pass")["replay"]
+        tensors = trainer.sampling_state()
+        torch.cuda.synchronize()
+        k1_standing = cuda_wc.MOMENTS_LAUNCHES
+        replays = _sg_programs(trainer, "standing_pass")["replay"] - replays
+        cuda_wc.WC_APPLY_LAUNCHES = 0
+        imgs = trainer.generate(SG_N, batch=256)
+        torch.cuda.synchronize()
+        k2_generate = cuda_wc.WC_APPLY_LAUNCHES
+      check(all(e[0] for e in events.values()), (arm, events))
+      check(all(torch.equal(tensors[k], v) for k, v in standing.items()),
+            (arm, "standing statistics captured vs eager"))
+      check(replays == 16 and k1_standing == 7 * 16, (arm, replays,
+                                                       k1_standing))
+      check(k2_generate == (7 * SG_N // 256 if kernel_eval else 0)
+            and imgs.shape == (SG_N, 32, 32, 3), (arm, k2_generate))
+      paths_k1[f"sample-graph: {arm}, a captured standing recompute "
+               "(16 replays)"] = k1_standing
+      if kernel_eval:
+        paths_k2[f"sample-graph: {arm}, captured generate({SG_N}, "
+                 "batch=256)"] = k2_generate
+      if dtype == "bfloat16":
+        rates[arm] = _sg_rates(trainer, z256)
+      log("sample-graph", f"{arm}: sample (64), sample_u8 (256) and "
+          f"generate({SG_N}) captured vs eager, deterministic kernels: "
+          + "; ".join(f"{e} bit-equal {v[0]} (max|d| {v[1]:.1e}, sampling "
+                      f"warm-ups {v[2]})" for e, v in events.items())
+          + f"; standing pass captured vs eager bit-equal over "
+          f"{len(standing)} tensors, {replays} replays, K1 {k1_standing} "
+          f"({k1_standing // 16} a replay); generate K2 {k2_generate}")
+      del trainer
+      torch.cuda.empty_cache()
+  for arm, t in rates.items():
+    cap, eag = t["captured"], t["eager"]
+    log("sample-graph", f"{arm} batch-256 sample_u8 forwards on "
+        f"{nvidia_smi()}, {SG_ROUNDS} windows of {SG_FORWARDS} in turns: "
+        f"captured {cap[0]:.1f} imgs/s ({cap[1]:.1f}-{cap[2]:.1f}), "
+        f"device span {cap[3]:.3f} ms a forward; eager {eag[0]:.1f} imgs/s "
+        f"({eag[1]:.1f}-{eag[2]:.1f}), device span {eag[3]:.3f} ms a "
+        f"forward (its idle gaps included); {cap[0] / eag[0]:.2f}x")
+  check(_positive(*(v for t in rates.values() for r in t.values()
+                    for v in r)), rates)
+  log("sample-graph", f"phase {time.perf_counter() - t_phase:.1f} s")
+  return paths_k1, paths_k2
+
+
+# The NCCL checks: config 5's models at its per-rank batch, a chain of
+# NCCL_SPC dataset steps, NCCL_CALLS calls (a warm-up, a capture, a replay).
+NCCL_SPC, NCCL_CALLS = 3, 3
+NCCL_TIME_ROUNDS, NCCL_TIME_CALLS = 3, 2
+
+
+def _nccl_job(devices, dtype: str, time_rounds: int = 0):
+  """``dryrun.jit_dp_rank`` on one rank a card of ``devices``: the
+  compiled chain against the eager chain (deterministic kernels in
+  float32), then, with ``time_rounds``, both timed in turns."""
+  g, d, gan, _ = _dp_cfgs(dtype)
+  calls = [("jit_dp_rank", (g, d, gan, len(devices) * DP_B, NCCL_SPC,
+                            NCCL_CALLS, DP_SYNTHETIC, 0, time_rounds,
+                            NCCL_TIME_CALLS))]
+  if dtype == "float32":
+    calls.insert(0, ("deterministic_rank", ()))
+  t0 = time.perf_counter()
+  ranks = launch.launch("wcgan_tpu_torch.parallel.dryrun:batch_rank",
+                        devices, (calls,), timeout=900)
+  return [r[-1] for r in ranks], time.perf_counter() - t0
+
+
+def _nccl_check(ranks, what: str, float32: bool) -> None:
+  """The compiled chain warmed up, captured and replayed at the same
+  calls on every rank; each call's collectives and K1 launches the eager
+  chain's; in float32 its state within GRAPH_RTOL of the eager chain's;
+  both states replicated over the ranks."""
+  for i, r in enumerate(ranks):
+    check(r["jit_calls"]["warm-up"] == 1 and r["jit_calls"]["capture"] == 1
+          and r["jit_calls"]["eager"] == 0, (what, i, r["jit_calls"]))
+    check(r["same_generator"] and r["steps"][0] == r["steps"][1],
+          (what, i, r["steps"]))
+    for c in r["per_call"]:
+      check(c["jit"]["calls"] == c["eager"]["calls"]
+            and c["jit"]["bytes"] == c["eager"]["bytes"]
+            and c["jit"]["k1"] == c["eager"]["k1"] > 0
+            and all(np.isfinite(v) for v in c["jit"]["metrics"].values()),
+            (what, i, c))
+    if float32:
+      check(r["rel"] <= GRAPH_RTOL, (what, i, r["rel"], r["where"]))
+  for arm in (0, 1):
+    check(len({r["digests"][arm] for r in ranks}) == 1,
+          (what, "state not replicated", arm))
+
+
+def _nccl_line(ranks, what: str, dt: float) -> str:
+  r = ranks[0]
+  c = r["per_call"][-1]
+  return (f"{what}: the compiled chain of {NCCL_SPC} (calls "
+          f"{r['jit_calls']}) vs the eager chain: max rel diff {r['rel']:.3e} "
+          f"({r['where']}); a replay's collectives {c['jit']['calls']} "
+          f"({sum(c['jit']['bytes'].values()) / 2**20:.2f} MiB), the eager "
+          f"call's {c['eager']['calls']}; K1 {c['jit']['k1']} a call; "
+          f"states replicated over {len(ranks)} rank(s); job {dt:.1f} s")
+
+
+def phase_nccl(dev: torch.device, ranks_to_time: int = 0):
+  """The compiled data-parallel chain over NCCL (config 5: cWC-sa G at
+  64x64, 1,000 classes, projection-D; 64 images a rank), one rank a
+  card: one rank in float32; with 2 or more cards, two ranks in float32;
+  with ``ranks_to_time`` cards, that many ranks in float32 and then in
+  bf16 timed, captured against eager in turns. Returns K1's launches by
+  path."""
+  del dev
+  t_phase = time.perf_counter()
+  paths = {}
+  n = torch.cuda.device_count()
+  sizes = [1, 2] + ([ranks_to_time] if ranks_to_time > 2 else [])
+  for size in sizes:
+    if size > n:
+      log("nccl", f"{size} NCCL ranks did not run: this machine has {n} "
+          f"card(s), and NCCL takes one card a rank")
+      continue
+    devices = [f"cuda:{i}" for i in range(size)]
+    ranks, dt = _nccl_job(devices, "float32")
+    _nccl_check(ranks, f"{size} rank(s) float32", True)
+    paths[f"nccl: {size} rank(s), float32 config 5, {NCCL_CALLS} calls "
+          f"of a chain of {NCCL_SPC} (rank 0, both arms)"] = sum(
+              c[a]["k1"] for c in ranks[0]["per_call"] for a in c)
+    log("nccl", _nccl_line(ranks, f"{size} NCCL rank(s), float32 config 5, "
+                           f"{DP_B} images a rank", dt))
+  if ranks_to_time and ranks_to_time <= n:
+    devices = [f"cuda:{i}" for i in range(ranks_to_time)]
+    ranks, dt = _nccl_job(devices, "bfloat16", NCCL_TIME_ROUNDS)
+    _nccl_check(ranks, f"{ranks_to_time} ranks bf16", False)
+    ms = ranks[0]["ms_per_step"]
+    log("nccl", _nccl_line(ranks, f"{ranks_to_time} NCCL ranks, bf16 "
+                           f"config 5, {DP_B} images a rank", dt))
+    log("nccl", f"{ranks_to_time} NCCL ranks on {nvidia_smi()}, bf16 config "
+        f"5 at {ranks_to_time * DP_B} images, {NCCL_TIME_ROUNDS} rounds of "
+        f"{NCCL_TIME_CALLS} chains of {NCCL_SPC} in turns: captured "
+        f"{ms['jit'][0]:.1f} ms a step ({ms['jit'][1]:.1f}-"
+        f"{ms['jit'][2]:.1f}), eager {ms['eager'][0]:.1f} ms "
+        f"({ms['eager'][1]:.1f}-{ms['eager'][2]:.1f}); "
+        f"{ms['eager'][0] / ms['jit'][0]:.2f}x (rank 0's host clock)")
+  log("nccl", f"phase {time.perf_counter() - t_phase:.1f} s")
+  return paths
 
 
 def _u8_diff(a: np.ndarray, b: np.ndarray):
@@ -1417,10 +1742,12 @@ def phase_run(dev: torch.device):
   # swapped for whiten_color_apply_reference, the same inputs.
   with_k2 = cuda_wc.whiten_color_apply
   cuda_wc.whiten_color_apply = cuda_wc.whiten_color_apply_reference
+  fused.invalidate_sampling()          # its graphs hold K2's launches
   try:
     imgs_p = fused.generate(n, batch=256)
   finally:
     cuda_wc.whiten_color_apply = with_k2
+    fused.invalidate_sampling()
   diffs = {"plain": _u8_diff(imgs_k, imgs_p), "split": _u8_diff(imgs_k,
                                                                 imgs_s)}
   mean, p999, top = diffs["plain"]
@@ -2188,10 +2515,12 @@ def phase_dcgan_sampling(dev: torch.device, state, gan):
           "DCGAN K2 repeat with deterministic algorithms")
     with_k2 = cuda_wc.whiten_color_apply
     cuda_wc.whiten_color_apply = cuda_wc.whiten_color_apply_reference
+    fused.invalidate_sampling()        # its graphs hold K2's launches
     try:
       imgs_p = fused.generate(n, batch=256)
     finally:
       cuda_wc.whiten_color_apply = with_k2
+      fused.invalidate_sampling()
     imgs_s = split.generate(n, batch=256)
   diffs = {"plain": _u8_diff(imgs_d, imgs_p), "split": _u8_diff(imgs_d,
                                                                 imgs_s)}
@@ -2785,7 +3114,9 @@ def phase_dp(dev: torch.device):
           "--discriminator_filters", "64,64,64,64", "--checkpoints_dir",
           os.path.join(out_dir, "ckpt")]
   cmd, dt1, lines = _run_cli(base + ["--number_of_epochs", "1"], out_dir)
-  check(any("rank 0 of 1 (nccl)" in l for l in lines), lines)
+  check(any("rank 0 of 1 (nccl)" in l for l in lines)
+        and any("the outer step runs compiled under --mesh (nccl" in l
+                for l in lines), lines)
   cmd, dt2, lines = _run_cli(base + ["--number_of_epochs", "2", "--resume",
                                      "auto"], out_dir)
   ckpt = os.path.join(out_dir, "ckpt", "smoke")
@@ -2794,7 +3125,8 @@ def phase_dp(dev: torch.device):
         == ["Epoch 0", "Epoch 1"]
         and all(os.path.isfile(os.path.join(ckpt, f"epoch_{i}", CKPT_FILE))
                 for i in (0, 1)), lines)
-  log("dp-mesh1", f"{' '.join(cmd[1:])}: a one-rank NCCL group, rc 0 in "
+  log("dp-mesh1", f"{' '.join(cmd[1:])}: a one-rank NCCL group running "
+      f"the compiled chain, rc 0 in "
       f"{dt1:.1f} s, then --resume auto in {dt2:.1f} s; "
       + "; ".join(l for l in lines if l.startswith(("resumed", "Epoch 1"))))
   _dp_eval(dev)
@@ -2948,7 +3280,27 @@ def phase_digits() -> int:
   return res["k1_launches"]
 
 
-def main() -> int:
+def main_nccl() -> int:
+  """``--phase nccl``: the NCCL checks alone, on every card of the
+  machine (one rank a card), the last ones timed."""
+  dev = phase_device()
+  phase_build()
+  phase_nccl(dev, torch.cuda.device_count())
+  print(nvidia_smi(), flush=True)
+  print(json.dumps({"ok": True, "device": {
+      "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+      "count": torch.cuda.device_count()}}), flush=True)
+  return 0
+
+
+def main(argv=None) -> int:
+  argv = sys.argv[1:] if argv is None else argv
+  if argv == ["--phase", "nccl"]:
+    return main_nccl()
+  if argv:
+    raise SystemExit(f"usage: python3 chip_smoke.py [--phase nccl]; got "
+                     f"{argv}")
+  t_script = time.perf_counter()
   dev = phase_device()
   phase_build()
   err = phase_parity(dev)
@@ -2962,6 +3314,7 @@ def main() -> int:
   phase_profile(state, gan)
   bench_k1, bench_k2 = phase_bench(dev)
   graph_k1, graph_k2 = phase_graph(dev)
+  sg_k1, sg_k2 = phase_sample_graph(dev)
   k2_launches, npz = phase_sampling(dev, state, gan)
   phase_cli(npz)
   run_step_launches, standing_launches, run_k2_launches = phase_run(dev)
@@ -2979,10 +3332,13 @@ def main() -> int:
   stl10_launches = phase_presets(dev)
   eval_k1, eval_k2 = phase_eval(dev)
   dp_launches = phase_dp(dev)
+  nccl_k1 = phase_nccl(dev)
   digits_launches = phase_digits()
   loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
       "wcgan_tpu", "jax", "jaxlib", "flax", "optax", "orbax"))
   check(not loaded, f"chip_smoke imported {loaded}")
+  log("total", f"every phase passed in {time.perf_counter() - t_script:.1f} "
+      "s")
   print(nvidia_smi(), flush=True)
   # Device ms: K1 over the 42 calls of one outer step (library: torch.cov),
   # K2 over the 7 calls of one batch-256 generate forward (library: the row
@@ -2994,7 +3350,7 @@ def main() -> int:
   # launches: the sum over the paths in launches_by_path, each counted from
   # 0 just before its run.
   k1_paths = {"training slice, 10 outer steps": launches, **bench_k1,
-              **graph_k1,
+              **graph_k1, **sg_k1,
               "run: one outer step from a saved and from its restored "
               "state": run_step_launches,
               "run: one standing-statistics recompute": standing_launches,
@@ -3004,12 +3360,12 @@ def main() -> int:
               "presets: stl10_wc_resnet_sn at full width, 2 outer steps":
                   stl10_launches,
               "eval: one scorer call, the cold standing recompute": eval_k1,
-              "dp": dp_launches,
+              "dp": dp_launches, **nccl_k1,
               f"digits: {DIGITS_EPOCHS} epochs, "
               f"{DIGITS_EPOCHS * digits_quality.STEPS_PER_EPOCH} outer steps":
                   digits_launches}
   k2_paths = {"sampling: generate(1024, batch=256)": k2_launches,
-              **bench_k2, **graph_k2,
+              **bench_k2, **graph_k2, **sg_k2,
               "run: EMA generate(1024, batch=256)": run_k2_launches,
               "cond-sampling: conditional generate(1024, batch=256)":
                   cond_k2,

@@ -144,8 +144,10 @@ def test_bench_cuda_without_a_card_raises():
 
 
 def test_sampling_arms_on_cpu(monkeypatch):
-  """Both arms at batch 2; the K2 arm runs K2's plain version, 7 calls a
-  forward, the split path none; neither launches a kernel."""
+  """Every arm at batch 2, the compiled ones (on the CPU their eager body
+  on static buffers) beside the eager ones; the K2 arms run K2's plain
+  version, 7 calls a forward, the split arms none; none launches a
+  kernel."""
   calls = []
   reference = cuda_wc.whiten_color_apply_reference
 
@@ -155,10 +157,10 @@ def test_sampling_arms_on_cpu(monkeypatch):
   monkeypatch.setattr(cuda_wc, "whiten_color_apply_reference", counted)
   row = bench.bench_sampling("float32", batch=2, forwards=1, repeats=2,
                              device="cpu")
-  # One warm-up and two timed forwards on the K2 arm.
-  assert len(calls) == 7 * 3
+  # Two warm-up and two timed forwards on each of the two K2 arms.
+  assert len(calls) == 7 * 4 * 2
   assert sorted(set(shape[1] for shape in calls)) == [256]
-  for arm in ("k2_kernel", "split"):
+  for arm in ("k2_kernel", "k2_kernel_eager", "split", "split_eager"):
     assert row[arm]["n"] == 2
     assert 0 < row[arm]["min"] <= row[arm]["median"] <= row[arm]["max"]
     assert row[arm]["k2_launches_per_forward"] == 0

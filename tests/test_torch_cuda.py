@@ -456,6 +456,7 @@ def test_ema_sampling_through_k2_matches_its_plain_version(dev, tmp_path,
   assert np.array_equal(imgs, fused.generate(64, batch=32))
   monkeypatch.setattr(cuda_wc, "whiten_color_apply",
                       cuda_wc.whiten_color_apply_reference)
+  fused.invalidate_sampling()   # the graphs hold K2's launches
   plain = fused.generate(64, batch=32)
   diff = np.abs(imgs.astype(np.int16) - plain.astype(np.int16))
   assert diff.mean() <= 1.0 and np.quantile(diff, 0.999) <= 4.0
@@ -849,3 +850,179 @@ def test_profile_dir_and_debug_nans_on_replays(dev, tmp_path):
   names = {e.get("name", "") for e in json.loads(
       (prof / "trace.json").read_text())["traceEvents"]}
   assert any("centered_gram_tf32x3" in n for n in names)
+
+
+# --- the compiled programs of sampling, scoring and the NCCL step ------------
+
+
+def _deterministic_on():
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  torch.backends.cudnn.deterministic = True
+
+
+def _deterministic_off():
+  torch.use_deterministic_algorithms(False)
+  torch.backends.cudnn.deterministic = False
+
+
+def _program(tt, kind, rows):
+  (program,) = [p for (k, signature), p in tt._programs.items()
+                if k == kind and signature[0][0][0] == rows]
+  return program
+
+
+def test_captured_sampling_with_k2_matches_eager(dev, tmp_path):
+  """sample and sample_u8 of the EMA G with standing statistics and
+  kernel_eval (K2 on its 7 WC layers): a warm-up, a capture, a replay,
+  each equal to the eager forward on the same tensors (deterministic
+  kernels), K2 7 a forward; after replayed step chains (their G updates
+  move g_version alone; the standing statistics are recomputed into the
+  tensors the graph reads) a replay still equals the eager forward."""
+  from wcgan_tpu_torch.data import get_dataset
+  from wcgan_tpu_torch.train.step import make_jit_dataset_step
+  from wcgan_tpu_torch.train.trainer import Trainer, TrainerConfig
+  gan, (st, _), data = _jit_states(dev, kernel_eval=True)
+  ds = get_dataset("synthetic", batch_size=16, seed=0, z_dim=32,
+                   synthetic_size=64)
+  tt = Trainer(ds, st, gan, TrainerConfig(
+      name="lane", output_dir=str(tmp_path), device_data=False,
+      ema_standing_batches=2))
+  z = torch.randn((32, 32), device=dev,
+                  generator=torch.Generator(device=dev).manual_seed(1))
+  _deterministic_on()
+  try:
+    for kind in ("warm-up", "capture", "replay"):
+      k2 = cuda_wc.WC_APPLY_LAUNCHES
+      img, u8 = tt.sample(z), tt.sample_u8(z)
+      torch.cuda.synchronize()
+      assert _program(tt, "sample", 32).last == kind
+      assert cuda_wc.WC_APPLY_LAUNCHES - k2 == 2 * 7, kind
+      assert torch.equal(img, tt.sample_eager(z)), kind
+      assert torch.equal(u8, tt.sample_eager(z, u8=True)), kind
+    step = make_jit_dataset_step(gan, 16, 2)
+    for _ in range(3):
+      step(st, *data)
+    assert step.last == "replay"
+    again = tt.sample(z)
+    assert tt._standing_cache[0][0] == st.g_version == 6
+    assert _program(tt, "sample", 32).last == "replay"
+    assert torch.equal(again, tt.sample_eager(z))
+    assert not torch.equal(again, img)
+  finally:
+    _deterministic_off()
+
+
+def test_captured_standing_pass_matches_eager(dev, tmp_path):
+  """The standing pass as a graph (3 batches: a warm-up, a capture with
+  its replay, a replay; K1 7 each) against the same train-mode forwards
+  run eagerly (deterministic kernels)."""
+  from torch.func import functional_call
+  from wcgan_tpu_torch.models import layers as L
+  tt = _trainer(tmp_path)
+  _deterministic_on()
+  try:
+    k1 = cuda_wc.MOMENTS_LAUNCHES
+    got = tt.standing_g_state(tt.state.g_ema, 3, rng_seed=5)
+    torch.cuda.synchronize()
+    assert cuda_wc.MOMENTS_LAUNCHES - k1 == 7 * 3
+    assert _program(tt, "standing_pass", 16).calls == {
+        "warm-up": 1, "capture": 1, "replay": 1, "eager": 0}
+    rng = np.random.default_rng(5)
+    acc = {}
+    with torch.no_grad(), L.capture_batch_moments(tt.state.g) as moments:
+      for _ in range(3):
+        functional_call(tt.state.g, tt.state.g_ema, tt._draw(rng, 16),
+                        {"train": True, "update_stats": False})
+        acc = {k: acc[k] + v if k in acc else v for k, v in moments.items()}
+  finally:
+    _deterministic_off()
+  for k, v in acc.items():
+    assert torch.equal(got[k], v * (1.0 / 3)), k
+
+
+def test_captured_inception_forward_matches_eager(dev):
+  """The scorer's InceptionV3 forward as a graph at batch 100 (true
+  float32): a warm-up, a capture, a replay on new images, each against
+  the eager network on the same images within 1e-5 of each output's
+  largest value."""
+  import types
+  from wcgan_tpu_torch.evaluation import inception_v3, metrics
+  from wcgan_tpu_torch.evaluation import scorer as t_scorer
+  seen = []
+
+  class Stop(Exception):
+    pass
+
+  real = t_scorer._activations
+
+  def spy(apply_fn, *args, **kw):
+    seen.append(apply_fn)
+    raise Stop
+
+  t_scorer._activations = spy
+  try:
+    try:
+      t_scorer.make_scorer(None, compute_fid=False, samples_inception=100)(
+          types.SimpleNamespace(device=dev, generate=lambda n: None))
+    except Stop:
+      pass
+  finally:
+    t_scorer._activations = real
+  (apply_fn,) = seen
+  net = inception_v3.init_params().to(dev).eval()
+  gen = torch.Generator(device=dev).manual_seed(0)
+  for _ in range(3):
+    x = torch.randint(0, 256, (100, 32, 32, 3), dtype=torch.uint8,
+                      device=dev, generator=gen)
+    got = apply_fn(x)
+    with torch.no_grad(), metrics.true_float32():
+      pool, logits = net(inception_v3.preprocess(x))
+    want = (pool, torch.softmax(logits.float(), dim=-1))
+    for g, w in zip(got, want):
+      assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+def test_one_rank_nccl_captured_chain_matches_eager(dev):
+  """make_jit_dataset_step with a one-rank NCCL group (a chain of 2, float32,
+  deterministic kernels): a warm-up, a capture and a replay against the
+  eager chain, its all-reduces inside the graph and counted on each
+  replay as the eager chain counts them."""
+  from wcgan_tpu_torch.models.discriminator import DiscriminatorConfig
+  from wcgan_tpu_torch.models.generator import GeneratorConfig
+  from wcgan_tpu_torch.parallel import launch
+  from wcgan_tpu_torch.train.step import GANConfig
+  gan = GANConfig(training_ratio=2, z_dim=32, random_flip=True)
+  g_cfg = GeneratorConfig(z_dim=32, filters=(64, 64, 64))
+  d_cfg = DiscriminatorConfig(filters=(64,) * 4)
+  (r,) = launch.launch(
+      "wcgan_tpu_torch.parallel.dryrun:batch_rank", ["cuda:0"], ([
+          ("deterministic_rank", ()),
+          ("jit_dp_rank", (g_cfg, d_cfg, gan, 16, 2, 3,
+                           {"resolution": 32, "classes": 10, "n": 256,
+                            "seed": 0}))],), timeout=300)[0][1:]
+  assert r["jit_calls"] == {"warm-up": 1, "capture": 1, "replay": 1,
+                            "eager": 0}
+  assert r["rel"] <= 1e-4, (r["rel"], r["where"])
+  assert r["same_generator"] and r["steps"] == [6, 6]
+  for call in r["per_call"]:
+    assert call["jit"]["calls"] == call["eager"]["calls"]
+    assert call["jit"]["bytes"] == call["eager"]["bytes"]
+    assert call["jit"]["k1"] == call["eager"]["k1"] == 2 * 21
+    assert call["jit"]["calls"]["grads"] == 2 * 3
+
+
+def test_gloo_group_on_cuda_is_refused(dev, tmp_path):
+  """A gloo group's collectives run on the host: the compiled step refuses
+  it on the card, naming gloo."""
+  import torch.distributed as dist
+  from wcgan_tpu_torch.train.step import make_jit_step
+  gan, (st, _), (data, _) = _jit_states(dev)
+  dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                          rank=0, world_size=1)
+  try:
+    step = make_jit_step(gan, dist.group.WORLD)
+    with pytest.raises(ValueError, match="gloo's collectives run on the "
+                       "host"):
+      step(st, data[:32].view(2, 16, 32, 32, 3), None)
+  finally:
+    dist.destroy_process_group()

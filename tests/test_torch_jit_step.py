@@ -15,7 +15,7 @@ static buffers; the CUDA graphs themselves are held in
   (``test_torch_step.py::test_lr_factors_match_optax``), the metrics of
   successive calls do not alias, the host counts advance by the chain's
   length, a restore and each rung of the fallback ladder invalidate the
-  step, and a process group is refused.
+  step, and a gloo group is refused on CUDA.
 """
 
 import dataclasses
@@ -38,7 +38,7 @@ from wcgan_tpu.train import schedules as jschedules
 from wcgan_tpu.train import step as jstep
 from wcgan_tpu.train.state import create_state as jcreate_state
 from wcgan_tpu.train.step import GANConfig as JGANConfig
-from wcgan_tpu_torch import weights
+from wcgan_tpu_torch import compiled, weights
 from wcgan_tpu_torch.cli import run as trun
 from wcgan_tpu_torch.models import layers as L
 from wcgan_tpu_torch.models.discriminator import DiscriminatorConfig
@@ -356,19 +356,29 @@ def test_the_device_data_is_not_kept():
   assert gone() is None
 
 
-def test_group_is_refused():
-  with pytest.raises(ValueError, match="make_jit_step runs on one process"):
-    make_jit_step(GAN, group=object())
-  with pytest.raises(ValueError,
-                     match="make_jit_dataset_step runs on one process"):
-    make_jit_dataset_step(GAN, 4, 2, group=object())
+def test_group_is_refused(monkeypatch):
+  """A group whose collectives run on the host (gloo) is refused for
+  capture on CUDA, by its backend's name; NCCL on CUDA, one process, and
+  any group on the CPU (the eager body on static buffers) are taken."""
+  cuda, group = torch.device("cuda", 0), object()
+  monkeypatch.setattr(step_lib.mesh, "backend",
+                      lambda g: None if g is None else "gloo")
+  for name in ("make_jit_step", "make_jit_dataset_step"):
+    with pytest.raises(ValueError, match=f"{name} cannot be captured with a "
+                       "gloo group on CUDA: gloo's collectives run on the "
+                       "host"):
+      step_lib.refuse_host_collectives(name, group, cuda)
+    step_lib.refuse_host_collectives(name, group, CPU)
+    step_lib.refuse_host_collectives(name, None, cuda)
+  monkeypatch.setattr(step_lib.mesh, "backend", lambda g: "nccl")
+  step_lib.refuse_host_collectives("make_jit_step", group, cuda)
 
 
 def test_capture_failure_names_the_call():
   try:
     L._rows(torch.zeros(2, 3, 4, 4))       # not channels_last: raises
   except RuntimeError as err:
-    msg = str(step_lib._capture_failure("make_jit_step", err))
+    msg = str(compiled.capture_failure("make_jit_step", err))
   assert msg.startswith("CUDA graph capture of make_jit_step failed at ")
   assert "models/layers.py" in msg and "_rows" in msg
 

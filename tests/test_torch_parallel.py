@@ -38,6 +38,8 @@ from wcgan_tpu_torch.models.generator import Generator, GeneratorConfig
 from wcgan_tpu_torch.ops import cuda_wc
 from wcgan_tpu_torch.ops import whiten
 from wcgan_tpu_torch.parallel import dryrun, launch, mesh
+from wcgan_tpu_torch.train import step as step_lib
+from wcgan_tpu_torch.train.step import GANConfig
 from wcgan_tpu_torch.train.trainer import check_ema_under_mesh
 
 ROWS, C = 64, 16
@@ -263,20 +265,31 @@ def test_mesh_helpers():
   assert mesh.pmean(x, None) is x and mesh.world_size(None) == 1
 
 
-def test_rank_generators_differ_and_keep_the_state_replicated():
-  """Two ranks with the same replicated generator draw apart, and the
-  replicated generator advances alike on both."""
-  a, b = torch.Generator().manual_seed(7), torch.Generator().manual_seed(7)
-  ga, gb = mesh.rank_generator(a, 0), mesh.rank_generator(b, 1)
-  assert torch.equal(a.get_state(), b.get_state())
-  assert not torch.equal(a.get_state(),
-                         torch.Generator().manual_seed(7).get_state())
-  assert not torch.equal(torch.rand(4, generator=ga),
-                         torch.rand(4, generator=gb))
-  again = mesh.rank_generator(torch.Generator().manual_seed(7), 0)
-  assert torch.equal(torch.rand(4, generator=again),
-                     torch.rand(4, generator=mesh.rank_generator(
-                         torch.Generator().manual_seed(7), 0)))
+def test_rank_draws_differ_and_keep_the_generator_replicated(monkeypatch):
+  """Every rank draws the global batch's noise, flips and labels from the
+  replicated generator and keeps its block (``step.rank_block``): the
+  ranks' blocks differ, together they are one process's draws on the
+  global batch, and the generator advances alike on every rank."""
+  gan = GANConfig(training_ratio=2, z_dim=4, random_flip=True,
+                  num_classes=3, gan_type="projection",
+                  gradient_penalty_weight=1.0)
+  cpu = torch.device("cpu")
+  one = step_lib.draw_noise(gan, torch.Generator().manual_seed(7), 8, cpu)
+  blocks, gens = [], []
+  monkeypatch.setattr(mesh, "world_size", lambda g: 2)
+  for r in range(2):
+    monkeypatch.setattr(mesh, "rank", lambda g, r=r: r)
+    gen = torch.Generator().manual_seed(7)
+    blocks.append(step_lib.rank_block(
+        step_lib.draw_noise(gan, gen, 8, cpu), object()))
+    gens.append(gen.get_state())
+  assert torch.equal(gens[0], gens[1])
+  assert set(one) == {"z_d", "z_g", "flip", "y_d", "y_g", "gp_eps"}
+  for k, v in one.items():
+    axis = 0 if k in ("z_g", "y_g") else 1
+    assert blocks[0][k].shape[axis] * 2 == v.shape[axis], k
+    assert torch.equal(torch.cat([b[k] for b in blocks], axis), v), k
+    assert not torch.equal(blocks[0][k], blocks[1][k]), k
 
 
 def test_reference_sums_replicated_gradients():

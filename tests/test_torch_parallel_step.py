@@ -26,6 +26,14 @@ by Adam's sign bound. The same step of the port on one process, on the
 concatenated batch with the concatenated noise, agrees with the ranks
 within the same tolerances; and after 2 steps with drawn noise every
 tensor of the state is bit-equal on both ranks.
+
+The compiled steps with the group run in a second job: ``make_jit_step``
+(on the CPU its eager body on static buffers, this rank's block of the
+batch in them) gives the eager sharded step's state and metrics bit for
+bit in two cases and over two drawn steps, and so the JAX step's within
+the tolerances above; ``make_jit_dataset_step`` (a chain of 2, 2 calls)
+gives the eager chain's state, metrics and collectives a call bit for
+bit, the state replicated on both ranks.
 """
 
 import jax
@@ -60,6 +68,10 @@ from wcgan_tpu_torch.train.state import (OptimConfig, full_state,
 from wcgan_tpu_torch.train.step import GANConfig, make_outer_step
 
 RANKS, RATIO, B, RES = 2, 2, 4, 16      # B rows per rank
+# The compiled steps' cases, and the synthetic dataset of the compiled
+# chain (32 rows a rank).
+JIT_CASES = ("cwcsa_projection", "dnorm_wgan_gp")
+JIT_DATA = {"resolution": RES, "classes": NC, "n": 64, "seed": 0}
 DCGAN_D = dict(arch="dcgan", resolution=16, filters=(8, 16),
                downsample=(True, True))
 
@@ -281,3 +293,77 @@ def test_dp_state_stays_replicated_over_two_steps(dp_steps):
   assert replication_errors(r0["state"], r1["state"]) == []
   assert r0["metrics"] == r1["metrics"]
   assert all(np.isfinite(v) for m in r0["metrics"] for v in m.values())
+
+
+# --- the compiled steps with the group -----------------------------------------
+
+
+@pytest.fixture(scope="module")
+def dp_jit(dp_steps):
+  """One job of 2 port ranks: ``make_jit_step(group)`` on JIT_CASES' global
+  batches and noise and over 2 steps with drawn noise (the replication
+  call's), and ``jit_dp_rank``'s compiled chain of 2 against the eager
+  one, 2 calls."""
+  calls = [("step_rank", dp_steps[name]["args"] + (0, True))
+           for name in JIT_CASES]
+  g_cfg, d_cfg, gan, w, real, labels, _ = dp_steps[JIT_CASES[0]]["args"]
+  calls.append(("step_rank", (g_cfg, d_cfg, gan, w, real * 2, labels * 2,
+                              None, 0, True)))
+  calls.append(("jit_dp_rank", (g_cfg, d_cfg, gan, RANKS * B, 2, 2,
+                                JIT_DATA)))
+  ranks = launch.launch("wcgan_tpu_torch.parallel.dryrun:batch_rank",
+                        ["cpu"] * RANKS, (calls,), timeout=240, quiet=True)
+  out = {name: [r[i] for r in ranks] for i, name in enumerate(JIT_CASES)}
+  out["replication"] = [r[-2] for r in ranks]
+  out["chain"] = [r[-1] for r in ranks]
+  return out
+
+
+@pytest.mark.parametrize("name", JIT_CASES)
+def test_dp_jit_step_matches_eager_and_jax(name, dp_steps, dp_jit):
+  """make_jit_step(group) on the case's global batch and noise: both
+  ranks hold the eager sharded step's state bit for bit, with its
+  metrics, and so the JAX step's within the tolerances."""
+  c = dp_steps[name]
+  ratio = c["args"][2].training_ratio
+  for eager, jit in zip(c["ranks"], dp_jit[name]):
+    assert replication_errors(jit["state"], eager["state"]) == []
+    assert jit["metrics"] == eager["metrics"]
+  st = _port_state(c["models"], dp_jit[name][1]["state"], ratio)
+  metrics_t = {k: torch.tensor(v) for k, v in
+               dp_jit[name][1]["metrics"][0].items()}
+  check_metrics(c["new_j"], c["metrics_j"], st, metrics_t)
+  for model in ("g", "d"):
+    check_running_state(c["new_j"], st, model)
+
+
+def test_dp_jit_step_over_two_steps_equals_the_eager_step(dp_steps, dp_jit):
+  """Two compiled steps with the ranks' own draws (a warm-up, then the
+  static buffers): the eager step's state bit for bit on each rank, and
+  replicated."""
+  for eager, jit in zip(dp_steps["replication"], dp_jit["replication"]):
+    assert jit["state"]["step"] == 2
+    assert replication_errors(jit["state"], eager["state"]) == []
+    assert jit["metrics"] == eager["metrics"]
+  r0, r1 = dp_jit["replication"]
+  assert replication_errors(r0["state"], r1["state"]) == []
+
+
+def test_dp_jit_dataset_chain_equals_the_eager_chain(dp_jit):
+  """make_jit_dataset_step(group), a chain of 2 over 2 calls, against the
+  eager chain on the same ranks: metrics, K1 launches and the collectives
+  of each call equal, the states bit-equal (and the generators), each
+  state replicated on both ranks."""
+  ranks = dp_jit["chain"]
+  for r in ranks:
+    assert r["jit_calls"] == {"warm-up": 1, "capture": 0, "replay": 0,
+                              "eager": 1}
+    assert r["rel"] == 0.0, r["where"]
+    assert r["same_generator"] and r["steps"] == [4, 4]
+    for call in r["per_call"]:
+      assert call["jit"] == call["eager"]
+      assert call["jit"]["calls"]["grads"] == 2 * (RATIO + 1)
+      assert call["jit"]["calls"]["moments"] > 0
+      assert all(np.isfinite(v) for v in call["jit"]["metrics"].values())
+  assert ranks[0]["digests"] == ranks[1]["digests"]
+  assert ranks[0]["per_call"] == ranks[1]["per_call"]

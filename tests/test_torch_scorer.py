@@ -181,7 +181,7 @@ def test_activations_selective_fetch_cap_and_tail():
   cpu = torch.device("cpu")
   pools, probs = t_scorer._activations(apply_fn, imgs, 8, cpu)
   assert pools.shape == (10, 4) and probs.shape == (10, 3)
-  assert seen == [8, 2]            # the tail is not padded
+  assert seen == [8, 8]            # the tail is padded to the batch
   pools, probs = t_scorer._activations(apply_fn, imgs, 3, cpu,
                                        want_pool=False)
   assert pools is None and probs.shape == (10, 3)

@@ -73,6 +73,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from wcgan_tpu_torch import compiled
 from wcgan_tpu_torch.cli import run as cli_run
 from wcgan_tpu_torch.data import get_dataset
 from wcgan_tpu_torch.device import card, place, resolve_device
@@ -399,11 +400,14 @@ def bench_sampling(dtype: str, batch: int = 256, forwards: int = 30,
   """The sampling path, the JAX package's ``bench_sampling``: the
   headline G in eval mode on its running statistics (one train-mode
   forward from init, as the reference's init does), ``forwards``
-  forwards at ``batch`` a window, on two arms in turns: ``k2_kernel``
+  forwards at ``batch`` a window, on four arms in turns: ``k2_kernel``
   (``kernel_eval=True``: K2 on every WC layer, 7 launches a forward) and
   ``split`` (the split path: Newton-Schulz, fold and row matmul in torch;
-  no K2). Each arm: imgs/s over ``repeats`` windows, K2 launches a
-  forward."""
+  no K2), each the compiled forward (``compiled.Program``: on CUDA one
+  CUDA-graph replay a forward, as the reference jits it), and beside
+  each its eager forward on the same G (``k2_kernel_eager``,
+  ``split_eager``). Each arm: imgs/s over ``repeats`` windows, K2
+  launches a forward."""
   dev = resolve_device(device)
   g_cfg, _, _ = build_models("headline", dtype=dtype)
   split = place(Generator(g_cfg, torch.Generator().manual_seed(seed)), dev)
@@ -411,22 +415,35 @@ def bench_sampling(dtype: str, batch: int = 256, forwards: int = 30,
                            torch.Generator().manual_seed(seed)), dev)
   z = torch.randn((batch, g_cfg.z_dim), device=dev,
                   generator=torch.Generator(device=dev).manual_seed(seed + 1))
-  arms = {"k2_kernel": kernel, "split": split}
+
+  def compiled_forward(g: Generator, name: str):
+    program = compiled.Program(f"bench_sampling {name}")
+    signature = compiled.spec(z)
+    return lambda x: program(
+        lambda static: g(static[0], train=False),
+        lambda: (compiled.module_key(g), compiled.backend_key(), signature),
+        [x], dev)
+
+  arms = {"k2_kernel": compiled_forward(kernel, "k2_kernel"),
+          "k2_kernel_eager": lambda x: kernel(x, train=False),
+          "split": compiled_forward(split, "split"),
+          "split_eager": lambda x: split(x, train=False)}
   rates: Dict[str, List[float]] = {k: [] for k in arms}
   launches = dict.fromkeys(arms, 0)
   _reset_memory(dev)
   with torch.no_grad():
     split(z, train=True, update_stats=True)
     kernel.load_state_dict(split.state_dict())
-    for g in arms.values():                          # warm-up, K2's build
-      g(z, train=False)
+    for forward in arms.values():      # K2's build, a warm-up and a capture
+      for _ in range(2):
+        forward(z)
     fence(dev)
     for r in range(repeats):
       for name in (list(arms) if r % 2 == 0 else list(arms)[::-1]):
         cuda_wc.WC_APPLY_LAUNCHES = 0
         t0 = time.perf_counter()
         for _ in range(forwards):
-          out = arms[name](z, train=False)
+          out = arms[name](z)
         fence(dev)
         rates[name].append(forwards * batch / (time.perf_counter() - t0))
         launches[name] += cuda_wc.WC_APPLY_LAUNCHES

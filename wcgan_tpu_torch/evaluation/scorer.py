@@ -19,7 +19,12 @@ process's up to float32 reordering.
 
 The network runs in true float32 (``metrics.true_float32``: TF32 off for
 its convolutions and products, whatever the caller set), unless
-``conv_tf32`` asks for TF32 convolutions.
+``conv_tf32`` asks for TF32 convolutions. Its forward is a compiled
+program (the reference's ``jax.jit`` ``apply_fn``; ``compiled.Program``):
+on CUDA one CUDA-graph replay a batch after a warm-up and a capture, its
+graph keyed on the batch's shape and on the precision settings that
+chose its kernels; on the CPU the eager forward on static buffers. Under
+a group each rank captures its own; the gather stays outside the graph.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from wcgan_tpu_torch import compiled
 from wcgan_tpu_torch.evaluation import inception_v3, metrics
 from wcgan_tpu_torch.parallel import mesh
 
@@ -48,10 +54,11 @@ def _activations(apply_fn: ApplyFn, images_u8: np.ndarray, batch: int,
   ``group`` this rank runs its block of the images and the rows are
   gathered from every rank, in order.
 
-  The last batch is as long as what is left: the reference pads it to
-  the full batch because XLA compiles one program per shape; eager
-  PyTorch does not, and the rows are the same either way (eval mode has
-  no cross-sample op)."""
+  Every forward takes ``batch`` images (or all of this rank's, when it
+  holds fewer): a short last batch is padded with zeros to that size and
+  its rows sliced, as the reference pads it, so that one compiled program
+  (one CUDA graph) serves every batch. Eval mode has no cross-sample op,
+  so the rows are the unpadded batch's."""
   n = images_u8.shape[0]
   if want_pool and pool_rows is not None and pool_rows > n:
     raise ValueError(
@@ -62,15 +69,20 @@ def _activations(apply_fn: ApplyFn, images_u8: np.ndarray, batch: int,
     raise ValueError(f"{n} images cannot be shared by {world} ranks")
   lo, hi = mesh.split_block(n, mesh.rank(group), world)
   cap = n if pool_rows is None else pool_rows
+  size = min(batch, hi - lo)
   pools, probs = [], []
   for i in range(lo, hi, batch):
-    chunk = torch.from_numpy(images_u8[i:min(i + batch, hi)]).to(device)
-    pool, prob = apply_fn(chunk)
+    chunk = images_u8[i:min(i + batch, hi)]
+    rows = chunk.shape[0]
+    if rows < size:
+      chunk = np.concatenate([chunk, np.zeros(
+          (size - rows,) + chunk.shape[1:], chunk.dtype)])
+    pool, prob = apply_fn(torch.from_numpy(chunk).to(device))
     if want_pool:
       # A 0-row slice past the cap keeps the pool's width for the gather.
-      pools.append(pool[:max(min(cap - i, pool.shape[0]), 0)])
+      pools.append(pool[:max(min(cap - i, rows), 0)])
     if want_probs:
-      probs.append(prob)
+      probs.append(prob[:rows])
   pool = mesh.all_gather_rows(torch.cat(pools), group) if want_pool else None
   prob = mesh.all_gather_rows(torch.cat(probs), group) if want_probs else None
   return pool, prob
@@ -99,13 +111,20 @@ def make_scorer(dataset, compute_is: bool = True, compute_fid: bool = True,
         net = inception_v3.init_params()
         cache["verified"] = False
       net = net.to(device).eval()
+      program = compiled.Program("the scorer's InceptionV3 forward")
 
       @torch.no_grad()
-      def apply_fn(images_u8: torch.Tensor):
+      def forward(static):
         with metrics.true_float32():
           torch.backends.cudnn.allow_tf32 = conv_tf32
-          pool, logits = net(inception_v3.preprocess(images_u8))
+          pool, logits = net(inception_v3.preprocess(static[0]))
         return pool, torch.softmax(logits.float(), dim=-1)
+
+      def apply_fn(images_u8: torch.Tensor):
+        signature = compiled.spec(images_u8)
+        return program(forward, lambda: (
+            compiled.module_key(net), compiled.backend_key(), conv_tf32,
+            signature), [images_u8], device)
 
       cache["apply"] = apply_fn
     return cache["apply"], cache["verified"]

@@ -21,14 +21,15 @@ thin widths and 32x32, bf16, with random flips and 2 images a rank:
   which orders flip it is chance.
 
 The rank functions (``moments_rank``, ``forward_rank``, ``step_rank``,
-``trainer_rank``, ``scorer_rank``) run under ``launch.launch``: the tests
-hold them against the JAX package, and ``chip_smoke.py`` runs them on the
-card. They take numpy arrays of the
+``jit_dp_rank``, ``trainer_rank``, ``scorer_rank``) run under
+``launch.launch``: the tests hold them against the JAX package, and
+``chip_smoke.py`` runs them on the card. They take numpy arrays of the
 global batch and state dicts, and return their results on the CPU.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
 import time
 from typing import Any, Dict, List, Optional, Sequence
@@ -44,6 +45,7 @@ from wcgan_tpu_torch.models.discriminator import DiscriminatorConfig
 from wcgan_tpu_torch.models.generator import Generator, GeneratorConfig
 from wcgan_tpu_torch.ops import cuda_wc, whiten
 from wcgan_tpu_torch.parallel import launch, mesh
+from wcgan_tpu_torch.train import step as step_lib
 from wcgan_tpu_torch.train.state import OptimConfig, create_state, full_state
 from wcgan_tpu_torch.train.step import GANConfig, make_sharded_step
 
@@ -146,8 +148,9 @@ def step_rank(ctx: launch.RankContext, g_cfg: GeneratorConfig,
               weights: Optional[Dict], real: Sequence[np.ndarray],
               labels: Sequence[Optional[np.ndarray]],
               noises: Optional[Sequence[Sequence[Dict]]] = None,
-              seed: int = 0) -> Dict[str, Any]:
-  """``len(real)`` data-parallel outer steps (``make_sharded_step``) from
+              seed: int = 0, jit: bool = False) -> Dict[str, Any]:
+  """``len(real)`` data-parallel outer steps (``make_sharded_step``, or
+  with ``jit`` the compiled ``make_jit_step`` with the group) from
   ``create_state``'s state of ``seed`` (with ``weights``, {"g": state
   dict, "d": state dict}, loaded into it when given): step i on the
   global batch ``real[i]`` (K, B, H, W, C) uint8 with ``labels[i]`` (K,
@@ -159,13 +162,129 @@ def step_rank(ctx: launch.RankContext, g_cfg: GeneratorConfig,
   if weights is not None:
     state.g.load_state_dict(weights["g"])
     state.d.load_state_dict(weights["d"])
-  step = make_sharded_step(gan_cfg, ctx.group)
+  step = (step_lib.make_jit_step(gan_cfg, ctx.group) if jit
+          else make_sharded_step(gan_cfg, ctx.group))
   metrics = []
   for i, (x, y) in enumerate(zip(real, labels)):
     noise = None if noises is None else noises[i][ctx.rank]
     metrics.append({k: float(v) for k, v in step(state, x, y,
                                                  noise=noise).items()})
   return {"metrics": metrics, "state": to_cpu(full_state(state))}
+
+
+def _tensors(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
+  """Every tensor of a tree, by its path."""
+  if torch.is_tensor(tree):
+    return {prefix: tree}
+  items = (tree.items() if isinstance(tree, dict)
+           else enumerate(tree) if isinstance(tree, (list, tuple)) else ())
+  return {k: v for key, sub in items
+          for k, v in _tensors(sub, f"{prefix}/{key}").items()}
+
+
+def state_digest(st) -> str:
+  """A digest of every tensor and count of a train state (its values,
+  dtypes and shapes), equal on two ranks exactly when they hold the same
+  state bit for bit."""
+  h = hashlib.blake2b(digest_size=16)
+  tree = full_state(st)
+  for k, t in sorted(_tensors(tree).items()):
+    h.update(f"{k}{t.dtype}{tuple(t.shape)}".encode())
+    raw = t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+    h.update(raw.numpy().tobytes())
+  h.update(str(tree["step"]).encode())
+  return h.hexdigest()
+
+
+def worst_rel(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]):
+  """(largest |a - b| relative to b's largest magnitude, over the tensors
+  of b, and its name): each tensor measured against its own scale; a
+  tensor that is not floating point counts as inf unless equal."""
+  worst, where = 0.0, "all equal"
+  for k, y in b.items():
+    if not y.is_floating_point() or not y.numel():
+      if not torch.equal(a[k].cpu(), y.cpu()):
+        return float("inf"), k
+      continue
+    x, y = a[k].detach().double(), y.detach().double()
+    err = float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+    if err > worst:
+      worst, where = err, k
+  return worst, where
+
+
+def jit_dp_rank(ctx: launch.RankContext, g_cfg: GeneratorConfig,
+                d_cfg: DiscriminatorConfig, gan_cfg: GANConfig,
+                batch_size: int, steps_per_call: int, calls: int,
+                synthetic: Dict[str, int], seed: int = 0,
+                time_rounds: int = 0, time_calls: int = 2
+                ) -> Dict[str, Any]:
+  """The compiled data-parallel chain (``make_jit_dataset_step`` with the
+  group: on CUDA under NCCL one CUDA graph a call on each rank) against
+  the eager chain (``_multi(make_dataset_step)`` with the group) on this
+  rank: two states from ``seed`` on this rank's block of the synthetic
+  dataset of ``synthetic``'s shape ({"resolution", "classes", "n",
+  "seed"}), ``calls`` calls of each, in turns. Returns each call's
+  metrics, K1 launches and collectives (calls and bytes by kind) for both
+  arms, the compiled step's calls by kind, the worst relative difference
+  of the states' tensors (compiled against eager) and where, whether the
+  generators agree, and a digest of each state (``state_digest``: equal
+  on every rank when the state stays replicated). With ``time_rounds``,
+  then ``time_rounds`` rounds of ``time_calls`` calls of each arm in
+  turns: each arm's milliseconds an outer step (host clock, fenced), the
+  median of its rounds, and their spread."""
+  images, labels = _synthetic(synthetic["resolution"], synthetic["classes"],
+                              n=synthetic["n"], seed=synthetic["seed"])
+  lo, hi = mesh.shard_block(len(images), ctx.rank, ctx.world_size)
+  data = (torch.from_numpy(images[lo:hi]).to(ctx.device),
+          torch.from_numpy(labels[lo:hi].astype(np.int32)).to(ctx.device))
+  states = [create_state(g_cfg, d_cfg, OptimConfig(),
+                         gan_cfg.training_ratio, ctx.device, seed,
+                         group=ctx.group) for _ in range(2)]
+  jit = step_lib.make_jit_dataset_step(gan_cfg, batch_size, steps_per_call,
+                                       ctx.group)
+  eager = step_lib._multi(step_lib.make_dataset_step(gan_cfg, batch_size,
+                                                     ctx.group),
+                          steps_per_call)
+  arms = (("jit", jit, states[0]), ("eager", eager, states[1]))
+  sync = (torch.cuda.synchronize if ctx.device.type == "cuda"
+          else lambda: None)
+  per_call = []
+  for _ in range(calls):
+    row = {}
+    for name, fn, st in arms:
+      sync()
+      cuda_wc.MOMENTS_LAUNCHES = 0
+      mesh.STATS.reset()
+      metrics = {k: float(v) for k, v in fn(st, *data).items()}
+      sync()
+      row[name] = {"metrics": metrics, "k1": cuda_wc.MOMENTS_LAUNCHES,
+                   "calls": dict(mesh.STATS.calls),
+                   "bytes": dict(mesh.STATS.bytes)}
+    per_call.append(row)
+  got, want = (_tensors(full_state(st)) for st in states)
+  rel, where = worst_rel(got, want)
+  out = {"per_call": per_call, "jit_calls": dict(jit.calls),
+         "rel": rel, "where": where,
+         "same_generator": torch.equal(states[0].generator.get_state(),
+                                       states[1].generator.get_state()),
+         "steps": [st.step for st in states],
+         "digests": [state_digest(st) for st in states]}
+  if time_rounds:
+    ms = {name: [] for name, _, _ in arms}
+    for r in range(time_rounds):
+      for name, fn, st in (arms if r % 2 == 0 else arms[::-1]):
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(time_calls):
+          fn(st, *data)
+        sync()
+        ms[name].append((time.perf_counter() - t0) * 1e3
+                        / (time_calls * steps_per_call))
+    out["ms_per_step"] = {k: (float(np.median(v)), min(v), max(v))
+                          for k, v in ms.items()}
+    out["jit_calls"] = dict(jit.calls)
+  return out
 
 
 def deterministic_rank(ctx: launch.RankContext) -> None:

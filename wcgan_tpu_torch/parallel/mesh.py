@@ -22,20 +22,17 @@ that the caller passes to every layer and step that reduces over it
   ``split_block`` the same for a count the ranks need not divide;
 - ``all_gather_rows``: every rank's rows, concatenated in rank order on
   every rank (the scorer's activations; ``NamedSharding``'s gather on
-  fetch);
-- ``rank_generator``: a rank's own ``torch.Generator``, derived from the
-  replicated one and the rank (the reference's
-  ``fold_in(rng, axis_index)``).
+  fetch).
 
 ``STATS`` counts the collectives issued in this process, with their
-bytes, by what they carry.
+bytes, by what they carry (a captured step's are added on each replay,
+``compiled.Program``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
-import hashlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -88,6 +85,11 @@ def init_group(rank: int, world_size: int, init_method: str, backend: str,
 def destroy_group() -> None:
   if dist.is_initialized():
     dist.destroy_process_group()
+
+
+def backend(group: Group) -> Optional[str]:
+  """The group's backend ('nccl', 'gloo'), None for one process."""
+  return None if group is None else dist.get_backend(group)
 
 
 def world_size(group: Group) -> int:
@@ -178,17 +180,3 @@ def all_gather_rows(t: torch.Tensor, group: Group) -> torch.Tensor:
   STATS.add("rows", padded)
   dist.all_gather(blocks, padded, group=group)
   return torch.cat([b[:c] for b, c in zip(blocks, counts)])
-
-
-def rank_generator(gen: torch.Generator, rank_: int) -> torch.Generator:
-  """A new generator on ``gen``'s device, seeded from ``gen``'s state and
-  ``rank_``; then ``gen`` advances by one draw, the same on every rank.
-  A replicated ``gen`` stays replicated and each rank draws apart, as the
-  reference folds the replica index into the step's key. Reading the
-  state does not wait for the device."""
-  digest = hashlib.blake2b(gen.get_state().numpy().tobytes()
-                           + rank_.to_bytes(8, "little"),
-                           digest_size=8).digest()
-  seed = int.from_bytes(digest, "little") & ((1 << 63) - 1)
-  torch.randint(0, 2, (1,), generator=gen, device=gen.device)
-  return torch.Generator(device=gen.device).manual_seed(seed)

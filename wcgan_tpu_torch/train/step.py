@@ -42,9 +42,13 @@ reference's device-data path does.
 
 The compiled step (the reference's ``make_jit_step`` and
 ``make_jit_dataset_step``, ``jax.jit`` of the step and of its
-``steps_per_call`` chain): on CUDA each is a ``torch.cuda.CUDAGraph`` of one
-outer step or of a whole chain, one replay a call (``JitStep``); on the CPU
-the same callables run the eager body on the same static buffers.
+``steps_per_call`` chain, and with a process group its
+``make_sharded_step`` and ``make_sharded_dataset_step``): on CUDA each is
+a ``torch.cuda.CUDAGraph`` of one outer step or of a whole chain, one
+replay a call (``JitStep``, on ``compiled.Program``); under an NCCL group
+each rank captures its own graph, its all-reduces inside it. On the CPU
+the same callables run the eager body on the same static buffers. A gloo
+group on CUDA is refused: gloo's collectives run on the host.
 
 Data parallelism (the reference's ``make_sharded_step`` and
 ``make_sharded_dataset_step``): with a process ``group`` every rank runs
@@ -53,23 +57,25 @@ the same group so that their statistics are the global batch's. Each
 update's gradients and loss are averaged over the ranks in one all-reduce
 before Adam, so every parameter, buffer, Adam slot and schedule stays
 equal on all ranks (not ``DistributedDataParallel``, which would
-broadcast rank 0's buffers over the statistics and SN vectors). Each rank
-draws its noise, labels, flips and picks from its own generator, derived
-from the replicated ``state.generator`` and its rank
-(``mesh.rank_generator``), as the reference folds the replica index into
-the step's key; injected ``noise`` overrides them, rank by rank.
+broadcast rank 0's buffers over the statistics and SN vectors). Every
+rank draws the global batch's noise, labels, flips and dataset picks from
+the replicated ``state.generator`` and keeps its own block of them, so
+that the generator stays replicated, the ranks draw apart, and a
+sharded step draws what one process draws on the global batch; the draws
+live on the device and advance on every replay. The reference folds the
+replica index into the step's key instead, so the draws match its only in
+distribution. Injected ``noise`` overrides them, rank by rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import traceback
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from wcgan_tpu_torch.ops import cuda_wc
+from wcgan_tpu_torch import compiled
 from wcgan_tpu_torch.ops import losses as loss_ops
 from wcgan_tpu_torch.parallel import mesh
 from wcgan_tpu_torch.train.state import GANTrainState
@@ -140,13 +146,24 @@ def _apply(params, grads, opt, sched) -> None:
   opt.zero_grad(set_to_none=True)
 
 
-def _draw_generator(state: GANTrainState, group: mesh.Group
-                    ) -> torch.Generator:
-  """The generator of this rank's draws: the state's own on one process,
-  else one derived from it and the rank."""
+# The draws laid out along the G update's batch (axis 0); the others are
+# (K, B, ...), along axis 1.
+_G_BATCH_DRAWS = ("z_g", "y_g")
+
+
+def rank_block(draws: Dict[str, torch.Tensor], group: mesh.Group
+               ) -> Dict[str, torch.Tensor]:
+  """This rank's contiguous block of the global batch's ``draws`` (all of
+  them when ``group`` is None), as ``make_outer_step`` lays them out."""
   if group is None:
-    return state.generator
-  return mesh.rank_generator(state.generator, mesh.rank(group))
+    return draws
+  n, r = mesh.world_size(group), mesh.rank(group)
+  out = {}
+  for k, v in draws.items():
+    axis = 0 if k in _G_BATCH_DRAWS else 1
+    lo, hi = mesh.shard_block(v.shape[axis], r, n)
+    out[k] = v.narrow(axis, lo, hi - lo)
+  return out
 
 
 def _check_divisible(batch_size: int, group: mesh.Group) -> int:
@@ -156,6 +173,33 @@ def _check_divisible(batch_size: int, group: mesh.Group) -> int:
     raise ValueError(f"batch_size {batch_size} must be divisible by the "
                      f"mesh size {n}")
   return batch_size // n
+
+
+def draw_noise(cfg: GANConfig, gen: torch.Generator, b: int, device
+               ) -> Dict[str, torch.Tensor]:
+  """Every random draw of one outer step of a global batch of ``b`` rows
+  (D batches of ``b``, a G update of ``generator_batch_multiple`` x
+  ``b``), from ``gen``: the unconditional draws first, in the order of
+  ``make_outer_step``'s ``noise``."""
+  ratio = cfg.training_ratio
+  g_batch = b * cfg.generator_batch_multiple
+  noise = {
+      "z_d": torch.randn((ratio, b, cfg.z_dim), generator=gen,
+                         device=device),
+      "z_g": torch.randn((g_batch, cfg.z_dim), generator=gen,
+                         device=device),
+  }
+  if cfg.random_flip:
+    noise["flip"] = torch.rand((ratio, b), generator=gen,
+                               device=device) < 0.5
+  if cfg.conditional:
+    noise["y_d"] = torch.randint(0, cfg.num_classes, (ratio, b),
+                                 generator=gen, device=device)
+    noise["y_g"] = torch.randint(0, cfg.num_classes, (g_batch,),
+                                 generator=gen, device=device)
+  if cfg.gradient_penalty_weight > 0.0:
+    noise["gp_eps"] = torch.rand((ratio, b), generator=gen, device=device)
+  return noise
 
 
 def make_outer_step(cfg: GANConfig, group: mesh.Group = None
@@ -170,8 +214,9 @@ def make_outer_step(cfg: GANConfig, group: mesh.Group = None
   random draw: ``{"z_d": (K, B, z), "z_g": (gB, z), "flip": (K, B) bool,
   "y_d": (K, B), "y_g": (gB,), "gp_eps": (K, B)}`` (the labels when
   conditional, the interpolation weights under WGAN-GP); without it all
-  are drawn from ``state.generator`` (a rank's generator derived from it
-  under a group), the unconditional draws first in the order above.
+  are drawn from ``state.generator`` (under a group, the global batch's
+  draws, of which this rank keeps its block: ``rank_block``), the
+  unconditional draws first in the order above.
   Updates ``state`` in place and returns the metrics d_loss and
   d_grad_norm (means over the K D updates), g_loss and g_grad_norm as 0-d
   tensors on the state's device, without synchronising; under a group
@@ -181,26 +226,7 @@ def make_outer_step(cfg: GANConfig, group: mesh.Group = None
   gp_weight = cfg.gradient_penalty_weight
   acgan = cfg.gan_type == "acgan"
   d_fake_train = cfg.d_fake_stats == "batch"
-
-  def draw_noise(gen: torch.Generator, b: int, device) -> Dict:
-    g_batch = b * cfg.generator_batch_multiple
-    noise = {
-        "z_d": torch.randn((ratio, b, cfg.z_dim), generator=gen,
-                           device=device),
-        "z_g": torch.randn((g_batch, cfg.z_dim), generator=gen,
-                           device=device),
-    }
-    if cfg.random_flip:
-      noise["flip"] = torch.rand((ratio, b), generator=gen,
-                                 device=device) < 0.5
-    if cfg.conditional:
-      noise["y_d"] = torch.randint(0, cfg.num_classes, (ratio, b),
-                                   generator=gen, device=device)
-      noise["y_g"] = torch.randint(0, cfg.num_classes, (g_batch,),
-                                   generator=gen, device=device)
-    if gp_weight > 0.0:
-      noise["gp_eps"] = torch.rand((ratio, b), generator=gen, device=device)
-    return noise
+  world = mesh.world_size(group)
 
   def reduced(loss, grads):
     """(loss, grads) averaged over the ranks, in one all-reduce."""
@@ -280,7 +306,8 @@ def make_outer_step(cfg: GANConfig, group: mesh.Group = None
     d_takes_labels = cfg.conditional and (
         d_cfg.projection or d_cfg.ac_gan or d_cfg.num_classes > 0)
     if noise is None:
-      noise = draw_noise(_draw_generator(state, group), b, device)
+      noise = rank_block(
+          draw_noise(cfg, state.generator, b * world, device), group)
     noise = {k: as_tensor(v, device) for k, v in noise.items()}
     real = prepare_real(real, noise.get("flip") if cfg.random_flip else None)
     y_real = y_d = y_g = None
@@ -313,6 +340,21 @@ def make_outer_step(cfg: GANConfig, group: mesh.Group = None
   return outer_step
 
 
+def _batch_block(group: mesh.Group) -> Callable[[Sequence], Tuple]:
+  """(real_u8, labels) of the global batch -> this rank's contiguous block
+  of their B / world_size rows; B must divide by the world size."""
+  n, r = mesh.world_size(group), mesh.rank(group)
+
+  def block(inputs: Sequence) -> Tuple:
+    real_u8, labels = inputs
+    _check_divisible(real_u8.shape[1], group)
+    lo, hi = mesh.shard_block(real_u8.shape[1], r, n)
+    return (real_u8[:, lo:hi],
+            None if labels is None else labels[:, lo:hi])
+
+  return block
+
+
 def make_sharded_step(cfg: GANConfig, group: mesh.Group
                       ) -> Callable[..., Dict[str, torch.Tensor]]:
   """The data-parallel outer step on host-fed batches, the reference's
@@ -321,14 +363,11 @@ def make_sharded_step(cfg: GANConfig, group: mesh.Group
   rank's contiguous block of B / world_size rows (``noise`` is this
   rank's own). B must divide by the world size."""
   inner = make_outer_step(cfg, group)
-  n, r = mesh.world_size(group), mesh.rank(group)
+  block = _batch_block(group)
 
   def step(state: GANTrainState, real_u8, labels,
            noise: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
-    _check_divisible(real_u8.shape[1], group)
-    lo, hi = mesh.shard_block(real_u8.shape[1], r, n)
-    return inner(state, real_u8[:, lo:hi],
-                 None if labels is None else labels[:, lo:hi], noise=noise)
+    return inner(state, *block((real_u8, labels)), noise=noise)
 
   return step
 
@@ -347,18 +386,21 @@ def make_dataset_step(cfg: GANConfig, batch_size: int,
   distribution.
 
   With a ``group`` it is the reference's ``make_sharded_dataset_step``:
-  ``data_x``/``data_y`` are this rank's shard of the dataset, and each
-  rank draws B / world_size rows of the global batch ``batch_size`` from
-  its shard with its own generator. B must divide by the world size."""
+  ``data_x``/``data_y`` are this rank's shard of the dataset: every rank
+  draws the picks of the global batch ``batch_size`` into its shard from
+  the replicated generator and keeps its block of B / world_size of them.
+  B must divide by the world size."""
   local = _check_divisible(batch_size, group)
   inner = make_outer_step(cfg, group)
   ratio = cfg.training_ratio
+  lo, _ = mesh.shard_block(batch_size, mesh.rank(group),
+                           mesh.world_size(group))
 
   def step(state: GANTrainState, data_x: torch.Tensor, data_y: torch.Tensor,
            noise: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
-    idx = torch.randint(0, data_x.shape[0], (ratio * local,),
-                        generator=_draw_generator(state, group),
-                        device=data_x.device)
+    idx = torch.randint(0, data_x.shape[0], (ratio, batch_size),
+                        generator=state.generator, device=data_x.device)
+    idx = idx[:, lo:lo + local].reshape(-1)
     real = data_x.index_select(0, idx).view(
         (ratio, local) + tuple(data_x.shape[1:]))
     labels = data_y.index_select(0, idx).view(ratio, local)
@@ -429,129 +471,87 @@ def _input_key(copied: Sequence, held: Sequence,
   """What a captured graph is bound to in a call's inputs: the shapes,
   dtypes and devices of those copied into static buffers, the identity of
   those read where they lie, and the noise's keys and shapes."""
-  def spec(a):
-    if a is None:
-      return None
-    if torch.is_tensor(a):
-      return (tuple(a.shape), a.dtype, a.device)
-    a = np.asarray(a)
-    return (a.shape, a.dtype.str, "host")
-
-  return (tuple(spec(a) for a in copied),
-          tuple((id(a), a.data_ptr(), spec(a)) if torch.is_tensor(a)
-                else None for a in held),
-          None if noise is None else tuple(
-              sorted((k, spec(v)) for k, v in noise.items())))
+  return (compiled.spec(list(copied)),
+          tuple((id(a), a.data_ptr(), compiled.spec(a))
+                if torch.is_tensor(a) else None for a in held),
+          compiled.spec(noise))
 
 
-def _capture_failure(name: str, err: BaseException) -> RuntimeError:
-  """The error of a failed capture, naming the call that could not be
-  captured: the innermost frame of the package (or of the kernels'
-  wrapper) where it was raised."""
-  frames = [f for f in traceback.extract_tb(err.__traceback__)
-            if "wcgan_tpu_torch" in f.filename]
-  where = (f" at {frames[-1].filename.split('wcgan_tpu_torch')[-1]}"
-           f":{frames[-1].lineno} ({frames[-1].name}: {frames[-1].line})"
-           if frames else "")
-  return RuntimeError(f"CUDA graph capture of {name} failed{where}: "
-                      f"{type(err).__name__}: {err}")
+
+def refuse_host_collectives(name: str, group: mesh.Group,
+                            device: torch.device) -> None:
+  """Raise for a process group whose collectives a CUDA graph cannot
+  capture: any but NCCL, on CUDA."""
+  backend = mesh.backend(group)
+  if device.type == "cuda" and backend not in (None, "nccl"):
+    raise ValueError(
+        f"{name} cannot be captured with a {backend} group on CUDA: "
+        f"{backend}'s collectives run on the host, where a CUDA graph "
+        "cannot capture them; run the eager make_sharded_step / "
+        "make_dataset_step with that group, or NCCL (a card a rank)")
 
 
 class JitStep:
   """A step function run through static buffers, the port's ``jax.jit``
-  of a step: ``step(state, *inputs, noise=None)`` with the signature of
-  the eager ``fn`` it wraps (``eager``), whose call runs ``steps`` outer
-  steps.
+  of a step (a ``compiled.Program``): ``step(state, *inputs, noise=None)``
+  with the signature of the eager function ``eager``, whose call runs
+  ``steps`` outer steps.
 
-  The inputs at the positions ``copied`` are copied into static buffers
-  on the state's device before each call (a host-fed batch; ``None``
-  stays ``None``); the others are read where they lie (the device
-  dataset; the step keeps no reference to them, so a dataset the caller
-  drops is freed). ``noise``, when given, is copied into static buffers
-  too.
+  ``fn`` is the function the program runs; ``select``, when given, maps
+  a call's inputs to ``fn``'s (this rank's block of a global batch), and
+  ``eager`` is then ``fn`` after it. The inputs at the positions
+  ``copied`` are copied into static buffers on the state's device before
+  each call (a host-fed batch; ``None`` stays ``None``); the others are
+  read where they lie (the device dataset; the step keeps no reference to
+  them, so a dataset the caller drops is freed). ``noise``, when given, is
+  copied into static buffers too.
 
   On CUDA, after a warm-up call, each call is one replay of a
-  ``torch.cuda.CUDAGraph`` of ``fn``:
-
-  - the first call (and the first after ``invalidate()`` or after anything
-    the graph is bound to changes: the state's tensors, an optimizer or
-    schedule, the inputs' shapes, dtypes and devices, the device data's
-    tensors, the noise's keys) runs ``fn`` eagerly on a side stream. It is
-    a real call, it builds the kernels and creates Adam's slots;
-  - the next call captures ``fn`` on that stream, with ``state.generator``
-    registered with the graph, so that each replay draws fresh numbers and
-    advances the generator as eager calls would, then replays it; later
-    calls replay. A capture that fails raises, naming the call that could
-    not be captured; nothing falls back to eager;
-  - the host-side counts a call advances (``state.step``,
-    ``state.g_version`` and the kernels' launch counts
-    ``cuda_wc.MOMENTS_LAUNCHES``, ``WC_APPLY_LAUNCHES``) are those of the
-    captured call, added on each replay;
-  - the metrics are new tensors on each call (copies of the graph's
-    outputs);
-  - ``torch.autograd`` anomaly detection stays on in the capture without
-    its NaN check, which reads the device on the host (a caller's check of
-    the metrics, ``debug_nans``, runs on every call).
+  ``torch.cuda.CUDAGraph`` of ``fn`` (see ``compiled``): the graph is
+  bound to the state's tensors, its optimizers and schedules, the inputs'
+  shapes, dtypes and devices, the device data's tensors and the noise's
+  keys, and any change warms up and captures anew; ``state.generator`` is
+  registered with it; the host counts a call advances (``state.step``,
+  ``state.g_version``, the kernels' launch counts, ``mesh.STATS``) are the
+  captured call's, added on each replay; the metrics are new tensors on
+  each call. Under an NCCL ``group`` every rank warms up, captures and
+  replays at the same call (the binding changes only with replicated
+  events: a rotated window, a restore, a ladder rung), each rank's
+  all-reduces inside its graph; a gloo group on CUDA raises.
 
   On the CPU every call after the warm-up runs ``fn`` eagerly on the
   static buffers. ``last`` says what the last call did: 'warm-up',
   'capture', 'replay' or 'eager' (the CPU's), and ``calls`` counts each."""
 
   def __init__(self, fn: Callable[..., Dict[str, torch.Tensor]], steps: int,
-               copied: Sequence[bool], name: str):
-    self.eager = fn
+               copied: Sequence[bool], name: str, group: mesh.Group = None,
+               select: Optional[Callable[[Sequence], Sequence]] = None):
     self.steps = steps
     self.name = name
+    self._fn = fn
     self._copied = tuple(copied)
-    self._stream = None
-    self.calls = {"warm-up": 0, "capture": 0, "replay": 0, "eager": 0}
-    self.last: Optional[str] = None
-    self.invalidate()
+    self._group = group
+    self._select = select
+    self._program = compiled.Program(name)
+    if select is None:
+      self.eager = fn
+    else:
+      def eager(state, *inputs, noise=None):
+        return fn(state, *select(inputs), noise=noise)
+      self.eager = eager
+
+  @property
+  def calls(self) -> Dict[str, int]:
+    return self._program.calls
+
+  @property
+  def last(self) -> Optional[str]:
+    return self._program.last
 
   def invalidate(self) -> None:
     """Drop the graph and the static buffers: the next call warms up
     again, the one after it captures anew."""
-    self._graph = None
-    self._key = None
-    self._static: Optional[List[Any]] = None
-    self._static_noise: Optional[Dict[str, torch.Tensor]] = None
-    self._out: Optional[Dict[str, torch.Tensor]] = None
-    self._advance = None
-
-  def _split(self, inputs):
-    copied = [a for a, c in zip(inputs, self._copied) if c]
-    held = [a for a, c in zip(inputs, self._copied) if not c]
-    return copied, held
-
-  @staticmethod
-  def _host(a) -> torch.Tensor:
-    if torch.is_tensor(a):
-      return a
-    # np.array copies: arrays from other frameworks are often read-only.
-    return torch.from_numpy(np.array(a))
-
-  def _fill(self, inputs, noise, device) -> None:
-    """Copy the inputs into the static buffers (made on first use; None
-    where an input is read where it lies)."""
-    if self._static is None:
-      self._static = [
-          torch.empty_like(self._host(a), device=device)
-          if c and a is not None else None
-          for a, c in zip(inputs, self._copied)]
-      self._static_noise = None if noise is None else {
-          k: torch.empty_like(self._host(v), device=device)
-          for k, v in noise.items()}
-    for buf, a in zip(self._static, inputs):
-      if buf is not None:
-        buf.copy_(self._host(a))
-    if noise is not None:
-      for k, v in noise.items():
-        self._static_noise[k].copy_(self._host(v))
-
-  def _run(self, state, inputs):
-    """``fn`` on the static buffers and the inputs read where they lie."""
-    args = [a if buf is None else buf for a, buf in zip(inputs, self._static)]
-    return self.eager(state, *args, noise=self._static_noise)
+    self._program.invalidate()
 
   def __call__(self, state: GANTrainState, *inputs,
                noise: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
@@ -559,116 +559,50 @@ class JitStep:
       raise TypeError(f"{self.name} takes {len(self._copied)} inputs after "
                       f"the state, got {len(inputs)}")
     device = state.generator.device
-    inputs_key = _input_key(*self._split(inputs), noise)
-    if self._key != (_state_key(state), inputs_key):
-      out = self._warm_up(state, inputs, noise, device)
-      # Bound to the state as the warm-up left it (with Adam's slots).
-      self._key = (_state_key(state), inputs_key)
-      return out
-    self._fill(inputs, noise, device)
-    if device.type != "cuda":
-      self._note("eager")
-      return self._run(state, inputs)
-    if self._graph is None:
-      self._capture(state, inputs, device)
-      self._note("capture")
-    else:
-      self._note("replay")
-    self._graph.replay()
-    state.step += self._advance[0]
-    state.g_version += self._advance[1]
-    cuda_wc.MOMENTS_LAUNCHES += self._advance[2]
-    cuda_wc.WC_APPLY_LAUNCHES += self._advance[3]
-    return {k: v.clone() for k, v in self._out.items()}
+    refuse_host_collectives(self.name, self._group, device)
+    if self._select is not None:
+      inputs = tuple(self._select(inputs))
+    copied = [a for a, c in zip(inputs, self._copied) if c]
+    held = [a for a, c in zip(inputs, self._copied) if not c]
+    inputs_key = _input_key(copied, held, noise)
 
-  def _note(self, kind: str) -> None:
-    self.calls[kind] += 1
-    self.last = kind
+    def run(static):
+      buffers = iter(static[0])
+      args = [next(buffers) if c else a for a, c in zip(inputs, self._copied)]
+      return self._fn(state, *args, noise=static[1])
 
-  def _side_stream(self, device) -> "torch.cuda.Stream":
-    if self._stream is None:
-      self._stream = torch.cuda.Stream(device)
-    return self._stream
-
-  def _warm_up(self, state, inputs, noise, device):
-    self.invalidate()
-    self._fill(inputs, noise, device)
-    self._note("warm-up")
-    if device.type != "cuda":
-      out = self._run(state, inputs)
-    else:
-      current = torch.cuda.current_stream(device)
-      side = self._side_stream(device)
-      side.wait_stream(current)
-      with torch.cuda.stream(side):
-        out = self._run(state, inputs)
-      current.wait_stream(side)
-      for v in out.values():
-        v.record_stream(current)
-    return out
-
-  def _capture(self, state, inputs, device) -> None:
-    """Capture one call of ``fn`` on the side stream; the state's host
-    counts and the launch counts are put back, and what the call advances
-    them by is kept for the replays."""
-    before = (state.step, state.g_version, cuda_wc.MOMENTS_LAUNCHES,
-              cuda_wc.WC_APPLY_LAUNCHES)
-    graph = torch.cuda.CUDAGraph()
-    if state.generator.device.type == "cuda":
-      graph.register_generator_state(state.generator)
-    current = torch.cuda.current_stream(device)
-    side = self._side_stream(device)
-    side.wait_stream(current)
-    anomaly = torch.is_anomaly_enabled()
-    try:
-      with torch.cuda.stream(side), torch.autograd.set_detect_anomaly(
-          anomaly, check_nan=False):
-        with torch.cuda.graph(graph, stream=side):
-          out = self._run(state, inputs)
-    except Exception as err:
-      raise _capture_failure(self.name, err) from err
-    finally:
-      after = (state.step, state.g_version, cuda_wc.MOMENTS_LAUNCHES,
-               cuda_wc.WC_APPLY_LAUNCHES)
-      state.step, state.g_version = before[0], before[1]
-      cuda_wc.MOMENTS_LAUNCHES, cuda_wc.WC_APPLY_LAUNCHES = before[2:]
-    current.wait_stream(side)
-    self._advance = tuple(a - b for a, b in zip(after, before))
-    self._graph, self._out = graph, out
-
-
-def _refuse_group(name: str, group: mesh.Group) -> None:
-  if group is not None:
-    raise ValueError(
-        f"{name} runs on one process: a CUDA graph cannot capture gloo's "
-        "collectives, and the capture over NCCL is not ported yet; use "
-        "make_sharded_step / make_sharded_dataset_step (eager) with a "
-        "process group")
+    return self._program(run, lambda: (_state_key(state), inputs_key),
+                         [copied, noise], device, state=state)
 
 
 def make_jit_step(cfg: GANConfig, group: mesh.Group = None) -> JitStep:
-  """The compiled outer step, the reference's ``make_jit_step``:
-  ``step(state, real_u8, labels, noise=None)`` as ``make_outer_step``'s,
+  """The compiled outer step, the reference's ``make_jit_step`` (with a
+  ``group``, its ``make_sharded_step``): ``step(state, real_u8, labels,
+  noise=None)`` as ``make_outer_step``'s (``make_sharded_step``'s: the
+  global batch, of which this rank's block fills the static buffers),
   with the batch, the labels and the noise copied into static buffers on
-  the state's device; on CUDA one CUDA-graph replay a call (``JitStep``).
-  Refuses a process ``group``."""
-  _refuse_group("make_jit_step", group)
-  return JitStep(make_outer_step(cfg), 1, (True, True), "make_jit_step")
+  the state's device; on CUDA one CUDA-graph replay a call
+  (``JitStep``)."""
+  if group is None:
+    return JitStep(make_outer_step(cfg), 1, (True, True), "make_jit_step")
+  return JitStep(make_outer_step(cfg, group), 1, (True, True),
+                 "make_jit_step", group, _batch_block(group))
 
 
 def make_jit_dataset_step(cfg: GANConfig, batch_size: int,
                           steps_per_call: int = 1,
                           group: mesh.Group = None) -> JitStep:
   """The compiled chain of ``steps_per_call`` dataset steps, the
-  reference's ``make_jit_dataset_step``: ``step(state, data_x, data_y,
-  noise=None)`` as ``_multi(make_dataset_step(cfg, batch_size),
-  steps_per_call)``'s (the noise with a leading axis of
-  ``steps_per_call`` when it chains more than one step), the dataset read
-  where it lies; on CUDA one CUDA graph of the whole chain, one replay a
-  call (``JitStep``), the counterpart of the reference's ``lax.scan``. A
-  new dataset tensor (a rotated window) means a new capture. Refuses a
-  process ``group``."""
-  _refuse_group("make_jit_dataset_step", group)
-  return JitStep(_multi(make_dataset_step(cfg, batch_size), steps_per_call),
+  reference's ``make_jit_dataset_step`` (with a ``group``, its
+  ``make_sharded_dataset_step``): ``step(state, data_x, data_y,
+  noise=None)`` as ``_multi(make_dataset_step(cfg, batch_size, group),
+  steps_per_call)``'s (the noise with a leading axis of ``steps_per_call``
+  when it chains more than one step), the dataset (this rank's shard)
+  read where it lies; on CUDA one CUDA graph of the whole chain, one
+  replay a call (``JitStep``), the counterpart of the reference's
+  ``lax.scan``. A new dataset tensor (a rotated window) means a new
+  capture."""
+  return JitStep(_multi(make_dataset_step(cfg, batch_size, group),
+                        steps_per_call),
                  max(steps_per_call, 1), (False, False),
-                 "make_jit_dataset_step")
+                 "make_jit_dataset_step", group)

@@ -22,7 +22,14 @@ and file names are the reference's):
   with standing statistics re-estimated under them; else the live G in
   eval mode on its running statistics. A conditional run samples with
   labels: the dataset's fixed test labels in grids, uniform draws in
-  ``generate`` and the standing statistics;
+  ``generate`` and the standing statistics. ``sample``, ``sample_u8`` and
+  the standing pass are compiled programs (the reference's ``_sample``,
+  ``_sample_u8`` and ``_standing_pass``; ``compiled.Program``): on CUDA
+  one CUDA-graph replay a call after a warm-up and a capture, one graph
+  per input signature (batch, conditional); on the CPU the eager body on
+  static buffers. The standing statistics live in fixed tensors, each
+  recompute copied into them, so that the graphs stay bound; a restore
+  and each rung of the fallback ladder invalidate the graphs;
 - checkpoints: the full state under ``checkpoints_dir/name/epoch_{i}/``
   (``torch.save``, loadable with ``weights_only=True``) beside the
   weights-only ``epoch_{i}_{generator,discriminator}.npz`` in the JAX
@@ -30,11 +37,12 @@ and file names are the reference's):
   BatchNorms' ``batch_stats``, everywhere (checkpoint, standing
   statistics, the sampling cache); ``diagnostics()`` reads the WC layers
   only, since a BatchNorm has no covariance;
-- the step: on one process the compiled step, the reference's
-  ``make_jit_dataset_step`` with device data and ``make_jit_step``
-  without (on CUDA a CUDA graph a call, ``step.JitStep``; on the CPU the
-  eager body on static buffers). A restore and each rung of the fallback
-  ladder invalidate it, so that its next call warms up and captures anew;
+- the step: the compiled step, the reference's ``make_jit_dataset_step``
+  with device data and ``make_jit_step`` without (on CUDA a CUDA graph a
+  call, ``step.JitStep``; on the CPU the eager body on static buffers),
+  on one process and under an NCCL group. A restore and each rung of the
+  fallback ladder invalidate it, so that its next call warms up and
+  captures anew;
 - debugging: ``profile_dir`` writes a ``torch.profiler`` Chrome trace of
   the run's first few step calls after the first (after the first two on
   CUDA, where the second captures the graph: the trace holds replays; the
@@ -48,9 +56,10 @@ the state must have been built with it (``create_state(group=...)``) and
 each rank runs this loop on its own process. The device data is rounded
 down to a multiple of the ranks (windows too), and rank r stages its
 contiguous block of the rows, as ``NamedSharding(P('data'))`` lays them
-out; the step functions are the data-parallel ones, run eagerly (the
-capture over NCCL is not ported; gloo's collectives cannot be captured),
-which the log says in one line. Rank 0 alone writes
+out; the step functions are the data-parallel ones, compiled under NCCL
+(each rank captures its own graph) and eager under gloo, whose
+collectives run on the host where a CUDA graph cannot capture them; the
+log says which in one line. Rank 0 alone writes
 (``log.txt``, ``metrics.jsonl``, grids, checkpoints, traces); every rank
 computes ``diagnostics()`` from the replicated statistics, so the guard
 acts alike on all. EMA sampling with standing statistics re-estimates
@@ -78,6 +87,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from wcgan_tpu_torch import compiled
 from wcgan_tpu_torch.data.base import ArrayDataset
 from wcgan_tpu_torch.models import layers as L
 from wcgan_tpu_torch.utils.images import make_grid, save_png
@@ -179,6 +189,8 @@ class Trainer:
     self._fallback_cooldown_until = -1
     self._ns_escalated = False      # the ns_iters rung fires once
     self._standing_cache = None     # (key, pinned buffers, tensors)
+    # The sampling and standing-pass programs, by kind and input signature.
+    self._programs: Dict[Tuple, compiled.Program] = {}
     self._device_data: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
     self._window_elems = 0
     self._window_rng = np.random.default_rng(cfg.seed + 17)
@@ -210,36 +222,65 @@ class Trainer:
       else:
         self._device_data = self._take(self._stage(np.arange(n)))
     if group is not None:
+      backend = mesh.backend(group)
       self.logger.line(
-          "the outer step runs eagerly under --mesh (a CUDA graph cannot "
-          "capture gloo's collectives; the capture over NCCL is not "
-          "ported)")
+          "the outer step runs compiled under --mesh (nccl: one CUDA graph "
+          "a call on each rank, its all-reduces inside)"
+          if backend == "nccl" else
+          f"the outer step runs eagerly under --mesh ({backend}'s "
+          "collectives run on the host, where a CUDA graph cannot capture "
+          "them)")
     self.step_fn = self._make_step_fn()
 
   def _make_step_fn(self):
     """The step function for the current ``gan_cfg``: chains of
     ``steps_per_call`` dataset steps with device data, else one outer step
     on host-fed batches; the compiled ones (``make_jit_dataset_step``,
-    ``make_jit_step``) on one process, the eager data-parallel ones under
-    a group. The fallback ladder rebuilds it after changing ``gan_cfg``."""
+    ``make_jit_step``) on one process and under NCCL, the eager
+    data-parallel ones under gloo. The fallback ladder rebuilds it after
+    changing ``gan_cfg``."""
+    jit = mesh.backend(self.group) in (None, "nccl")
     if self.cfg.device_data:
-      if self.group is None:
+      if jit:
         return step_lib.make_jit_dataset_step(
-            self.gan_cfg, self.ds.batch_size, self._steps_per_call)
+            self.gan_cfg, self.ds.batch_size, self._steps_per_call,
+            self.group)
       return step_lib._multi(
           step_lib.make_dataset_step(self.gan_cfg, self.ds.batch_size,
                                      self.group),
           self._steps_per_call)
-    if self.group is not None:
-      return step_lib.make_sharded_step(self.gan_cfg, self.group)
-    return step_lib.make_jit_step(self.gan_cfg)
+    if jit:
+      return step_lib.make_jit_step(self.gan_cfg, self.group)
+    return step_lib.make_sharded_step(self.gan_cfg, self.group)
 
   def _invalidate_step(self) -> None:
-    """Drop the compiled step's graph (after a restore or a change of G):
-    its next call warms up and captures anew, never replays stale."""
+    """Drop the compiled step's graph and the sampling and standing-pass
+    graphs (after a restore or a change of G): each next call warms up
+    and captures anew, never replays stale."""
     invalidate = getattr(self.step_fn, "invalidate", None)
     if invalidate is not None:
       invalidate()
+    self.invalidate_sampling()
+
+  def invalidate_sampling(self) -> None:
+    """Drop the graphs of ``sample``, ``sample_u8`` and the standing pass:
+    the next call of each warms up and captures anew (after anything they
+    call was swapped, say)."""
+    for program in self._programs.values():
+      program.invalidate()
+
+  def _program(self, kind: str, signature) -> compiled.Program:
+    key = (kind, signature)
+    if key not in self._programs:
+      self._programs[key] = compiled.Program(f"Trainer.{kind}")
+    return self._programs[key]
+
+  def _g_key(self, tensors: Dict[str, torch.Tensor]) -> Tuple:
+    """What a sampling or standing-pass graph reads of G: the module (its
+    configuration, parameters and buffers) and ``tensors``, the ones
+    ``functional_call`` puts in their place."""
+    return (compiled.module_key(self.state.g), tuple(tensors),
+            compiled.tensors_key(tensors.values()))
 
   @property
   def device(self) -> torch.device:
@@ -509,6 +550,7 @@ class Trainer:
       self.save_checkpoint(epoch)
       self.gan_cfg = dataclasses.replace(self.gan_cfg, d_fake_stats="batch")
       self.step_fn = self._make_step_fn()
+      self.invalidate_sampling()
       self.logger.line(
           f"Epoch {epoch}: --wc_residual_action fallback — demoting "
           "d_fake_stats running -> batch (exact per-forward moments; "
@@ -611,22 +653,41 @@ class Trainer:
     rng = np.random.default_rng(rng_seed)
     b = self.ds.batch_size
     acc: Dict[str, torch.Tensor] = {}
-    with L.capture_batch_moments(g) as moments:
-      for _ in range(n_batches):
-        z, labels = self._draw(rng, b)
-        functional_call(g, params, (z, labels),
-                        {"train": True, "update_stats": False})
-        acc = {k: acc[k] + v if k in acc else v for k, v in moments.items()}
+    for _ in range(n_batches):
+      moments = self._standing_pass(params, *self._draw(rng, b))
+      acc = {k: acc[k] + v if k in acc else v for k, v in moments.items()}
     inv = 1.0 / n_batches
     return {**live, **{k: v * inv for k, v in acc.items()}}
+
+  def _standing_pass(self, params: Dict[str, torch.Tensor], z, labels
+                     ) -> Dict[str, torch.Tensor]:
+    """One train-mode forward of G under ``params`` (its statistics do not
+    advance) and its layers' batch statistics, the reference's jitted
+    ``_standing_pass``: a compiled program."""
+    g = self.state.g
+    inputs = [z, labels]
+    signature = compiled.spec(inputs)
+
+    def body(static):
+      with torch.no_grad(), L.capture_batch_moments(g) as moments:
+        functional_call(g, params, tuple(static),
+                        {"train": True, "update_stats": False})
+      return dict(moments)
+
+    return self._program("standing_pass", signature)(
+        body, lambda: (self._g_key(params), compiled.backend_key(),
+                       signature), inputs, self.device)
 
   def sampling_state(self) -> Dict[str, torch.Tensor]:
     """The tensors every sampling surface runs G on, by name, for
     ``functional_call``: nothing (the live G) without an EMA shadow; the
     shadow with G's live statistics when ``ema_standing_batches`` is 0;
     else the shadow with standing statistics under it. Those are cached
-    until a G update or a restore (``state.g_version``) or a change to
-    G's statistics buffers (their identity and version) comes between."""
+    until a G update or a restore (``state.g_version``, which a replayed
+    step advances too) or a change to G's statistics buffers (their
+    identity and version) comes between; a recompute returns a new dict,
+    its standing statistics copied into the tensors of the last one (the
+    sampling graphs read them there)."""
     st = self.state
     n = self.cfg.ema_standing_batches
     if not st.g_ema:
@@ -638,7 +699,17 @@ class Trainer:
     cache = self._standing_cache
     if (cache is None or cache[0] != key or len(cache[1]) != len(bufs)
         or any(a is not b for a, b in zip(cache[1], bufs))):
-      tensors = {**st.g_ema, **self.standing_g_state(st.g_ema, n)}
+      old = {} if cache is None else cache[2]
+      live = {id(t) for t in bufs} | {id(t) for t in st.g_ema.values()}
+      tensors = dict(st.g_ema)
+      for k, t in self.standing_g_state(st.g_ema, n).items():
+        held = old.get(k)
+        if (id(t) not in live and held is not None
+            and id(held) not in live and held.shape == t.shape
+            and held.dtype == t.dtype):
+          held.copy_(t)
+          t = held
+        tensors[k] = t
       # The buffers stay referenced, so no new tensor can reuse them.
       cache = self._standing_cache = (key, bufs, tensors)
     return cache[2]
@@ -656,26 +727,52 @@ class Trainer:
           0, self.gan_cfg.num_classes, b).astype(np.int32)).to(self.device)
     return torch.from_numpy(z).to(self.device), labels
 
-  @torch.no_grad()
   def sample(self, z, labels=None) -> torch.Tensor:
     """Images (N, H, W, C), float32 in [-1, 1], on the device, from z
     (N, z_dim) and, when the run is conditional, labels (N,): G in eval
-    mode on ``sampling_state()``."""
+    mode on ``sampling_state()``, a compiled program."""
+    return self._sample("sample", z, labels)
+
+  def sample_u8(self, z, labels=None) -> torch.Tensor:
+    """``sample`` clipped and converted to uint8 on the device, so that
+    only a quarter of the bytes cross to the host; a program of its own,
+    as the reference jits it apart."""
+    return self._sample("sample_u8", z, labels)
+
+  def sample_eager(self, z, labels=None, u8: bool = False) -> torch.Tensor:
+    """The eager body of ``sample`` (``sample_u8`` with ``u8``) on the
+    same tensors: what their graphs replay, the eager arm of the checks
+    and of the bench."""
+    z, labels = self._sampling_inputs(z, labels)
+    return self._sample_body("sample_u8" if u8 else "sample",
+                             self.sampling_state(), z, labels)
+
+  def _sampling_inputs(self, z, labels):
     z = step_lib.as_tensor(z, self.device)
     if self.gan_cfg.conditional and labels is not None:
       labels = step_lib.as_tensor(labels, self.device)
     else:
       labels = None
-    imgs = functional_call(self.state.g, self.sampling_state(), (z, labels),
-                           {"train": False})
-    return imgs.permute(0, 2, 3, 1)
+    return z, labels
 
-  def sample_u8(self, z, labels=None) -> torch.Tensor:
-    """``sample`` clipped and converted to uint8 on the device, so that
-    only a quarter of the bytes cross to the host."""
-    imgs = self.sample(z, labels)
-    return (torch.clamp(imgs.float(), -1.0, 1.0) * 127.5 + 127.5).to(
-        torch.uint8)
+  @torch.no_grad()
+  def _sample_body(self, kind: str, tensors: Dict[str, torch.Tensor], z,
+                   labels) -> torch.Tensor:
+    imgs = functional_call(self.state.g, tensors, (z, labels),
+                           {"train": False}).permute(0, 2, 3, 1)
+    if kind == "sample_u8":
+      imgs = (torch.clamp(imgs.float(), -1.0, 1.0) * 127.5 + 127.5).to(
+          torch.uint8)
+    return imgs
+
+  def _sample(self, kind: str, z, labels) -> torch.Tensor:
+    inputs = list(self._sampling_inputs(z, labels))
+    tensors = self.sampling_state()
+    signature = compiled.spec(inputs)
+    return self._program(kind, signature)(
+        lambda static: self._sample_body(kind, tensors, *static),
+        lambda: (self._g_key(tensors), compiled.backend_key(), signature),
+        inputs, self.device)
 
   def save_sample_grid(self, epoch: int) -> str:
     """The grid of ``grid_samples`` images from the dataset's fixed test
