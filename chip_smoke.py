@@ -3,10 +3,10 @@
   python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU, nvcc
-and PyTorch built for CUDA. It builds K1 (wcgan_tpu_torch/csrc/moments.cu)
-and K2 (csrc/wc_apply.cu) side by side and prints ptxas's registers and
-spills (K1's Gram kernel and K2's row apply, whose wgmma accumulators live
-in registers, must not spill), holds each against its plain PyTorch
+and PyTorch built for CUDA. It builds K1 (wcgan_tpu_torch/csrc/moments.cu),
+K2 (csrc/wc_apply.cu) and K3 (csrc/mm_bf16x3.cu) side by side and prints
+ptxas's registers and spills (K1's Gram kernel, K2's row apply, whose
+wgmma accumulators live in registers, and K3 must not spill), holds each against its plain PyTorch
 version, holds K1 against a float64 run, times both against their plain
 version, one PyTorch call for the same function (``torch.cov`` for K1,
 ``torch.addmm`` for K2's row apply) and their bounds on this card (K2 per
@@ -59,7 +59,20 @@ eager forward on the same tensors bit for bit (deterministic kernels),
 fresh, after a trainer epoch of replayed G updates, after a restore and
 after a ladder rung; the captured standing pass against the eager one,
 K1 7 and K2 7 a replay; captured and eager imgs/s in turns. Every other
-sampling path of the script runs these graphs too. Then the conditional
+sampling path of the script runs these graphs too. Then slice 14's
+``high`` phase, ``--whitening_precision high`` (every whitening-path
+product as bf16x3 through K3, the JAX package's default precision): K3
+against its plain version at C x C x C (C = 64 to 512) and R x 256 x 256
+(R = 1,024 to 131,072) in three layouts, at the plain covariance's
+256 x 131,072 x 256 against float64 and on offset views, against float64
+beside a float32 product, on inf and NaN; K3 timed against its plain
+version and torch.matmul in float32 (TF32 off and on); one float32
+headline step under each precision from one state (within STEP_RTOL);
+the whitening residual under each on the headline's covariances, fresh
+and after 7 steps, and at conditioning 1e3; the captured bf16 headline
+step under 'high' (K3 2,499 and K1 42 a replay) timed in turns against
+'highest', each step profiled for its kernel time. ``python3
+chip_smoke.py --phase high`` runs that phase alone. Then the conditional
 slice (slice 6):
 
 - k1-widths: K1 at C = 64, 128 and 512, f32 and bf16 rows, at every R of
@@ -189,7 +202,7 @@ from wcgan_tpu_torch.models.discriminator import (Discriminator,
                                                   DiscriminatorConfig)
 from wcgan_tpu_torch.models import layers as L
 from wcgan_tpu_torch.models.generator import Generator, GeneratorConfig
-from wcgan_tpu_torch.ops import _build, cuda_wc, losses, whiten
+from wcgan_tpu_torch.ops import _build, cuda_wc, losses, mm_bf16x3, whiten
 from wcgan_tpu_torch.parallel import dryrun, launch, mesh
 from wcgan_tpu_torch.tools import digits_quality
 from wcgan_tpu_torch.train import schedules
@@ -284,15 +297,16 @@ def _ptxas_report(out: str):
 
 
 def phase_build() -> None:
-  """Both kernels at once, one nvcc each; ptxas's registers and spills of
-  every kernel function. K1's Gram kernel and K2's bf16 row apply (wgmma
-  accumulators in registers) must not spill."""
+  """The three kernels at once, one nvcc each; ptxas's registers and
+  spills of every kernel function. K1's Gram kernel, K2's bf16 row apply
+  (wgmma accumulators in registers) and K3 must not spill."""
   t0 = time.perf_counter()
-  with concurrent.futures.ThreadPoolExecutor(2) as pool:
-    builds = dict(zip(("moments", "wc_apply"), pool.map(
-        _build.compile_library, ("moments", "wc_apply"))))
+  names = ("moments", "wc_apply", "mm_bf16x3")
+  with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+    builds = dict(zip(names, pool.map(_build.compile_library, names)))
   _build.load_moments()
   _build.load_wc_apply()
+  _build.load_mm_bf16x3()
   for name, (path, out, compile_s) in builds.items():
     report = _ptxas_report(out)
     log("build", f"{name}: {path.name} built in {compile_s:.2f} s; ptxas -v: "
@@ -305,11 +319,14 @@ def phase_build() -> None:
     if name == "moments":
       gram = [sp for k, _, sp in report if "centered_gram" in k]
       check(len(gram) == 2 and not any(gram), ("K1 Gram spills", report))
-    else:
+    elif name == "wc_apply":
       rows = [sp for k, _, sp in report if "rows_apply_bf16" in k]
       check(len(rows) == 2 and not any(rows), ("K2 row apply spills",
                                                report))
-  log("build", f"both loaded in {time.perf_counter() - t0:.2f} s")
+    else:
+      k3 = [sp for k, _, sp in report if "mm_bf16x3_kernel" in k]
+      check(len(k3) == 8 and not any(k3), ("K3 spills", report))
+  log("build", f"all three loaded in {time.perf_counter() - t0:.2f} s")
 
 
 def phase_parity(dev: torch.device) -> float:
@@ -3280,6 +3297,353 @@ def phase_digits() -> int:
   return res["k1_launches"]
 
 
+# --- slice 14: --whitening_precision high (K3, bf16x3) ------------------------
+
+HIGH_CC = (64, 128, 256, 512)        # C x C x C: Newton-Schulz, the bias
+HIGH_RC = (1024, 16384, 131072)      # R x 256 x 256: K1's backward, float32
+                                     # whiten_apply rows
+HIGH_LAYOUTS = ("nn", "nt", "tn")    # as given / transposed, A then B
+# K3 against its plain version, per element: both sum the same bf16
+# products (each exact in float32) in float32, in another order, so they
+# agree within a few float32 ulps of (|A| |B|)_ij; the tensor core's
+# truncated sums inside a 32-deep K tile stay within the same few.
+HIGH_ULPS = 16
+EPS32 = 2.0 ** -23
+HIGH_RESID = 1e-3      # the whitening residual under 'high' on the
+                       # headline's covariances (C = 256; the JAX package's
+                       # HIGH floor on its TPU: 6.1e-4; the trainer's
+                       # threshold 1e-2). At conditioning 1e3 the jitter
+                       # (eps x mean diagonal against the least eigenvalue)
+                       # sets a floor of ~1.2e-3 under either precision:
+                       # there 'high' may add at most HIGH_RESID to
+                       # 'highest''s.
+HIGH_PROBE_STEPS = 4   # captured steps between the two residual probes
+# K3's launches in one headline outer step under 'high' (counted on the
+# CPU through the plain version with K1's route forced: the count does not
+# depend on the widths): 7 WC layers x 45 Newton-Schulz products in each
+# of the 6 train-mode G forwards (1,890), and in the G update's backward
+# 86 transposed products a layer (none where an operand is the constant I
+# or the last Y, which W does not read) and K1's row product (602).
+HIGH_K3_PER_STEP = 2499
+HIGH_TIME_STEPS, HIGH_TIME_ROUNDS = 5, 3
+
+
+def _high_operands(m, k, n, layout, gen, dev):
+  """(A (m, k), B (k, n)), each a transposed view of a contiguous tensor
+  where ``layout`` says 't'."""
+  a = torch.randn((m, k) if layout[0] == "n" else (k, m), generator=gen,
+                  device=dev)
+  b = torch.randn((k, n) if layout[1] == "n" else (n, k), generator=gen,
+                  device=dev)
+  return (a if layout[0] == "n" else a.T), (b if layout[1] == "n" else b.T)
+
+
+def _pieces_f64(a, b) -> torch.Tensor:
+  """The bf16x3 sum of (a, b)'s pieces in float64: what both K3 and its
+  plain version round."""
+  (a_hi, a_lo), (b_hi, b_lo) = (
+      [p.double() for p in mm_bf16x3.split_bf16(t)] for t in (a, b))
+  return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _high_held(a, b):
+  """K3 on (a, b) held against its plain version within HIGH_ULPS float32
+  ulps of (|A| |B|)_ij, bitwise repeatable; where K >= 65,536 against the
+  float64 sum of the same pieces instead, as K1 is held at such R: there
+  the plain version's own float32 sums drift (its distance is printed).
+  Returns (K3's largest |d|, the largest share of the gate it takes, its
+  output, the plain version's share where float64 was the yardstick)."""
+  got = mm_bf16x3.mm_bf16x3_cuda(a, b)
+  again = mm_bf16x3.mm_bf16x3_cuda(a, b)
+  plain = mm_bf16x3.mm_bf16x3_reference(a, b)
+  gate = HIGH_ULPS * EPS32 * (a.abs() @ b.abs())
+  plain_share = None
+  if a.shape[1] >= 65536:
+    want = _pieces_f64(a, b)
+    plain_share = float(((plain.double() - want).abs() / gate).max())
+  else:
+    want = plain
+  d = (got.double() - want.double()).abs()
+  share = float((d / gate).max())
+  check(torch.equal(got, again) and share <= 1.0,
+        ("K3 against plain", tuple(a.shape), tuple(b.shape), a.stride(),
+         b.stride(), share, plain_share, torch.equal(got, again)))
+  return float(d.max()), share, got, plain_share
+
+
+def _high_parity(dev: torch.device) -> float:
+  """K3 against its plain version at the path's shapes in three layouts,
+  and at the plain covariance's (C x R x C); K3 and a float32 product
+  against float64; a non-finite input. Returns K3's largest |d|."""
+  gen = torch.Generator(device=dev).manual_seed(14)
+  worst, share_max, f64 = 0.0, 0.0, []
+  shapes = [(c, c, c) for c in HIGH_CC] + [(r, C, C) for r in HIGH_RC]
+  for m, k, n in shapes:
+    for layout in HIGH_LAYOUTS:
+      a, b = _high_operands(m, k, n, layout, gen, dev)
+      err, share, got, _ = _high_held(a, b)
+      worst, share_max = max(worst, err), max(share_max, share)
+      if layout == "nn":
+        exact = a.double() @ b.double()
+        scale = float((a.abs() @ b.abs()).max())
+        e_k3 = float((got.double() - exact).abs().max()) / scale
+        e_f32 = float(((a @ b).double() - exact).abs().max()) / scale
+        check(e_f32 < e_k3 < 2.0 ** -14, ("K3 against float64", m, k, n,
+                                           e_k3, e_f32))
+        f64.append(f"{m}x{k}x{n} {e_k3:.2e}/{e_f32:.2e}")
+      del a, b, got
+  x = torch.randn((HIGH_RC[-1], C), generator=gen, device=dev)
+  err, share, _, cov_plain = _high_held(x.T, x)
+  worst, share_max = max(worst, err), max(share_max, share)
+  del x
+  # Rows off a 16-byte boundary: K3's element-by-element copies.
+  base = torch.randn((C, C + 1), generator=gen, device=dev)
+  for a, b in ((base[:, 1:], base[:, 1:].T), (base[:, 1:].T, base[:, 1:])):
+    err, share, _, _ = _high_held(a, b)
+    worst, share_max = max(worst, err), max(share_max, share)
+  a, b = _high_operands(C, C, C, "nn", gen, dev)
+  a[3, 5], a[7, 1], b[9, 2] = float("inf"), float("nan"), float("-inf")
+  got, ref = mm_bf16x3.mm_bf16x3_cuda(a, b), a @ b
+  check(torch.equal(torch.isfinite(got), torch.isfinite(ref)),
+        "K3 non-finite pattern differs from float32's")
+  torch.cuda.synchronize()
+  log("high", f"K3 against its plain version at C x C x C (C = "
+      f"{', '.join(map(str, HIGH_CC))}) and R x {C} x {C} (R = "
+      f"{', '.join(f'{r:,}' for r in HIGH_RC)}), layouts "
+      f"{'/'.join(HIGH_LAYOUTS)}, and {C} x {HIGH_RC[-1]:,} x {C} (x^T x, "
+      f"against the float64 sum of the pieces: K3 {share:.3f} of the gate, "
+      f"the plain version {cov_plain:.3f}): max|d| "
+      f"{worst:.3e}, at most {share_max:.3f} of the gate ({HIGH_ULPS} "
+      f"float32 ulps of (|A||B|)_ij), offset views too; two calls bitwise "
+      f"equal; against "
+      f"float64, max|d| / max(|A||B|), K3 / float32 (TF32 off): "
+      + ", ".join(f64) + "; inf/nan inputs: non-finite where float32's is")
+  return worst
+
+
+def _high_residual(cov: torch.Tensor) -> float:
+  """max|W cov W^T - I| with W by the Newton-Schulz G runs (15 steps,
+  trace scaling) at the set precision, taken in float64."""
+  w = whiten.newton_schulz_inv_sqrt(cov.float(), num_iters=15).double()
+  c = cov.double()
+  return float((w @ c @ w.T - torch.eye(c.shape[0], dtype=torch.float64,
+                                        device=c.device)).abs().max())
+
+
+def _high_residuals(covs) -> dict:
+  """The largest residual over ``covs`` under each precision."""
+  out = {}
+  for precision in ("highest", "high"):
+    whiten.set_precision(precision)
+    out[precision] = max(_high_residual(c) for c in covs)
+  whiten.set_precision("high")
+  return out
+
+
+def _g_batch_covs(state, dev) -> list:
+  """The batch covariances of G's WC layers in one train-mode forward at
+  the G update's batch (128), the statistics left as they are."""
+  z = torch.randn((128, state.g.cfg.z_dim), device=dev,
+                  generator=torch.Generator(device=dev).manual_seed(15))
+  with torch.no_grad(), L.capture_batch_moments(state.g) as stats:
+    state.g(z, train=True, update_stats=False)
+  return [v for k, v in stats.items() if k.endswith(".cov")]
+
+
+def _high_f32_step(dev):
+  """One float32 headline outer step (eager, deterministic kernels) from
+  the same fresh state under each precision: their metrics and K3's
+  launches under 'high'."""
+  out = {}
+  with _deterministic():
+    for precision in ("highest", "high"):
+      whiten.set_precision(precision)
+      step_fn, state, (real, labels), _ = bench.build_bench(
+          "headline", dtype="float32", device=dev.type, seed=0)
+      mm_bf16x3.MM_BF16X3_LAUNCHES = 0
+      metrics = step_fn.eager(state, real, labels)
+      torch.cuda.synchronize()
+      out[precision] = ({k: float(v) for k, v in metrics.items()},
+                        mm_bf16x3.MM_BF16X3_LAUNCHES)
+      del step_fn, state
+  return out
+
+
+def _high_windows(arms: dict) -> dict:
+  """imgs/s and device span a step of each captured arm {precision:
+  (step, state, real, labels)}, HIGH_TIME_ROUNDS windows of
+  HIGH_TIME_STEPS steps in turns, each under its own precision (a graph
+  is bound to the precision it was captured under)."""
+  rates = {k: [] for k in arms}
+  spans = {k: [] for k in arms}
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  for r in range(HIGH_TIME_ROUNDS):
+    for name in (list(arms) if r % 2 == 0 else list(arms)[::-1]):
+      whiten.set_precision(name)
+      step, state, real, labels = arms[name]
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      start.record()
+      for _ in range(HIGH_TIME_STEPS):
+        step(state, real, labels)
+      end.record()
+      torch.cuda.synchronize()
+      check(step.last == "replay", (name, step.calls))
+      rates[name].append(HIGH_TIME_STEPS * 5 * 64
+                         / (time.perf_counter() - t0))
+      spans[name].append(start.elapsed_time(end) / HIGH_TIME_STEPS)
+  return {k: (float(np.median(rates[k])), min(rates[k]), max(rates[k]),
+              float(np.median(spans[k]))) for k in arms}
+
+
+def _high_traced(arms: dict) -> dict:
+  """One replay of each arm under torch.profiler: kernel ms, K3's and
+  cuBLAS's GEMMs (launches, ms)."""
+  out = {}
+  for name, (step, state, real, labels) in arms.items():
+    whiten.set_precision(name)
+    kernels, wall = _traced_kernels(lambda: step(state, real, labels))
+    ms = lambda es: sum(e.time_range.elapsed_us() for e in es) / 1e3  # noqa
+    k3 = [e for e in kernels if "mm_bf16x3_kernel" in e.name]
+    gemm = [e for e in kernels if "gemm" in e.name.lower()]
+    out[name] = dict(total=ms(kernels), wall=wall, kernels=len(kernels),
+                     k3=(len(k3), ms(k3)), gemm=(len(gemm), ms(gemm)))
+  return out
+
+
+def _mm_tf32(a, b):
+  """``a @ b`` with TF32 on: a yardstick only (the port never runs it)."""
+  torch.backends.cuda.matmul.allow_tf32 = True
+  try:
+    return a @ b
+  finally:
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _high_kernel_times(dev):
+  """K3, its plain version and torch.matmul in float32 (TF32 off, what
+  'highest' runs; and on) in turns, at C x C x C (C = 256) and at
+  131,072 x 256 x 256, with K3's bound on this card: the larger of its
+  bytes (A, B read once, C written once) over HBM and its three bf16
+  products (6 M N K flop) over the bf16 tensor-core peak."""
+  gen = torch.Generator(device=dev).manual_seed(16)
+  out = {}
+  for m in (C, HIGH_RC[-1]):
+    a, b = _high_operands(m, C, C, "nn", gen, dev)
+    k3_ms, plain_ms, f32_ms, tf32_ms = _in_turns(
+        (mm_bf16x3.mm_bf16x3_cuda, (a, b)),
+        (mm_bf16x3.mm_bf16x3_reference, (a, b)), (torch.matmul, (a, b)),
+        (_mm_tf32, (a, b)))
+    hbm = 4 * (m * C + C * C + m * C) / HBM_BYTES * 1e3
+    ops = 6 * m * C * C / BF16_FLOPS * 1e3
+    out[m] = dict(ms=k3_ms, plain_ms=plain_ms, f32_ms=f32_ms,
+                  tf32_ms=tf32_ms, bound_ms=max(hbm, ops),
+                  bound_by="bytes" if hbm >= ops else "operations")
+  return out
+
+
+def phase_high(dev: torch.device):
+  """Slice 14, ``--whitening_precision high``: K3 (csrc/mm_bf16x3.cu)
+  against its plain version and float64; the whitening residual under
+  'high' and 'highest' on the headline's own covariances (fresh and after
+  captured steps) and at conditioning 1e3; one float32 headline step under
+  each from one state; the captured bf16 headline step under 'high' (K3
+  launches counted over one replay) and timed in turns against
+  'highest', with each step's kernel ms; K3 timed against torch.matmul.
+  Leaves the precision at 'highest'. Returns (K3's launches by path, its
+  largest |d|, its times at C = 256 and at R = 131,072)."""
+  t_phase = time.perf_counter()
+  try:
+    err = _high_parity(dev)
+    times = _high_kernel_times(dev)
+    for m, t in times.items():
+      check(_positive(t["ms"], t["plain_ms"], t["f32_ms"], t["tf32_ms"]), t)
+      log("high", f"K3 {m:,}x{C}x{C} on {nvidia_smi()}: {t['ms']:.4f} ms a "
+          f"call, bound {t['bound_ms']:.5f} ms ({t['bound_by']}; "
+          f"{t['bound_ms'] / t['ms']:.1%} of it); plain version "
+          f"{t['plain_ms']:.4f} ms; torch.matmul float32 TF32 off "
+          f"{t['f32_ms']:.4f} ms, TF32 on {t['tf32_ms']:.4f} ms (yardsticks)")
+    f32 = _high_f32_step(dev)
+    (m_hi, n_hi), (m_st, _) = f32["high"], f32["highest"]
+    rel = _rel(m_hi, m_st)
+    check(all(np.isfinite(v) for v in m_hi.values())
+          and max(rel.values()) <= STEP_RTOL, ("float32 step", rel))
+    check(n_hi == HIGH_K3_PER_STEP, ("K3 launches, eager step", n_hi))
+    log("high", f"one float32 headline outer step (eager, deterministic "
+        f"kernels) from one fresh state: high against highest, relative "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+        + f" (gate {STEP_RTOL}); K3 {n_hi} launches")
+    torch.cuda.empty_cache()
+
+    whiten.set_precision("high")
+    step, state, (real, labels), _ = bench.build_bench(
+        "headline", device=dev.type, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    cond_cov = _k2_inputs(4096, C, gen, dev)[2]
+    resid = {"fresh": _high_residuals(_g_batch_covs(state, dev)),
+             "cond 1e3": _high_residuals([cond_cov])}
+    for _ in range(2):                       # warm-up, capture + replay
+      step(state, real, labels)
+    mm_bf16x3.MM_BF16X3_LAUNCHES = cuda_wc.MOMENTS_LAUNCHES = 0
+    metrics = step(state, real, labels)
+    torch.cuda.synchronize()
+    k3, k1 = mm_bf16x3.MM_BF16X3_LAUNCHES, cuda_wc.MOMENTS_LAUNCHES
+    check(step.last == "replay" and k3 == HIGH_K3_PER_STEP and k1 == 42,
+          (step.last, k3, k1))
+    values = {k: float(v) for k, v in metrics.items()}
+    check(all(np.isfinite(v) for v in values.values()), values)
+    for _ in range(HIGH_PROBE_STEPS):
+      step(state, real, labels)
+    resid[f"after {HIGH_PROBE_STEPS + 3} steps"] = (
+        _high_residuals(_g_batch_covs(state, dev)))
+    check(all(r["high"] <= HIGH_RESID for k, r in resid.items()
+              if k != "cond 1e3")
+          and resid["cond 1e3"]["high"]
+          <= resid["cond 1e3"]["highest"] + HIGH_RESID, resid)
+    log("high", f"whitening residual max|W cov W^T - I| (15 steps, float64 "
+        f"check), high / highest: " + "; ".join(
+            f"{k} {v['high']:.3e} / {v['highest']:.3e}"
+            for k, v in resid.items())
+        + f" (gate under high: {HIGH_RESID}, at cond 1e3 highest's + "
+        f"{HIGH_RESID}) on {nvidia_smi()}")
+    log("high", f"captured bf16 headline step under high: one replay "
+        f"launched K3 {k3}, K1 {k1}; metrics "
+        + ", ".join(f"{k} {v:.4f}" for k, v in values.items()))
+
+    whiten.set_precision("highest")
+    ref = bench.build_bench("headline", device=dev.type, seed=0)
+    for _ in range(2):
+      ref[0](ref[1], *ref[2])
+    arms = {"high": (step, state, real, labels),
+            "highest": (ref[0], ref[1], *ref[2])}
+    rates = _high_windows(arms)
+    check(_positive(*(v for t in rates.values() for v in t)), rates)
+    traced = _high_traced(arms)
+    # The device's own count of K3 in one traced replay, against the host
+    # count the capture recorded (which each replay adds again).
+    check(traced["high"]["k3"][0] == HIGH_K3_PER_STEP
+          and traced["highest"]["k3"][0] == 0,
+          ("K3 kernels in one traced replay",
+           {k: t["k3"][0] for k, t in traced.items()}))
+    for name in arms:
+      r, t = rates[name], traced[name]
+      log("high", f"captured bf16 headline step, {name}, on {nvidia_smi()}: "
+          f"{r[0]:.1f} imgs/s ({r[1]:.1f}-{r[2]:.1f}) over "
+          f"{HIGH_TIME_ROUNDS} windows of {HIGH_TIME_STEPS} steps in turns, "
+          f"device span {r[3]:.3f} ms a step; one traced replay "
+          f"{t['total']:.3f} ms of kernel time in {t['kernels']} kernels; "
+          f"K3 {t['k3'][0]} launches {t['k3'][1]:.3f} ms; cuBLAS GEMMs "
+          f"{t['gemm'][0]} launches {t['gemm'][1]:.3f} ms")
+    del arms, ref, step, state
+    torch.cuda.empty_cache()
+  finally:
+    whiten.set_precision("highest")
+  log("high", f"phase {time.perf_counter() - t_phase:.1f} s")
+  paths = {"high: one captured bf16 headline step under 'high'": k3}
+  return paths, err, times
+
+
 def main_nccl() -> int:
   """``--phase nccl``: the NCCL checks alone, on every card of the
   machine (one rank a card), the last ones timed."""
@@ -3293,13 +3657,43 @@ def main_nccl() -> int:
   return 0
 
 
+def _k3_line(paths, err, times) -> dict:
+  """K3's entry of the kernels line: its launches by path, its largest
+  |d| against its plain version, its times at C x C x C (C = 256), the
+  library call torch.matmul in float32 with TF32 off."""
+  t = times[C]
+  return {"name": "mm_bf16x3", "route": "cuda",
+          "source": "wcgan_tpu_torch/csrc/mm_bf16x3.cu",
+          "replaces": "no Pallas kernel: XLA's Precision.HIGH, "
+                      "wcgan_tpu/ops/whiten.py:48",
+          "launches": sum(paths.values()), "launches_by_path": paths,
+          "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+          "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+          "library_ms": t["f32_ms"]}
+
+
+def main_high() -> int:
+  """``--phase high``: K3 and the 'high' precision alone."""
+  dev = phase_device()
+  phase_build()
+  paths, err, times = phase_high(dev)
+  print(nvidia_smi(), flush=True)
+  print(json.dumps({"kernels": [_k3_line(paths, err, times)]}), flush=True)
+  print(json.dumps({"ok": True, "device": {
+      "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+      "count": torch.cuda.device_count()}}), flush=True)
+  return 0
+
+
 def main(argv=None) -> int:
   argv = sys.argv[1:] if argv is None else argv
   if argv == ["--phase", "nccl"]:
     return main_nccl()
+  if argv == ["--phase", "high"]:
+    return main_high()
   if argv:
-    raise SystemExit(f"usage: python3 chip_smoke.py [--phase nccl]; got "
-                     f"{argv}")
+    raise SystemExit(f"usage: python3 chip_smoke.py [--phase nccl|high]; "
+                     f"got {argv}")
   t_script = time.perf_counter()
   dev = phase_device()
   phase_build()
@@ -3315,6 +3709,7 @@ def main(argv=None) -> int:
   bench_k1, bench_k2 = phase_bench(dev)
   graph_k1, graph_k2 = phase_graph(dev)
   sg_k1, sg_k2 = phase_sample_graph(dev)
+  k3_paths, k3_err, k3_times = phase_high(dev)
   k2_launches, npz = phase_sampling(dev, state, gan)
   phase_cli(npz)
   run_step_launches, standing_launches, run_k2_launches = phase_run(dev)
@@ -3346,7 +3741,10 @@ def main(argv=None) -> int:
   # rates, each the larger of its bytes and its operations. K2's plain_ms
   # is host-bound (its launches outlast the queue's hold).
   # max_abs_err: K1's worst against plain, K2's worst with float32 rows
-  # (bf16 rows are held to 2 ulps, printed above).
+  # (bf16 rows are held to 2 ulps, printed above), K3's worst against its
+  # plain version. K3 (one C x C x C product at C = 256; library:
+  # torch.matmul in float32, TF32 off) replaces no Pallas kernel: it is
+  # XLA's HIGH, the JAX package's default whitening precision.
   # launches: the sum over the paths in launches_by_path, each counted from
   # 0 just before its run.
   k1_paths = {"training slice, 10 outer steps": launches, **bench_k1,
@@ -3386,7 +3784,8 @@ def main(argv=None) -> int:
       "launches": sum(k2_paths.values()), "launches_by_path": k2_paths,
       "max_abs_err": max(k2_err, dcgan_k2_err),
       "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
-      "bound_by": k2_bound_by, "library_ms": k2_lib_ms}]}), flush=True)
+      "bound_by": k2_bound_by, "library_ms": k2_lib_ms},
+      _k3_line(k3_paths, k3_err, k3_times)]}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}), flush=True)

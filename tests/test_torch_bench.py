@@ -20,7 +20,7 @@ from wcgan_tpu.tools import bench_shapes as j_shapes
 from wcgan_tpu_torch import bench
 from wcgan_tpu_torch.models.discriminator import DiscriminatorConfig
 from wcgan_tpu_torch.models.generator import GeneratorConfig
-from wcgan_tpu_torch.ops import cuda_wc
+from wcgan_tpu_torch.ops import cuda_wc, whiten
 from wcgan_tpu_torch.tools import bench_shapes as t_shapes
 from wcgan_tpu_torch.train.step import GANConfig
 
@@ -31,6 +31,16 @@ ROOT = Path(__file__).resolve().parent.parent
 ONLY_JAX = {"axis_name"}
 ONLY_PORT_G = {"use_kernel", "kernel_eval"}
 ONLY_PORT_D = {"use_kernel"}
+
+
+@pytest.fixture(autouse=True)
+def _default_precision_after():
+  """Each test leaves the whitening precision at the default 'highest':
+  ``bench.main`` sets it for its mode ('high' for the ablation modes),
+  and the next test in the same worker may be a parity test against
+  JAX."""
+  yield
+  whiten.set_precision("highest")
 
 
 def _fields(cfg) -> dict:
@@ -338,6 +348,16 @@ def test_flop_count_sees_k1s_products(monkeypatch):
              if hasattr(m, "use_kernel"))
 
 
+def test_flop_count_is_the_same_under_either_precision():
+  """Model FLOPs: under 'high' a whitening product is still one 2MNK
+  product (K3 on the card, which the counter cannot see; three float32
+  products of the bf16 pieces on the CPU), so the count is the one under
+  'highest', and the precision set stays set."""
+  with whiten.precision("high"):
+    assert bench.count_flops(_tiny_bench()) == analytic_flops(TINY)
+    assert whiten.get_precision() == "high"
+
+
 def test_flop_count_of_remat_counts_the_recomputation():
   """Under ``remat`` the backward runs G's blocks again, and the counter
   counts those products too: hardware FLOPs, not model FLOPs. So no row
@@ -408,3 +428,28 @@ def test_profile_mode_on_cpu(narrow, capsys):
   assert row["mode"] == "profile" and row["steps"] == bench.PROFILE_STEPS
   assert row["wall_ms"] > 0 and row["wall_ms_unprofiled"] > 0
   assert row["busy"] is None and row["kernels"] is None
+
+
+def test_whitening_precision_flag_and_the_ablation_rows(narrow, capsys,
+                                                        monkeypatch):
+  """--whitening-precision sets --shapes' precision (and the record's,
+  --sampling's, --profile's, --scoring's) and every line names it; the
+  ablation modes run the reference's: 'high' for every row but --swing's
+  ns15_highest_b64, and refuse the flag."""
+  rows = _rows(capsys, ["--shapes", "--only", "headline",
+                        "--whitening-precision", "high"])
+  assert [(r["config"], r["whitening_precision"]) for r in rows] == [
+      ("cifar10_wc_resnet_headline", "high")]
+  assert rows[0]["imgs_per_sec"] > 0
+  monkeypatch.setattr(bench, "variant_bench", lambda **kw: None)
+  monkeypatch.setattr(bench, "_row", lambda *args: {})
+  rows = _rows(capsys, ["--swing"])
+  assert [(r["swing"], r["whitening_precision"]) for r in rows] == [
+      ("baseline_ns15_b64", "high"), ("ns15_highest_b64", "highest"),
+      ("ns12_b64", "high"), ("baseline_ns15_b128", "high"),
+      ("ns12_b128", "high")]
+  with pytest.raises(SystemExit):
+    bench.parse_args(["--swing", "--whitening-precision", "highest"])
+  assert bench.parse_args([]).whitening_precision == "highest"
+  assert bench.parse_args(["--shapes"]).steps == 20
+  assert bench.parse_args(["--sampling"]).steps == 30

@@ -213,9 +213,11 @@ def test_cli_flag_surface_matches_the_jax_parser():
   """Every flag of the JAX CLI's parser is in the port's with the same
   action, type, default and choices, or is refused by name
   (UNSUPPORTED_FLAGS, with its reason). One value differs:
-  --whitening_precision defaults to 'highest', since 'high' (the JAX
-  package's TPU mode) is refused (test_torch_presets.py
-  ::test_whitening_precision_highest_only). The port adds --device."""
+  --whitening_precision defaults to 'highest', since on the CPU JAX's
+  'high' is exact float32 while the port's runs the bf16x3 emulation, so
+  the port's parity tests hold 'highest' against JAX ('high' itself:
+  test_torch_presets.py::test_whitening_precision_high_builds_and_steps).
+  The port adds --device."""
   from wcgan_tpu.cli.run import build_parser as jax_parser
   from wcgan_tpu_torch.cli import run as trun
 

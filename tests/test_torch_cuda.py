@@ -1026,3 +1026,123 @@ def test_gloo_group_on_cuda_is_refused(dev, tmp_path):
       step(st, data[:32].view(2, 16, 32, 32, 3), None)
   finally:
     dist.destroy_process_group()
+
+
+# --- K3 (mm_bf16x3) and --whitening_precision high --------------------------
+
+K3_ULPS = 16   # K3 against its plain version: the same exact bf16 products
+               # summed in float32 in another order, within a few float32
+               # ulps of (|A| |B|)_ij
+
+
+def _k3_operands(m, k, n, layout, dev):
+  gen = torch.Generator(device=dev).manual_seed(m + 7 * k + 13 * n)
+  a = torch.randn((m, k) if layout[0] == "n" else (k, m), generator=gen,
+                  device=dev)
+  b = torch.randn((k, n) if layout[1] == "n" else (n, k), generator=gen,
+                  device=dev)
+  return (a if layout[0] == "n" else a.T), (b if layout[1] == "n" else b.T)
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 64, 64), (256, 256, 256),
+                                   (512, 512, 512), (16384, 256, 256),
+                                   (1000, 130, 17), (1, 256, 256),
+                                   (256, 65536, 256)])
+@pytest.mark.parametrize("layout", ["nn", "nt", "tn"])
+def test_k3_matches_plain(m, k, n, layout, dev):
+  """K3 against its plain version at the path's shapes (C x C x C, R x C x
+  C, the plain covariance's C x R x C), ragged ones and a vector, in three
+  layouts, within K3_ULPS float32 ulps of (|A| |B|)_ij; bitwise repeatable;
+  further from float64 than a float32 product."""
+  from wcgan_tpu_torch.ops import mm_bf16x3
+  a, b = _k3_operands(m, k, n, layout, dev)
+  before = mm_bf16x3.MM_BF16X3_LAUNCHES
+  got = mm_bf16x3.mm_bf16x3(a, b)
+  again = mm_bf16x3.mm_bf16x3_cuda(a, b)
+  assert mm_bf16x3.MM_BF16X3_LAUNCHES == before + 2
+  want = mm_bf16x3.mm_bf16x3_reference(a, b).double()
+  if k >= 65536:
+    # There the plain version's own float32 sums drift: the float64 sum of
+    # the same pieces instead, as K1 is held at such R.
+    (a_hi, a_lo), (b_hi, b_lo) = (
+        [p.double() for p in mm_bf16x3.split_bf16(t)] for t in (a, b))
+    want = a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+  gate = K3_ULPS * 2.0 ** -23 * (a.abs() @ b.abs())
+  assert torch.equal(got, again)
+  assert bool(((got.double() - want).abs() <= gate).all())
+  exact = a.double() @ b.double()
+  assert float((got.double() - exact).abs().max()) > float(
+      ((a @ b).double() - exact).abs().max())
+
+
+@pytest.mark.parametrize("offset", [1, 4])
+def test_k3_offset_views(offset, dev):
+  """Operands whose rows start off a 16-byte boundary (offset 1: K3 copies
+  element by element) or on one with a padded leading dimension (offset
+  4: 16-byte copies), as given and transposed, against the plain
+  version."""
+  from wcgan_tpu_torch.ops import mm_bf16x3
+  gen = torch.Generator(device=dev).manual_seed(offset)
+  base_a = torch.randn((300, 256 + offset), device=dev, generator=gen)
+  base_b = torch.randn((256, 200 + offset), device=dev, generator=gen)
+  a, b = base_a[:, offset:], base_b[:, offset:]
+  for x, y in ((a, b), (a.T[:, :100], b[:100])):
+    got = mm_bf16x3.mm_bf16x3_cuda(x, y)
+    gate = K3_ULPS * 2.0 ** -23 * (x.abs() @ y.abs())
+    assert bool(((got - mm_bf16x3.mm_bf16x3_reference(x, y)).abs()
+                 <= gate).all())
+
+
+def test_k3_gradients_and_non_finite_inputs(dev):
+  """The autograd function on the card: dA = dC B^T and dB = A^T dC, each
+  K3; a double backward that runs; inf and NaN inputs give non-finite
+  outputs where the float32 product does."""
+  from wcgan_tpu_torch.ops import mm_bf16x3
+  a, b = _k3_operands(300, 256, 200, "nn", dev)
+  probe = torch.randn((300, 200), device=dev)
+  xa, xb = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+  (ga,) = torch.autograd.grad((mm_bf16x3.mm_bf16x3(xa, xb) * probe).sum(),
+                              xa, create_graph=True)
+  assert torch.equal(ga, mm_bf16x3.mm_bf16x3_cuda(probe, b.T))
+  (mm_bf16x3.mm_bf16x3(ga, ga.T) ** 2).sum().backward()
+  assert bool(torch.isfinite(xb.grad).all())
+  a[3, 5], a[7, 1], b[9, 2] = float("inf"), float("nan"), float("-inf")
+  assert torch.equal(torch.isfinite(mm_bf16x3.mm_bf16x3_cuda(a, b)),
+                     torch.isfinite(a @ b))
+  with pytest.raises(TypeError, match="float32"):
+    mm_bf16x3.mm_bf16x3_cuda(a.bfloat16(), b)
+  with pytest.raises(ValueError, match="one CUDA device"):
+    mm_bf16x3.mm_bf16x3_cuda(a, b.cpu())
+
+
+def test_high_step_captures_and_replays_through_k3(dev):
+  """A captured outer step under 'high': K3 launched in every replay (45
+  Newton-Schulz products a WC layer forward, with the G update's
+  backward), finite metrics within 1e-3 (relative, at least 1.0) of the
+  'highest' step from the same state; changing the precision warms up
+  and captures anew."""
+  from wcgan_tpu_torch.ops import mm_bf16x3, whiten
+  from wcgan_tpu_torch.train.step import make_jit_step
+  gan, (st_high, st_ref), (data, _) = _jit_states(dev)
+  real = data[:32].view(2, 16, 32, 32, 3)
+  metrics = {}
+  try:
+    for precision, st in (("high", st_high), ("highest", st_ref)):
+      whiten.set_precision(precision)
+      step = make_jit_step(gan)
+      first = step(st, real, None)
+      metrics[precision] = {k: float(v) for k, v in first.items()}
+      step(st, real, None)
+      mm_bf16x3.MM_BF16X3_LAUNCHES = 0
+      step(st, real, None)
+      torch.cuda.synchronize()
+      assert step.last == "replay"
+      launched = mm_bf16x3.MM_BF16X3_LAUNCHES
+      assert (launched > 3 * 45) == (precision == "high"), launched
+    whiten.set_precision("high")
+    step(st_ref, real, None)
+    assert step.last == "warm-up"
+  finally:
+    whiten.set_precision("highest")
+  for k, v in metrics["highest"].items():
+    assert abs(metrics["high"][k] - v) <= 1e-3 * max(1.0, abs(v)), k

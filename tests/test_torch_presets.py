@@ -166,16 +166,35 @@ def test_cli_refuses_what_it_does_not_take_with_the_reason(flag):
     trun._reject_unsupported([flag, "1"])
 
 
-def test_whitening_precision_highest_only(tmp_path):
+def test_whitening_precision_high_builds_and_steps(tmp_path, monkeypatch):
+  """build_experiment takes 'high' and sets the whitening switch (the
+  whitening products then go through bf16x3); one tiny step from the
+  same seed gives finite metrics within 1e-3 (relative, at least 1.0) of
+  the 'highest' step's: the emulation keeps ~16 bits a product."""
+  from wcgan_tpu_torch.ops import mm_bf16x3, whiten
   base = ["--device", "cpu", "--dataset", "synthetic", "--synthetic_size",
           "16", "--generator_filters", "8,8", "--discriminator_filters",
           "8,8", "--batch_size", "4", "--output_dir", str(tmp_path)]
-  trun.build_experiment(trun.build_parser().parse_args(
-      base + ["--whitening_precision", "highest"]))
-  with pytest.raises(SystemExit, match="--whitening_precision high not "
-                     "supported by the PyTorch port: .*3-pass bf16"):
-    trun.build_experiment(trun.build_parser().parse_args(
-        base + ["--whitening_precision", "high"]))
+  calls = []
+  monkeypatch.setattr(whiten, "mm_bf16x3", lambda a, b: calls.append(1)
+                      or mm_bf16x3.mm_bf16x3(a, b))
+  metrics = {}
+  try:
+    for precision in ("high", "highest"):
+      tt = trun.build_experiment(trun.build_parser().parse_args(
+          base + ["--whitening_precision", precision]))
+      assert whiten.get_precision() == precision
+      assert tt._device_data is not None
+      before = len(calls)
+      metrics[precision] = {k: float(v) for k, v in tt.step_fn(
+          tt.state, *tt._device_data).items()}
+      assert (len(calls) > before) == (precision == "high")
+  finally:
+    whiten.set_precision("highest")
+  assert set(metrics["high"]) == set(metrics["highest"])
+  for k, v in metrics["highest"].items():
+    assert math.isfinite(metrics["high"][k]), k
+    assert abs(metrics["high"][k] - v) <= 1e-3 * max(1.0, abs(v)), k
 
 
 def test_profile_dir_writes_a_chrome_trace(tmp_path):

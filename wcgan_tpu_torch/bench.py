@@ -44,16 +44,25 @@ FLOPs (``count_flops``) are those of one eager outer step (the counter
 cannot see inside a graph) as
 ``torch.utils.flop_counter.FlopCounterMode`` counts them (products and
 convolutions, forward and backward; elementwise work is not counted),
-with the moments on the plain path: K1 is a call into a library the
-counter cannot see. No counted row runs ``remat``, whose recomputation
-the counter would count as well. ``mfu`` divides by the median seconds
-of an outer step and by the card's peak for the row's dtype
+with the moments on the plain path and the whitening precision held at
+'highest': K1 and K3 are calls into a library the counter cannot see,
+and on the CPU 'high' runs three float32 products where the model does
+one, so a step counts the same FLOPs under either precision. No counted
+row runs ``remat``, whose recomputation the counter would count as well.
+``mfu`` divides by the median seconds of an outer step and by the card's
+peak for the row's dtype
 (``PEAKS``): bf16 rows against the bf16 tensor-core peak, float32 rows
 against the float32 peak outside the tensor cores, as TF32 is off.
 
-Rows of the JAX package's ablation that are not here: ``unroll_dscan_b64``
-(an XLA scan knob) and the ``high`` whitening precision (the port refuses
-it; every row runs ``highest``, the reference's ``ns15_highest_b64``).
+Whitening precision (``ops/whiten.py::set_precision``):
+``--whitening-precision {highest,high}`` sets it for the record,
+``--shapes``, ``--sampling``, ``--profile`` and ``--scoring`` ('highest',
+true float32, by default; 'high' runs every whitening-path product as
+bf16x3 through K3, ``ops/mm_bf16x3.py``). The ablation modes run as the
+reference's ``bench_ablate.py`` runs them: 'high' for every row but
+``--swing``'s ``ns15_highest_b64``. Every printed line names its
+precision (``whitening_precision``). The one row of the JAX package's
+ablation that is not here is ``unroll_dscan_b64`` (an XLA scan knob).
 """
 
 from __future__ import annotations
@@ -80,7 +89,7 @@ from wcgan_tpu_torch.device import card, place, resolve_device
 from wcgan_tpu_torch.evaluation import inception_v3, metrics
 from wcgan_tpu_torch.evaluation import scorer as scorer_lib
 from wcgan_tpu_torch.models.generator import Generator
-from wcgan_tpu_torch.ops import cuda_wc
+from wcgan_tpu_torch.ops import cuda_wc, whiten
 from wcgan_tpu_torch.tools.bench_shapes import (bench_from, build_bench,
                                                 build_models)
 from wcgan_tpu_torch.train.state import OptimConfig, create_state
@@ -106,6 +115,13 @@ K1_KERNELS = ("col_partial_sums", "finalize_mean", "centered_gram_tf32x3",
               "reduce_gram")
 WARMUP_STEPS = 2
 PROFILE_STEPS = 3
+# The ablation modes, which run at the reference's whitening precision
+# (bench_ablate.py:27-35: every row at HIGH but ns15_highest_b64), and the
+# others, which take --whitening-precision.
+ABLATION_PRECISION = "high"
+ABLATION_MODES = ("acgan", "dfake", "modes", "nsscale", "gap", "swing",
+                  "variants")
+MODES = ABLATION_MODES + ("shapes", "sampling", "profile", "scoring")
 # --shapes: one row per CONFIGS key but acgan (--acgan's), named as the
 # JAX package's rows, the headline first.
 SHAPES = (("cifar10_wc_resnet_headline", "headline"),
@@ -118,7 +134,9 @@ Bench = Tuple  # (step_fn, state, (real, labels), spec), see bench_from
 
 
 def emit(record: dict) -> None:
-  print(json.dumps(record), flush=True)
+  """One printed line, naming the whitening precision it ran at."""
+  print(json.dumps({**record, "whitening_precision": whiten.get_precision()}),
+        flush=True)
 
 
 def fence(dev: torch.device) -> None:
@@ -261,11 +279,13 @@ def plain_moments(*models: torch.nn.Module):
 
 def count_flops(bench: Bench) -> int:
   """FLOPs of one eager outer step of ``bench`` (it advances the state),
-  on the plain moments, as FlopCounterMode counts them."""
+  on the plain moments and at whitening precision 'highest' (model FLOPs:
+  one product is 2MNK whatever its emulation), as FlopCounterMode counts
+  them."""
   from torch.utils.flop_counter import FlopCounterMode
   step_fn, state, (real, labels), _ = bench
   counter = FlopCounterMode(display=False)
-  with plain_moments(state.g, state.d), counter:
+  with plain_moments(state.g, state.d), whiten.precision("highest"), counter:
     _eager(step_fn)(state, real, labels)
   return counter.get_total_flops()
 
@@ -713,8 +733,7 @@ def parse_args(argv=None) -> argparse.Namespace:
   p.add_argument("--no-dfake", action="store_true")
   p.add_argument("--config", default="headline", help="--profile's shape")
   mode = p.add_mutually_exclusive_group()
-  for flag in ("shapes", "acgan", "dfake", "modes", "nsscale", "gap",
-               "swing", "variants", "sampling", "profile", "scoring"):
+  for flag in MODES:
     mode.add_argument(f"--{flag}", action="store_true")
   p.add_argument("--only", action="append", default=[],
                  help="--shapes: rows whose name contains this")
@@ -727,15 +746,26 @@ def parse_args(argv=None) -> argparse.Namespace:
                       "InceptionV3, in turns, and their error")
   p.add_argument("--samples-is", type=int, default=50000)
   p.add_argument("--samples-fid", type=int, default=10000)
+  p.add_argument("--whitening-precision", choices=("highest", "high"),
+                 default=None,
+                 help="the record, --shapes, --sampling, --profile, "
+                      "--scoring: 'highest' (default, true float32) or "
+                      "'high' (bf16x3 through K3); the ablation modes run "
+                      "the reference's own")
   a = p.parse_args(argv)
-  modes = ("shapes", "acgan", "dfake", "modes", "nsscale", "gap", "swing",
-           "sampling", "profile", "scoring")
-  if a.quick and not any(getattr(a, m) for m in modes):
+  if a.quick and not any(getattr(a, m) for m in MODES):
     a.variants = True
-  ablation = a.dfake or a.modes or a.nsscale or a.gap or a.swing or \
-      a.variants or a.acgan or a.shapes
+  ablation = any(getattr(a, m) for m in ABLATION_MODES)
+  if ablation:
+    if a.whitening_precision is not None:
+      p.error("--whitening-precision does not apply to the ablation modes: "
+              f"they run '{ABLATION_PRECISION}' as the reference's do, "
+              "--swing's ns15_highest_b64 'highest'")
+    a.whitening_precision = ABLATION_PRECISION
+  elif a.whitening_precision is None:
+    a.whitening_precision = "highest"
   if a.steps is None:
-    a.steps = 20 if ablation else 30
+    a.steps = 20 if ablation or a.shapes else 30
   if a.batch is None:
     a.batch = 256 if a.sampling else 64
   return a
@@ -753,18 +783,24 @@ def main(argv=None) -> int:
   a = parse_args(argv)
   dev = resolve_device(a.device)
   cli_run.set_precision()
+  whiten.set_precision(a.whitening_precision)
   dtype = "float32" if a.f32 else "bfloat16"
   print(f"bench on {device_info(dev)}, torch {torch.__version__} cuda "
-        f"{torch.version.cuda}, {switches()}", file=sys.stderr, flush=True)
+        f"{torch.version.cuda}, {switches()}, whitening_precision "
+        f"{a.whitening_precision}", file=sys.stderr, flush=True)
   flops_cache: dict = {}
   variant = lambda **kw: _variant_row(a, **kw)          # noqa: E731
   shape = lambda config, **kw: _shape_row(              # noqa: E731
       config, a, dtype, flops_cache, **kw)
   if a.swing:
-    for name, kw in (("baseline_ns15_b64", {}), ("ns12_b64", {"ns_iters": 12}),
+    for name, kw in (("baseline_ns15_b64", {}),
+                     ("ns15_highest_b64", {}),
+                     ("ns12_b64", {"ns_iters": 12}),
                      ("baseline_ns15_b128", {"batch": 2 * a.batch}),
                      ("ns12_b128", {"ns_iters": 12, "batch": 2 * a.batch})):
-      emit({"swing": name, **variant(**kw)})
+      with whiten.precision("highest" if "highest" in name
+                            else ABLATION_PRECISION):
+        emit({"swing": name, **variant(**kw)})
   elif a.dfake:
     _rounds(a, [(f"dfake_{m}", {"d_fake_stats": m})
                 for m in ("batch", "running")], variant)

@@ -68,6 +68,7 @@ from wcgan_tpu_torch.models.discriminator import preset_filters as d_presets
 from wcgan_tpu_torch.models.generator import GeneratorConfig
 from wcgan_tpu_torch.models.generator import preset_filters as g_presets
 from wcgan_tpu_torch.models.layers import COLORING_CODES
+from wcgan_tpu_torch.ops import whiten
 from wcgan_tpu_torch.parallel import launch, mesh
 from wcgan_tpu_torch.train.state import OptimConfig, create_state
 from wcgan_tpu_torch.train.step import GANConfig
@@ -77,8 +78,7 @@ from wcgan_tpu_torch.train.trainer import (Trainer, TrainerConfig,
 NORM_CODES = ("n", "b", "d", "dr")
 
 # Flags of the JAX CLI (wcgan_tpu/cli/run.py) that this port does not take,
-# and why; each is refused by name instead of being silently dropped. The
-# value 'high' of --whitening_precision is refused in build_experiment.
+# and why; each is refused by name instead of being silently dropped.
 UNSUPPORTED_FLAGS = {
     "--platform": "it picks a JAX/XLA platform; the port takes --device",
     "--compilation_cache_dir": "it is XLA's compile cache; the port "
@@ -194,8 +194,11 @@ def build_parser() -> argparse.ArgumentParser:
   p.add_argument("--whitening_precision", default="highest",
                  choices=["highest", "high"],
                  help="'highest' = true float32 whitening matmuls (TF32 "
-                      "off), what the port runs; 'high' (the JAX CLI's "
-                      "3-pass bf16 TPU mode) is refused")
+                      "off), the port's default; 'high' = the JAX CLI's "
+                      "default, XLA's 3-pass bf16 HIGH: on the card every "
+                      "whitening-path product runs as three bf16 "
+                      "tensor-core products (kernel K3, mm_bf16x3), on "
+                      "the CPU as its plain version")
   p.add_argument("--mesh", type=int, default=0,
                  help="data-parallel over N ranks, one process each: N GPUs "
                       "over NCCL with --device cuda, N CPU ranks over gloo "
@@ -336,12 +339,9 @@ def build_experiment(args, group: mesh.Group = None,
   one ``--dataset`` names)."""
   if args.smoke:
     _apply_smoke(args)
-  if args.whitening_precision != "highest":
-    raise SystemExit(
-        f"wcgan_tpu_torch: --whitening_precision {args.whitening_precision} "
-        "not supported by the PyTorch port: it is the JAX package's 3-pass "
-        "bf16 TPU mode, with no measured GPU counterpart; the port's "
-        "whitening runs in true float32 ('highest')")
+  # Before any step is built, as the JAX CLI sets it; every --mesh rank
+  # builds its experiment here.
+  whiten.set_precision(args.whitening_precision)
   device = resolve_device(args.device)
   conditional = args.conditional or args.gan_type in ("PROJECTIVE",
                                                       "AC_GAN")
@@ -530,7 +530,8 @@ def main(argv=None) -> int:
 def _run(args, group: mesh.Group = None) -> int:
   precision = set_precision()
   if mesh.rank(group) == 0:
-    print(precision, flush=True)
+    print(f"{precision} whitening_precision={args.whitening_precision}",
+          flush=True)
   if args.debug_nans:
     torch.autograd.set_detect_anomaly(True)
   trainer = build_experiment(args, group)

@@ -23,7 +23,8 @@ statistics, a device dataset). A call:
   calls replay. A capture that fails raises, naming the call that could
   not be captured (``capture_failure``); nothing falls back to eager;
 - the host-side counts a call advances (the kernels' launch counts
-  ``cuda_wc.MOMENTS_LAUNCHES`` and ``WC_APPLY_LAUNCHES``, the collectives
+  ``cuda_wc.MOMENTS_LAUNCHES``, ``WC_APPLY_LAUNCHES`` and
+  ``mm_bf16x3.MM_BF16X3_LAUNCHES``, the collectives
   of ``mesh.STATS``, and a state's ``step`` and ``g_version``) are those of
   the captured call, added on each replay;
 - the outputs are new tensors on each call (clones of the graph's);
@@ -37,7 +38,8 @@ static buffers. ``last`` says what the last call did: 'warm-up',
 The binding key is the caller's, and must hold everything the graph is
 bound to: each tensor it reads in place, by identity and address
 (``tensors_key``), the inputs' shapes, dtypes and devices (``spec``),
-and the settings that chose its kernels at capture (``backend_key``).
+and the settings that chose its kernels at capture (``backend_key``),
+the whitening precision among them.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
-from wcgan_tpu_torch.ops import cuda_wc
+from wcgan_tpu_torch.ops import cuda_wc, mm_bf16x3, whiten
 from wcgan_tpu_torch.parallel import mesh
 
 KINDS = ("warm-up", "capture", "replay", "eager")
@@ -123,10 +125,11 @@ def module_key(module: torch.nn.Module) -> Tuple:
 
 
 def backend_key() -> Tuple:
-  """The settings that choose cuBLAS's and cuDNN's kernels when a graph is
-  captured: TF32, cuDNN's determinism and autotuning, deterministic
-  algorithms."""
-  return (torch.backends.cuda.matmul.allow_tf32,
+  """The settings that choose the kernels when a graph is captured: TF32,
+  cuDNN's determinism and autotuning, deterministic algorithms, the
+  whitening precision (true float32 or K3's bf16x3)."""
+  return (whiten.get_precision(),
+          torch.backends.cuda.matmul.allow_tf32,
           torch.backends.cudnn.allow_tf32,
           torch.backends.cudnn.deterministic,
           torch.backends.cudnn.benchmark,
@@ -150,7 +153,8 @@ def capture_failure(name: str, err: BaseException) -> RuntimeError:
 def _counts(state) -> Dict[Any, int]:
   """The host-side counts a call advances."""
   out: Dict[Any, int] = {"moments": cuda_wc.MOMENTS_LAUNCHES,
-                         "wc_apply": cuda_wc.WC_APPLY_LAUNCHES}
+                         "wc_apply": cuda_wc.WC_APPLY_LAUNCHES,
+                         "mm_bf16x3": mm_bf16x3.MM_BF16X3_LAUNCHES}
   out.update({("calls", k): v for k, v in mesh.STATS.calls.items()})
   out.update({("bytes", k): v for k, v in mesh.STATS.bytes.items()})
   if state is not None:
@@ -161,6 +165,7 @@ def _counts(state) -> Dict[Any, int]:
 def _put(counts: Dict[Any, int], state) -> None:
   cuda_wc.MOMENTS_LAUNCHES = counts["moments"]
   cuda_wc.WC_APPLY_LAUNCHES = counts["wc_apply"]
+  mm_bf16x3.MM_BF16X3_LAUNCHES = counts["mm_bf16x3"]
   mesh.STATS.reset()
   for k, v in counts.items():
     if isinstance(k, tuple):

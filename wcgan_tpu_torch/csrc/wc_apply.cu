@@ -21,9 +21,11 @@
 //   Frobenius scaling adds one) of only 1.5 GFLOP at C = 256. Each stage
 //   waits for the one before, so its cost is the time one stage takes to
 //   start, load its operands from L2 and finish, not the FFMA rate. The
-//   products stay in true float32 FFMA: under reduced-precision passes
-//   Newton-Schulz plateaus near 2e-2 (pallas_wc.py:228-231), so no TF32
-//   touches the whitening.
+//   products stay in true float32 FFMA: the Pallas kernel pins HIGHEST
+//   (pallas_wc.py:232) whatever --whitening_precision says, since under
+//   single-pass reduced precision Newton-Schulz plateaus near 2e-2
+//   (pallas_wc.py:228-231). The port's 'high' runs the other whitening
+//   products as bf16x3 (K3, mm_bf16x3.cu); none of them is here.
 // - The row apply is 2RC^2 flop per call; in float32 on the FFMA pipes
 //   (67 TFLOP/s) the 7 calls need at least 1.35 ms, six times the bound.
 //

@@ -1,5 +1,5 @@
-"""Build the package's CUDA sources (K1 ``moments``, K2 ``wc_apply``) into
-shared libraries and load them.
+"""Build the package's CUDA sources (K1 ``moments``, K2 ``wc_apply``, K3
+``mm_bf16x3``) into shared libraries and load them.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface, so ``nvcc`` compiles it
 in seconds (no PyTorch headers) into ``build/kernels/`` at the repository
@@ -111,4 +111,18 @@ def load_wc_apply() -> ctypes.CDLL:
       fn.argtypes = [i32]
       fn.restype = i64
     _LOADED["wc_apply"] = lib
+  return lib
+
+
+def load_mm_bf16x3() -> ctypes.CDLL:
+  """The K3 library with its C signature declared (built on first use)."""
+  lib = _LOADED.get("mm_bf16x3")
+  if lib is None:
+    path, _, _ = compile_library("mm_bf16x3")
+    lib = ctypes.CDLL(str(path))
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.wcgan_mm_bf16x3.argtypes = [p, i32, i64, p, i32, i64, p, i32, i32,
+                                    i32, p]
+    lib.wcgan_mm_bf16x3.restype = i32
+    _LOADED["mm_bf16x3"] = lib
   return lib

@@ -5,7 +5,9 @@ K1 ``moments`` is the counterpart of ``wcgan_tpu/ops/pallas_wc.py::moments``
 ``moments(x2d)`` returns the float32 mean (C,) and divide-by-R covariance
 (C, C) of the rows of an (R, C) float32 or bfloat16 matrix, two-pass
 centered. Its gradient is the one the JAX package computes outside Pallas,
-dx = ((dSigma + dSigma^T)(x - mu) + dmu) / R, one float32 row matmul.
+dx = ((dSigma + dSigma^T)(x - mu) + dmu) / R, one float32 row product at
+the whitening precision (``whiten.set_precision``: through K3,
+``ops/mm_bf16x3.py``, under 'high').
 
 K2 ``whiten_color_apply`` is the counterpart of
 ``pallas_wc.py::whiten_color_apply`` (``_wc_apply_kernel``): the whole
@@ -27,7 +29,7 @@ For each kernel:
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
@@ -42,12 +44,17 @@ WC_APPLY_LAUNCHES = 0
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def moments_reference(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-  """The plain version: float32 mean, then (x - mu)^T (x - mu) / R."""
+def moments_reference(x2d: torch.Tensor, mm: Callable = torch.matmul
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """The plain version: float32 mean, then (x - mu)^T (x - mu) / R with the
+  product ``mm``. K1's plain version keeps true float32 (K1's forward
+  takes no precision, as the Pallas kernel's); the plain route of
+  ``whiten.batch_moments`` passes the set precision's product, as JAX's
+  plain covariance follows ``_PRECISION``."""
   x = x2d.float()
   mean = x.mean(dim=0)
   xc = x - mean
-  return mean, xc.T @ xc / x.shape[0]
+  return mean, mm(xc.T, xc) / x.shape[0]
 
 
 def check_moments_rows(x2d: torch.Tensor) -> None:
@@ -134,9 +141,11 @@ class MomentsFn(torch.autograd.Function):
       dmu = torch.zeros((cols,), dtype=torch.float32, device=x2d.device)
     if dsig is None:
       dsig = torch.zeros((cols, cols), dtype=torch.float32, device=x2d.device)
-    # float32 with TF32 off (the entry points pin allow_tf32 = False): the
-    # mu-dependence inside Sigma contributes sum_r (x_r - mu) = 0.
-    dx = ((x2d.float() - mean) @ (dsig + dsig.T) + dmu) / rows
+    # At the whitening precision, as pallas_wc._moments_bwd follows
+    # _PRECISION: true float32 (TF32 off: the entry points pin allow_tf32 =
+    # False) or bf16x3 through K3. The mu-dependence inside Sigma
+    # contributes sum_r (x_r - mu) = 0.
+    dx = (whiten._mm(x2d.float() - mean, dsig + dsig.T) + dmu) / rows
     return dx.to(x2d.dtype)
 
 
@@ -160,9 +169,10 @@ def whiten_color_fold_reference(mean, cov, gamma, beta, ns_iters: int = 15,
                                 eps: float = 1e-5, scaling: str = "trace"
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
   """K2's setup, plainly: (M, bias) with M = Gamma cov^{-1/2} by coupled
-  Newton-Schulz and bias = beta - mean M^T, all float32."""
+  Newton-Schulz and bias = beta - mean M^T, all true float32 whatever the
+  whitening precision: K2 pins HIGHEST (pallas_wc.py:232)."""
   a, scale, ident = whiten._jittered_normalized(cov, eps, scaling)
-  _, z = whiten._ns_iterate(a, ident, ns_iters)
+  _, z = whiten._ns_iterate(a, ident, ns_iters, torch.matmul)
   m = gamma.float() @ (z / torch.sqrt(scale))
   return m, beta.float() - mean.float() @ m.T
 

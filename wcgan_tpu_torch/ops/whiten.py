@@ -4,23 +4,75 @@ Counterpart of ``wcgan_tpu/ops/whiten.py``: per-batch channel mean and full
 covariance, the coupled Newton–Schulz inverse square root (Cholesky kept as
 the oracle), and the application ``x_hat = (x - mu) W^T``.
 
-Every whitening matmul here is float32 and must stay true float32: under
-reduced-precision passes Newton–Schulz plateaus near 2e-2 instead of
-converging (measured on the reference, ``wcgan_tpu/ops/whiten.py``). On a
-GPU that means ``torch.backends.cuda.matmul.allow_tf32 = False``, which the
-port's entry points set and print. Under data parallelism the moments are
-those of the global batch: ``batch_moments`` takes the reference's
-``axis_name`` as a process group (``wcgan_tpu_torch.parallel.mesh``).
+The whitening products take the reference's precision switch
+(``set_precision``, ``--whitening_precision``): 'highest' (the port's
+default) runs them as true float32 matmuls, which on a GPU means
+``torch.backends.cuda.matmul.allow_tf32 = False`` (the port's entry points
+set and print it); 'high' runs them as bf16x3 (``ops.mm_bf16x3``: K3 on
+the card, its plain version on the CPU), the 3-pass bf16 emulation that
+XLA's ``Precision.HIGH`` is on the TPU and the JAX package's default.
+Nothing coarser: under single-pass reduced precision (bf16, TF32-class)
+Newton–Schulz plateaus near 2e-2 instead of converging (measured on the
+reference, ``wcgan_tpu/ops/whiten.py``). The port keeps 'highest' as its
+default because on the CPU JAX's HIGH is exact float32 while the port's
+'high' runs the emulation, so its CPU parity tests hold 'highest' against
+JAX. Under data parallelism the moments are those of the global batch:
+``batch_moments`` takes the reference's ``axis_name`` as a process group
+(``wcgan_tpu_torch.parallel.mesh``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from wcgan_tpu_torch.ops import cuda_wc
+from wcgan_tpu_torch.ops.mm_bf16x3 import mm_bf16x3
 from wcgan_tpu_torch.parallel import mesh
+
+# The precision of every whitening-path product, JAX's ``_PRECISION``:
+# 'highest' (true float32) or 'high' (bf16x3). Set once at start-up, before
+# a step is built or captured; every compiled program's key holds it
+# (``compiled.backend_key``, the step's key), so a captured graph is never
+# replayed under the other.
+_PRECISIONS = ("highest", "high")
+_PRECISION = "highest"
+
+
+def set_precision(name: str) -> None:
+  """Set the precision of the whitening-path products: 'highest' (the
+  default, true float32) or 'high' (bf16x3, XLA's HIGH)."""
+  global _PRECISION
+  if name not in _PRECISIONS:
+    raise ValueError(f"whitening precision must be 'highest' or 'high', "
+                     f"got {name!r}")
+  _PRECISION = name
+
+
+def get_precision() -> str:
+  return _PRECISION
+
+
+@contextlib.contextmanager
+def precision(name: str):
+  """The whitening precision ``name`` inside the block, the one set before
+  it after."""
+  saved = _PRECISION
+  set_precision(name)
+  try:
+    yield
+  finally:
+    set_precision(saved)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """A whitening-path product at the set precision: ``a @ b`` under
+  'highest', ``mm_bf16x3(a, b)`` under 'high'."""
+  if _PRECISION == "high":
+    return mm_bf16x3(a, b)
+  return a @ b
 
 
 def batch_moments(x2d: torch.Tensor, use_kernel: Optional[bool] = None,
@@ -52,11 +104,11 @@ def batch_moments(x2d: torch.Tensor, use_kernel: Optional[bool] = None,
       mean = gmean
     return mean, cov
   if group is None:
-    return cuda_wc.moments_reference(x2d)
+    return cuda_wc.moments_reference(x2d, _mm)
   x = x2d.float()
   mean = mesh.pmean(x.mean(dim=0), group)
   xc = x - mean
-  return mean, mesh.pmean(xc.T @ xc / x.shape[0], group)
+  return mean, mesh.pmean(_mm(xc.T, xc) / x.shape[0], group)
 
 
 def _spd_jitter(cov: torch.Tensor, eps: float) -> torch.Tensor:
@@ -109,16 +161,19 @@ def _jittered_normalized(cov: torch.Tensor, eps: float,
   return a / scale, scale, ident
 
 
-def _ns_iterate(a: torch.Tensor, ident: torch.Tensor, num_iters: int):
+def _ns_iterate(a: torch.Tensor, ident: torch.Tensor, num_iters: int,
+                mm: Optional[Callable] = None):
   """The coupled Newton–Schulz iteration, unrolled; returns (Y, Z).
 
   Y_0 = A, Z_0 = I; T = (3I - Z Y)/2; Y <- Y T; Z <- T Z. Autograd runs
-  through the loop, as the reference differentiates through its scan."""
+  through the loop, as the reference differentiates through its scan.
+  The products are ``mm``'s, by default the set precision's (``_mm``)."""
+  mm = mm or _mm
   y, z = a, ident
   for _ in range(num_iters):
-    t = 1.5 * ident - 0.5 * (z @ y)
-    y = y @ t
-    z = t @ z
+    t = 1.5 * ident - 0.5 * mm(z, y)
+    y = mm(y, t)
+    z = mm(t, z)
   return y, z
 
 
@@ -173,12 +228,13 @@ def inv_sqrt(cov: torch.Tensor, num_iters: int = 15, eps: float = 1e-5,
 def whiten_apply(x2d: torch.Tensor, mean: torch.Tensor,
                  w: torch.Tensor) -> torch.Tensor:
   """``(x - mean) W^T`` in x's dtype. bfloat16 rows run one bfloat16
-  matmul with the mean folded into a float32 bias; float32 rows stay
-  float32 throughout."""
+  matmul with the mean folded into a bias computed at the set precision;
+  float32 rows stay float32 throughout, their product at the set
+  precision."""
   if x2d.dtype == torch.bfloat16:
-    bias = -(mean @ w.T)
+    bias = -_mm(mean, w.T)
     return x2d @ w.T.to(torch.bfloat16) + bias.to(torch.bfloat16)
-  return ((x2d.float() - mean) @ w.T).to(x2d.dtype)
+  return _mm(x2d.float() - mean, w.T).to(x2d.dtype)
 
 
 def stats_select_and_ema(batch_mean, batch_cov, moving_mean, moving_cov, *,

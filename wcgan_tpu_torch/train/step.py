@@ -509,9 +509,11 @@ class JitStep:
   On CUDA, after a warm-up call, each call is one replay of a
   ``torch.cuda.CUDAGraph`` of ``fn`` (see ``compiled``): the graph is
   bound to the state's tensors, its optimizers and schedules, the inputs'
-  shapes, dtypes and devices, the device data's tensors and the noise's
-  keys, and any change warms up and captures anew; ``state.generator`` is
-  registered with it; the host counts a call advances (``state.step``,
+  shapes, dtypes and devices, the device data's tensors, the noise's
+  keys and the settings that chose its kernels (``compiled.backend_key``,
+  the whitening precision among them), and any change warms up and
+  captures anew; ``state.generator`` is registered with it; the host
+  counts a call advances (``state.step``,
   ``state.g_version``, the kernels' launch counts, ``mesh.STATS``) are the
   captured call's, added on each replay; the metrics are new tensors on
   each call. Under an NCCL ``group`` every rank warms up, captures and
@@ -571,7 +573,8 @@ class JitStep:
       args = [next(buffers) if c else a for a, c in zip(inputs, self._copied)]
       return self._fn(state, *args, noise=static[1])
 
-    return self._program(run, lambda: (_state_key(state), inputs_key),
+    return self._program(run, lambda: (_state_key(state), inputs_key,
+                                       compiled.backend_key()),
                          [copied, noise], device, state=state)
 
 
