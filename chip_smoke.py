@@ -63,15 +63,21 @@ sampling path of the script runs these graphs too. Then slice 14's
 ``high`` phase, ``--whitening_precision high`` (every whitening-path
 product as bf16x3 through K3, the JAX package's default precision): K3
 against its plain version at C x C x C (C = 64 to 512) and R x 256 x 256
-(R = 1,024 to 131,072) in three layouts, at the plain covariance's
-256 x 131,072 x 256 against float64 and on offset views, against float64
-beside a float32 product, on inf and NaN; K3 timed against its plain
-version and torch.matmul in float32 (TF32 off and on); one float32
-headline step under each precision from one state (within STEP_RTOL);
-the whitening residual under each on the headline's covariances, fresh
-and after 7 steps, and at conditioning 1e3; the captured bf16 headline
-step under 'high' (K3 2,499 and K1 42 a replay) timed in turns against
-'highest', each step profiled for its kernel time. ``python3
+(R = 1,024 to 131,072) in three layouts, each on the path its shape picks
+(split-K, or wgmma from R = 16,384), at the plain covariance's
+256 x 131,072 x 256 against float64 and on offset views and M = 1,
+against float64 beside a float32 product, on inf and NaN; K3's epilogue
+(Newton-Schulz's T = 1.5 I - 0.5 Z Y in one launch) bitwise against the
+unfused expression, its derivatives too (slice 15); K3 timed against its
+plain version and torch.matmul in float32 (TF32 off and on), at every
+C x C x C shape against torch.matmul, and one Newton-Schulz iteration
+fused, unfused and under 'highest'; one float32 headline step under
+each precision from one state (within STEP_RTOL); the whitening residual
+under each on the headline's covariances, fresh and after 7 steps, and
+at conditioning 1e3; the captured bf16 headline step under 'high' (K3
+2,499 and K1 42 a replay), a captured chain of 8 against the eager one
+bit for bit, the step timed in turns against 'highest', each step
+profiled for its kernel time and kernel count. ``python3
 chip_smoke.py --phase high`` runs that phase alone. Then the conditional
 slice (slice 6):
 
@@ -153,6 +159,8 @@ pool moments against ``scipy.linalg.sqrtm`` in float64, ``ns`` against
 0.999, ``kernel_eval=True``) from a cold standing cache: one ``generate``,
 K1 112, K2 1,372 (196 forwards), finite ``unverified_*`` scores, its wall
 clocks, and the same scorer on the split path within a stated tolerance;
+the scorer's default TF32 convolutions held to the same IS and FID gates
+against float64 (slice 15);
 then the CLI with ``--score_every 1`` for 2 epochs and ``--phase test``
 with scoring.
 
@@ -324,8 +332,10 @@ def phase_build() -> None:
       check(len(rows) == 2 and not any(rows), ("K2 row apply spills",
                                                report))
     else:
-      k3 = [sp for k, _, sp in report if "mm_bf16x3_kernel" in k]
-      check(len(k3) == 8 and not any(k3), ("K3 spills", report))
+      # Split-K: 2 tile shapes x 4 layouts; rows: 2 slices x A as given or
+      # transposed.
+      k3 = [sp for k, _, sp in report if "mm_bf16x3_" in k]
+      check(len(k3) == 12 and not any(k3), ("K3 spills", report))
   log("build", f"all three loaded in {time.perf_counter() - t0:.2f} s")
 
 
@@ -2769,11 +2779,13 @@ def phase_eval(dev: torch.device):
      case both methods against scipy.
      The headline G (256x3, bf16, EMA 0.999) with ``kernel_eval=True``
      makes the images; the split path's images of the same z score
-     within EVAL_K2_*_RTOL of K2's.
-  3. One scorer call (``make_scorer``) on that trainer from a cold
-     standing cache: one generate, K1 112 (the standing recompute), K2 7
-     a forward (196 forwards), finite ``unverified_*`` scores, its FID
-     part 2's, the log's wall clocks.
+     within EVAL_K2_*_RTOL of K2's. The same images through TF32
+     convolutions (the scorer's default): IS and FID against the same
+     float64 yardsticks, with the same gates.
+  3. One scorer call (``make_scorer``, TF32 convolutions) on that trainer
+     from a cold standing cache: one generate, K1 112 (the standing
+     recompute), K2 7 a forward (196 forwards), finite ``unverified_*``
+     scores, its FID part 2's TF32 one, the log's wall clocks.
   4. The CLI: ``--score_every 1`` for 2 epochs (1,000 / 500 samples),
      then ``--phase test`` on the exported npz with scoring.
   Returns the K1 and K2 launches of the scorer call."""
@@ -2793,13 +2805,15 @@ def phase_eval(dev: torch.device):
                                                      device_data=False))
 
   @torch.no_grad()
-  def apply_fn(x):
+  def apply_fn(x, conv_tf32=False):
     with metrics.true_float32():
+      torch.backends.cudnn.allow_tf32 = conv_tf32
       pool, logits = net(inception_v3.preprocess(x))
     return pool, torch.softmax(logits, dim=-1), logits
 
-  def acts(images):
-    outs = [apply_fn(torch.from_numpy(images[i:i + EVAL_BATCH]).to(dev))
+  def acts(images, conv_tf32=False):
+    outs = [apply_fn(torch.from_numpy(images[i:i + EVAL_BATCH]).to(dev),
+                     conv_tf32)
             for i in range(0, len(images), EVAL_BATCH)]
     return [torch.cat(o) for o in zip(*outs)]
 
@@ -2807,8 +2821,9 @@ def phase_eval(dev: torch.device):
   # EVAL_FID images of each generate call are the same), through K2 and
   # through the split path.
   t0 = time.perf_counter()
-  pool_f, probs, logits = acts(fused.generate(EVAL_FID))
-  pool_r, _, _ = acts(split.ds.real_sample(EVAL_FID))
+  fakes, reals = fused.generate(EVAL_FID), split.ds.real_sample(EVAL_FID)
+  pool_f, probs, logits = acts(fakes)
+  pool_r, _, _ = acts(reals)
   torch.cuda.synchronize()
   dt_acts = time.perf_counter() - t0
   pool_s, probs_s, _ = acts(split.generate(EVAL_FID))
@@ -2880,6 +2895,33 @@ def phase_eval(dev: torch.device):
       f"moments {1e3 * (t1 - t0):.1f} ms, eigh distance "
       f"{1e3 * (t2 - t1):.1f} ms, ns {1e3 * (t3 - t2):.1f} ms; scipy "
       f"{t4 - t3:.1f} s (host clock, {nvidia_smi()})")
+  # The scorer's default, TF32 convolutions (its products and the math
+  # true float32), on the same images: IS and FID against the float64
+  # yardsticks of the float32 path's rows above, with the same gates.
+  pool_t, probs_t, logits_t = acts(fakes, conv_tf32=True)
+  pool_rt, _, _ = acts(reals, conv_tf32=True)
+  is_t = float(metrics.inception_score(probs_t)[0])
+  sharp_t = torch.softmax(3.0 * (logits_t - logits_t.mean(0)) / logits_t.std(),
+                          dim=-1)
+  is_sharp_t = float(metrics.inception_score(sharp_t)[0])
+  fid_t = metrics.fid_from_moments(
+      *metrics.moments_from_activations(pool_rt),
+      *metrics.moments_from_activations(pool_t))
+  pool_rel = float((pool_t - pool_f).abs().max() / pool_f.abs().max())
+  check(_rel_err(is_t, is_ref[0]) <= EVAL_IS_RTOL
+        and _rel_err(is_sharp_t, is_sharp_ref[0]) <= EVAL_IS_RTOL
+        and np.isfinite(fid_t) and _rel_err(fid_t, fid_ref) <= EVAL_FID_RTOL,
+        ("TF32 convolutions", is_t, is_ref[0], is_sharp_t, is_sharp_ref[0],
+         fid_t, fid_ref))
+  log("eval", f"TF32 convolutions (the scorer's default) on the same "
+      f"images: pool {pool_rel:.2e} off the float32 path (max rel); IS "
+      f"{is_t:.9f} (rel {_rel_err(is_t, is_ref[0]):.2e} to float64), at "
+      f"spread 3 {is_sharp_t:.6f} (rel "
+      f"{_rel_err(is_sharp_t, is_sharp_ref[0]):.2e}; gate "
+      f"{EVAL_IS_RTOL:g}); FID {fid_t:.6e} (rel "
+      f"{_rel_err(fid_t, fid_ref):.2e} to scipy float64; gate "
+      f"{EVAL_FID_RTOL:g})")
+  del pool_t, probs_t, logits_t, pool_rt, sharp_t
   is_split = float(metrics.inception_score(probs_s)[0])
   fid_split = metrics.fid_from_moments(
       *m_r, *metrics.moments_from_activations(pool_s))
@@ -2892,7 +2934,8 @@ def phase_eval(dev: torch.device):
       f"(gates {EVAL_K2_IS_RTOL:g}, {EVAL_K2_FID_RTOL:g})")
   del pool_f, probs, logits, pool_r, sharp, pool_s, probs_s
 
-  # 3. One scorer call, counted, from a cold standing cache.
+  # 3. One scorer call (its default TF32 convolutions), counted, from a
+  # cold standing cache.
   scorer = scorer_lib.make_scorer(split.ds, samples_inception=EVAL_IS,
                                   samples_fid=EVAL_FID, batch=EVAL_BATCH)
   calls, lines = [], []
@@ -2916,10 +2959,11 @@ def phase_eval(dev: torch.device):
   check(k1 == 7 * 16 and k2 == 7 * EVAL_FORWARDS, ("K1, K2", k1, k2))
   keys = ("unverified_inception_score", "unverified_is_std",
           "unverified_fid")
-  # Its FID is part 2's on the same rows (the pool piggybacked on IS).
+  # Its FID is part 2's TF32 one on the same rows (the pool piggybacked
+  # on IS).
   check(sorted(scores) == sorted(keys)
         and all(np.isfinite(v) for v in scores.values())
-        and _rel_err(scores[keys[2]], fid) <= 1e-4, (scores, fid))
+        and _rel_err(scores[keys[2]], fid_t) <= 1e-4, (scores, fid_t))
   times = [float(v) for v in re.findall(r"([\d.]+)s", " ".join(log_k2))]
   log("eval", f"scorer({EVAL_IS:,} IS / {EVAL_FID:,} FID samples, batch "
       f"{EVAL_BATCH}) on the headline G 256x3 bf16, EMA 0.999, kernel_eval="
@@ -3303,6 +3347,9 @@ HIGH_CC = (64, 128, 256, 512)        # C x C x C: Newton-Schulz, the bias
 HIGH_RC = (1024, 16384, 131072)      # R x 256 x 256: K1's backward, float32
                                      # whiten_apply rows
 HIGH_LAYOUTS = ("nn", "nt", "tn")    # as given / transposed, A then B
+HIGH_ROWS_MIN = 16384                # from here R x 256 x 256 takes K3's
+                                     # row path (wgmma, TMA); below, and
+                                     # every C x C product, split-K
 # K3 against its plain version, per element: both sum the same bf16
 # products (each exact in float32) in float32, in another order, so they
 # agree within a few float32 ulps of (|A| |B|)_ij; the tensor core's
@@ -3376,11 +3423,15 @@ def _high_parity(dev: torch.device) -> float:
   and at the plain covariance's (C x R x C); K3 and a float32 product
   against float64; a non-finite input. Returns K3's largest |d|."""
   gen = torch.Generator(device=dev).manual_seed(14)
-  worst, share_max, f64 = 0.0, 0.0, []
+  worst, share_max, f64, paths = 0.0, 0.0, [], {}
   shapes = [(c, c, c) for c in HIGH_CC] + [(r, C, C) for r in HIGH_RC]
   for m, k, n in shapes:
     for layout in HIGH_LAYOUTS:
       a, b = _high_operands(m, k, n, layout, gen, dev)
+      path = mm_bf16x3.plan(a, b)
+      check(path[0] == ("rows" if m >= HIGH_ROWS_MIN else "split-k"),
+            ("K3 path", m, k, n, layout, path))
+      paths[f"{m}x{k}x{n}"] = path
       err, share, got, _ = _high_held(a, b)
       worst, share_max = max(worst, err), max(share_max, share)
       if layout == "nn":
@@ -3396,17 +3447,27 @@ def _high_parity(dev: torch.device) -> float:
   err, share, _, cov_plain = _high_held(x.T, x)
   worst, share_max = max(worst, err), max(share_max, share)
   del x
-  # Rows off a 16-byte boundary: K3's element-by-element copies.
+  # Rows off a 16-byte boundary: K3's element-by-element copies (the row
+  # path's TMA needs aligned rows: such a tall product takes split-K);
+  # the bias's vector (M = 1).
   base = torch.randn((C, C + 1), generator=gen, device=dev)
-  for a, b in ((base[:, 1:], base[:, 1:].T), (base[:, 1:].T, base[:, 1:])):
+  tall = torch.randn((HIGH_RC[1], C + 1), generator=gen, device=dev)
+  w = torch.randn((C, C), generator=gen, device=dev)
+  for a, b in ((base[:, 1:], base[:, 1:].T), (base[:, 1:].T, base[:, 1:]),
+               (tall[:, 1:], w), (base[:1, 1:], w.T)):
     err, share, _, _ = _high_held(a, b)
     worst, share_max = max(worst, err), max(share_max, share)
+  check(mm_bf16x3.plan(tall[:, 1:], w)[0] == "split-k",
+        mm_bf16x3.plan(tall[:, 1:], w))
+  del tall
   a, b = _high_operands(C, C, C, "nn", gen, dev)
   a[3, 5], a[7, 1], b[9, 2] = float("inf"), float("nan"), float("-inf")
   got, ref = mm_bf16x3.mm_bf16x3_cuda(a, b), a @ b
   check(torch.equal(torch.isfinite(got), torch.isfinite(ref)),
         "K3 non-finite pattern differs from float32's")
   torch.cuda.synchronize()
+  log("high", f"K3's paths (path, tile or column slice, CTAs a cluster): "
+      + "; ".join(f"{k} {v}" for k, v in paths.items()))
   log("high", f"K3 against its plain version at C x C x C (C = "
       f"{', '.join(map(str, HIGH_CC))}) and R x {C} x {C} (R = "
       f"{', '.join(f'{r:,}' for r in HIGH_RC)}), layouts "
@@ -3414,11 +3475,76 @@ def _high_parity(dev: torch.device) -> float:
       f"against the float64 sum of the pieces: K3 {share:.3f} of the gate, "
       f"the plain version {cov_plain:.3f}): max|d| "
       f"{worst:.3e}, at most {share_max:.3f} of the gate ({HIGH_ULPS} "
-      f"float32 ulps of (|A||B|)_ij), offset views too; two calls bitwise "
+      f"float32 ulps of (|A||B|)_ij), offset views and M = 1 too; two calls "
+      f"bitwise "
       f"equal; against "
       f"float64, max|d| / max(|A||B|), K3 / float32 (TF32 off): "
       + ", ".join(f64) + "; inf/nan inputs: non-finite where float32's is")
   return worst
+
+
+def _ns_step(y, z, fused: bool):
+  """One Newton-Schulz iteration under 'high': T by K3's epilogue
+  (fused) or as K3's product followed by 1.5 I - 0.5 P (three
+  elementwise launches)."""
+  if fused:
+    t = mm_bf16x3.mm_bf16x3_cuda(z, y, -0.5, 1.5)
+  else:
+    ident = torch.eye(z.shape[0], device=z.device)
+    t = 1.5 * ident - 0.5 * mm_bf16x3.mm_bf16x3_cuda(z, y)
+  return mm_bf16x3.mm_bf16x3_cuda(y, t), mm_bf16x3.mm_bf16x3_cuda(t, z)
+
+
+def _ns_step_f32(y, z):
+  """The same iteration under 'highest' (torch.matmul, TF32 off)."""
+  t = 1.5 * torch.eye(z.shape[0], device=z.device) - 0.5 * (z @ y)
+  return y @ t, t @ z
+
+
+def _high_fused(dev: torch.device) -> None:
+  """K3's epilogue against the unfused expression, bitwise: T = 1.5 I -
+  0.5 Z Y at every C x C shape (random Z, Y; I and an SPD Y, the first
+  iteration's operands), 15 iterations of the fused and the unfused loop
+  from one SPD matrix, and the autograd function's first and second
+  derivatives at C = 256 (alpha in the backward's epilogue)."""
+  gen = torch.Generator(device=dev).manual_seed(18)
+  for c in HIGH_CC:
+    z, y = _high_operands(c, c, c, "nn", gen, dev)
+    ident = torch.eye(c, device=dev)
+    spd = _k2_inputs(4 * c, c, gen, dev)[2]
+    spd = spd / torch.trace(spd)
+    for a, b in ((z, y), (ident, spd)):
+      want = 1.5 * ident - 0.5 * mm_bf16x3.mm_bf16x3_cuda(a, b)
+      got = mm_bf16x3.mm_bf16x3_cuda(a, b, -0.5, 1.5)
+      check(torch.equal(got, want), ("fused T", c))
+    yz = [(spd, ident), (spd, ident)]
+    for _ in range(15):
+      yz = [_ns_step(*yz[0], True), _ns_step(*yz[1], False)]
+    check(torch.equal(yz[0][0], yz[1][0]) and torch.equal(yz[0][1], yz[1][1]),
+          ("15 fused iterations", c))
+  z0, y0 = _high_operands(C, C, C, "nn", gen, dev)
+  probe, probe2 = (torch.randn((C, C), generator=gen, device=dev)
+                   for _ in range(2))
+  ident = torch.eye(C, device=dev)
+  results = []
+  for fused in (True, False):
+    z = z0.clone().requires_grad_(True)
+    y = y0.clone().requires_grad_(True)
+    t = (mm_bf16x3.mm_bf16x3(z, y, -0.5, 1.5) if fused
+         else 1.5 * ident - 0.5 * mm_bf16x3.mm_bf16x3(z, y))
+    gz, gy = torch.autograd.grad((t * probe).sum(), (z, y),
+                                 create_graph=True)
+    results.append((t, gz, gy) + torch.autograd.grad(
+        (mm_bf16x3.mm_bf16x3(gz, gy) * probe2).sum() + (gz ** 2).sum(),
+        (z, y)))
+  check(all(torch.equal(a, b) for a, b in zip(*results)),
+        "fused T's derivatives")
+  torch.cuda.synchronize()
+  log("high", f"K3's epilogue (alpha -0.5, beta 1.5): T bitwise equal to "
+      f"K3's product followed by 1.5 I - 0.5 P at C = "
+      f"{', '.join(map(str, HIGH_CC))}, and 15 fused Newton-Schulz "
+      f"iterations to the unfused loop's Y and Z; the first and second "
+      f"derivatives at C = {C} bitwise equal to the unfused expression's")
 
 
 def _high_residual(cov: torch.Tensor) -> float:
@@ -3505,7 +3631,7 @@ def _high_traced(arms: dict) -> dict:
     whiten.set_precision(name)
     kernels, wall = _traced_kernels(lambda: step(state, real, labels))
     ms = lambda es: sum(e.time_range.elapsed_us() for e in es) / 1e3  # noqa
-    k3 = [e for e in kernels if "mm_bf16x3_kernel" in e.name]
+    k3 = [e for e in kernels if "mm_bf16x3_" in e.name]
     gemm = [e for e in kernels if "gemm" in e.name.lower()]
     out[name] = dict(total=ms(kernels), wall=wall, kernels=len(kernels),
                      k3=(len(k3), ms(k3)), gemm=(len(gemm), ms(gemm)))
@@ -3521,12 +3647,22 @@ def _mm_tf32(a, b):
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def _k3_bound(m: int, k: int, n: int):
+  """K3's bound on this card, ms: the larger of its bytes (A, B read once,
+  C written once) over HBM and its three bf16 products (6 M N K flop)
+  over the bf16 tensor-core peak; and which."""
+  hbm = 4 * (m * k + k * n + m * n) / HBM_BYTES * 1e3
+  ops = 6 * m * k * n / BF16_FLOPS * 1e3
+  return max(hbm, ops), "bytes" if hbm >= ops else "operations"
+
+
 def _high_kernel_times(dev):
   """K3, its plain version and torch.matmul in float32 (TF32 off, what
   'highest' runs; and on) in turns, at C x C x C (C = 256) and at
-  131,072 x 256 x 256, with K3's bound on this card: the larger of its
-  bytes (A, B read once, C written once) over HBM and its three bf16
-  products (6 M N K flop) over the bf16 tensor-core peak."""
+  131,072 x 256 x 256, with K3's bound on this card; K3 against
+  torch.matmul float32 in turns at every C x C x C shape (HIGH_CC); one
+  Newton-Schulz iteration at C = 256 (three products) fused, unfused and
+  under 'highest', in turns."""
   gen = torch.Generator(device=dev).manual_seed(16)
   out = {}
   for m in (C, HIGH_RC[-1]):
@@ -3535,28 +3671,39 @@ def _high_kernel_times(dev):
         (mm_bf16x3.mm_bf16x3_cuda, (a, b)),
         (mm_bf16x3.mm_bf16x3_reference, (a, b)), (torch.matmul, (a, b)),
         (_mm_tf32, (a, b)))
-    hbm = 4 * (m * C + C * C + m * C) / HBM_BYTES * 1e3
-    ops = 6 * m * C * C / BF16_FLOPS * 1e3
+    bound, by = _k3_bound(m, C, C)
     out[m] = dict(ms=k3_ms, plain_ms=plain_ms, f32_ms=f32_ms,
-                  tf32_ms=tf32_ms, bound_ms=max(hbm, ops),
-                  bound_by="bytes" if hbm >= ops else "operations")
-  return out
+                  tf32_ms=tf32_ms, bound_ms=bound, bound_by=by)
+  small = {}
+  for c in HIGH_CC:
+    a, b = _high_operands(c, c, c, "nn", gen, dev)
+    small[c] = _in_turns((mm_bf16x3.mm_bf16x3_cuda, (a, b)),
+                         (torch.matmul, (a, b)))
+  spd = _k2_inputs(4 * C, C, gen, dev)[2]
+  y, z = spd / torch.trace(spd), torch.eye(C, device=dev)
+  ns = _in_turns((_ns_step, (y, z, True)), (_ns_step, (y, z, False)),
+                 (_ns_step_f32, (y, z)))
+  return out, small, ns
 
 
 def phase_high(dev: torch.device):
   """Slice 14, ``--whitening_precision high``: K3 (csrc/mm_bf16x3.cu)
-  against its plain version and float64; the whitening residual under
-  'high' and 'highest' on the headline's own covariances (fresh and after
-  captured steps) and at conditioning 1e3; one float32 headline step under
-  each from one state; the captured bf16 headline step under 'high' (K3
-  launches counted over one replay) and timed in turns against
-  'highest', with each step's kernel ms; K3 timed against torch.matmul.
+  against its plain version and float64 on the path each shape picks;
+  K3's fused Newton-Schulz epilogue against the unfused expression
+  (slice 15); the whitening residual under 'high' and 'highest' on the
+  headline's own covariances (fresh and after captured steps) and at
+  conditioning 1e3; one float32 headline step under each from one state;
+  the captured bf16 headline step under 'high' (K3 launches counted over
+  one replay), its captured chain bit-equal to the eager one, timed in
+  turns against 'highest', with each step's kernel ms and count; K3 timed
+  against torch.matmul at every C x C x C shape and at R = 131,072.
   Leaves the precision at 'highest'. Returns (K3's launches by path, its
   largest |d|, its times at C = 256 and at R = 131,072)."""
   t_phase = time.perf_counter()
   try:
     err = _high_parity(dev)
-    times = _high_kernel_times(dev)
+    _high_fused(dev)
+    times, small, ns = _high_kernel_times(dev)
     for m, t in times.items():
       check(_positive(t["ms"], t["plain_ms"], t["f32_ms"], t["tf32_ms"]), t)
       log("high", f"K3 {m:,}x{C}x{C} on {nvidia_smi()}: {t['ms']:.4f} ms a "
@@ -3564,6 +3711,18 @@ def phase_high(dev: torch.device):
           f"{t['bound_ms'] / t['ms']:.1%} of it); plain version "
           f"{t['plain_ms']:.4f} ms; torch.matmul float32 TF32 off "
           f"{t['f32_ms']:.4f} ms, TF32 on {t['tf32_ms']:.4f} ms (yardsticks)")
+    check(_positive(*(v for t in small.values() for v in t), *ns),
+          (small, ns))
+    log("high", f"K3 at C x C x C against torch.matmul float32 (TF32 off), "
+        f"in turns, on {nvidia_smi()}: " + "; ".join(
+            f"C = {c}: {k3 * 1e3:.2f} us / {f32 * 1e3:.2f} us = "
+            f"{k3 / f32:.2f}x (bound {_k3_bound(c, c, c)[0] * 1e3:.3f} us)"
+            for c, (k3, f32) in small.items()))
+    log("high", f"one Newton-Schulz iteration at C = {C} (3 products), in "
+        f"turns: K3 with its epilogue (3 launches) {ns[0] * 1e3:.2f} us, "
+        f"K3 and the epilogue in torch (6) {ns[1] * 1e3:.2f} us "
+        f"({ns[1] / ns[0]:.2f}x), 'highest' (torch.matmul float32, 6) "
+        f"{ns[2] * 1e3:.2f} us ({ns[2] / ns[0]:.2f}x)")
     f32 = _high_f32_step(dev)
     (m_hi, n_hi), (m_st, _) = f32["high"], f32["highest"]
     rel = _rel(m_hi, m_st)
@@ -3610,6 +3769,14 @@ def phase_high(dev: torch.device):
     log("high", f"captured bf16 headline step under high: one replay "
         f"launched K3 {k3}, K1 {k1}; metrics "
         + ", ".join(f"{k} {v:.4f}" for k, v in values.items()))
+    ab, ab_at, cb, cb_at, same_gen, _, n_t, _ = _graph_parity(dev,
+                                                              "bfloat16")
+    check(ab == 0.0 and cb == 0.0 and same_gen,
+          ("captured high chain against eager", ab, ab_at, cb, cb_at))
+    log("high", f"bf16 headline under high, a chain of {GRAPH_CHAIN} dataset "
+        f"steps (EMA 0.999, deterministic kernels) from one state: captured "
+        f"vs eager max rel diff {ab:.3e}, eager vs eager {cb:.3e} over "
+        f"{n_t} tensors and the metrics (bit-equal); generators equal")
 
     whiten.set_precision("highest")
     ref = bench.build_bench("headline", device=dev.type, seed=0)
@@ -3623,9 +3790,10 @@ def phase_high(dev: torch.device):
     # The device's own count of K3 in one traced replay, against the host
     # count the capture recorded (which each replay adds again).
     check(traced["high"]["k3"][0] == HIGH_K3_PER_STEP
-          and traced["highest"]["k3"][0] == 0,
+          and traced["highest"]["k3"][0] == 0
+          and traced["high"]["kernels"] < traced["highest"]["kernels"],
           ("K3 kernels in one traced replay",
-           {k: t["k3"][0] for k, t in traced.items()}))
+           {k: (t["k3"][0], t["kernels"]) for k, t in traced.items()}))
     for name in arms:
       r, t = rates[name], traced[name]
       log("high", f"captured bf16 headline step, {name}, on {nvidia_smi()}: "
@@ -3659,9 +3827,10 @@ def main_nccl() -> int:
 
 def _k3_line(paths, err, times) -> dict:
   """K3's entry of the kernels line: its launches by path, its largest
-  |d| against its plain version, its times at C x C x C (C = 256), the
-  library call torch.matmul in float32 with TF32 off."""
-  t = times[C]
+  |d| against its plain version, its times at C x C x C (C = 256) and
+  (rows_*) at 131,072 x 256 x 256, the library call torch.matmul in
+  float32 with TF32 off."""
+  t, rows = times[C], times[HIGH_RC[-1]]
   return {"name": "mm_bf16x3", "route": "cuda",
           "source": "wcgan_tpu_torch/csrc/mm_bf16x3.cu",
           "replaces": "no Pallas kernel: XLA's Precision.HIGH, "
@@ -3669,7 +3838,9 @@ def _k3_line(paths, err, times) -> dict:
           "launches": sum(paths.values()), "launches_by_path": paths,
           "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
           "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-          "library_ms": t["f32_ms"]}
+          "library_ms": t["f32_ms"], "rows_ms": rows["ms"],
+          "rows_plain_ms": rows["plain_ms"], "rows_bound_ms": rows["bound_ms"],
+          "rows_library_ms": rows["f32_ms"]}
 
 
 def main_high() -> int:

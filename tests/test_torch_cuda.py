@@ -962,7 +962,8 @@ def test_captured_inception_forward_matches_eager(dev):
   t_scorer._activations = spy
   try:
     try:
-      t_scorer.make_scorer(None, compute_fid=False, samples_inception=100)(
+      t_scorer.make_scorer(None, compute_fid=False, samples_inception=100,
+                           conv_tf32=False)(
           types.SimpleNamespace(device=dev, generate=lambda n: None))
     except Stop:
       pass
@@ -980,6 +981,53 @@ def test_captured_inception_forward_matches_eager(dev):
     want = (pool, torch.softmax(logits.float(), dim=-1))
     for g, w in zip(got, want):
       assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+def test_scorer_default_runs_tf32_convolutions(dev):
+  """The scorer's default forward (TF32 convolutions, products true
+  float32) as a graph against the eager network under the same switches,
+  within 1e-5 of each output's largest value, and off the true-float32
+  forward by more than that: the switch reaches cuDNN."""
+  import types
+  from wcgan_tpu_torch.evaluation import inception_v3, metrics
+  from wcgan_tpu_torch.evaluation import scorer as t_scorer
+  seen = []
+
+  class Stop(Exception):
+    pass
+
+  real = t_scorer._activations
+
+  def spy(apply_fn, *args, **kw):
+    seen.append(apply_fn)
+    raise Stop
+
+  t_scorer._activations = spy
+  try:
+    try:
+      t_scorer.make_scorer(None, compute_fid=False, samples_inception=100)(
+          types.SimpleNamespace(device=dev, generate=lambda n: None))
+    except Stop:
+      pass
+  finally:
+    t_scorer._activations = real
+  (apply_fn,) = seen
+  net = inception_v3.init_params().to(dev).eval()
+  gen = torch.Generator(device=dev).manual_seed(0)
+  for _ in range(3):
+    x = torch.randint(0, 256, (100, 32, 32, 3), dtype=torch.uint8,
+                      device=dev, generator=gen)
+    got = apply_fn(x)
+    with torch.no_grad(), metrics.true_float32():
+      pool32, _ = net(inception_v3.preprocess(x))
+      torch.backends.cudnn.allow_tf32 = True
+      pool, logits = net(inception_v3.preprocess(x))
+    want = (pool, torch.softmax(logits.float(), dim=-1))
+    for g, w in zip(got, want):
+      assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+    assert float((got[0] - pool32).abs().max()) > 1e-5 * float(
+        pool32.abs().max())
+  assert torch.backends.cudnn.allow_tf32 is False
 
 
 def test_one_rank_nccl_captured_chain_matches_eager(dev):
@@ -1146,3 +1194,99 @@ def test_high_step_captures_and_replays_through_k3(dev):
     whiten.set_precision("highest")
   for k, v in metrics["highest"].items():
     assert abs(metrics["high"][k] - v) <= 1e-3 * max(1.0, abs(v)), k
+
+
+# The path's shapes (chip_smoke.py's HIGH_CC and HIGH_RC): C x C x C takes
+# the split-K path (a cluster of CTAs over K), R x 256 x 256 from 16,384
+# rows the row path (wgmma on a TMA ring).
+K3_PATH_SHAPES = [(c, c, c) for c in (64, 128, 256, 512)] + [
+    (r, 256, 256) for r in (1024, 16384, 131072)]
+
+
+@pytest.mark.parametrize("m,k,n", K3_PATH_SHAPES)
+@pytest.mark.parametrize("layout", ["nn", "nt", "tn"])
+def test_k3_paths(m, k, n, layout, dev):
+  """Each path at the path's shapes and in three layouts: the path the
+  shape picks, within K3_ULPS of the plain version, two calls bitwise
+  equal."""
+  from wcgan_tpu_torch.ops import mm_bf16x3
+  a, b = _k3_operands(m, k, n, layout, dev)
+  path, _, split = mm_bf16x3.plan(a, b)
+  assert path == ("rows" if m >= 16384 else "split-k")
+  if m == k == n:  # K split over a cluster only where a CTA walks > 8 tiles
+    assert split == (2 if m == 512 else 1)
+  got = mm_bf16x3.mm_bf16x3_cuda(a, b)
+  again = mm_bf16x3.mm_bf16x3_cuda(a, b)
+  gate = K3_ULPS * 2.0 ** -23 * (a.abs() @ b.abs())
+  assert torch.equal(got, again)
+  assert bool(((got - mm_bf16x3.mm_bf16x3_reference(a, b)).abs()
+               <= gate).all())
+
+
+@pytest.mark.parametrize("m,k,n", K3_PATH_SHAPES[:4] + K3_PATH_SHAPES[5:6])
+def test_k3_epilogue_is_the_unfused_one_bitwise(m, k, n, dev):
+  """alpha op(A) op(B) + beta I on both paths, bitwise equal to K3's
+  product followed by the torch epilogue (alpha, beta powers of two or
+  sums of them, as Newton-Schulz's -0.5 and 1.5), and the plain
+  version's fused form within K3_ULPS."""
+  from wcgan_tpu_torch.ops import mm_bf16x3
+  a, b = _k3_operands(m, k, n, "nn", dev)
+  eye = torch.eye(m, n, device=dev)
+  p = mm_bf16x3.mm_bf16x3_cuda(a, b)
+  for alpha, beta in ((-0.5, 1.5), (0.25, 0.0), (1.0, -2.0)):
+    got = mm_bf16x3.mm_bf16x3_cuda(a, b, alpha, beta)
+    assert torch.equal(got, alpha * p + beta * eye)
+    gate = K3_ULPS * 2.0 ** -23 * abs(alpha) * (a.abs() @ b.abs())
+    plain = mm_bf16x3.mm_bf16x3_reference(a, b, alpha, beta)
+    assert bool(((got - plain).abs() <= gate).all())
+
+
+def test_k3_tall_offset_view_takes_split_k(dev):
+  """A tall operand whose rows are off a 16-byte boundary cannot be read
+  by TMA: the split-K path takes it, within K3_ULPS of the plain
+  version."""
+  from wcgan_tpu_torch.ops import mm_bf16x3
+  gen = torch.Generator(device=dev).manual_seed(9)
+  base = torch.randn((16384, 257), device=dev, generator=gen)
+  a, b = base[:, 1:], torch.randn((256, 256), device=dev, generator=gen)
+  assert mm_bf16x3.plan(a, b)[0] == "split-k"
+  assert mm_bf16x3.plan(a.contiguous(), b)[0] == "rows"
+  got = mm_bf16x3.mm_bf16x3_cuda(a, b)
+  gate = K3_ULPS * 2.0 ** -23 * (a.abs() @ b.abs())
+  assert bool(((got - mm_bf16x3.mm_bf16x3_reference(a, b)).abs()
+               <= gate).all())
+
+
+def test_high_captured_chain_is_bit_equal_to_eager(dev):
+  """make_jit_dataset_step under 'high' (a chain of 3, float32,
+  deterministic kernels) against the eager chain from the same state:
+  every parameter, buffer, Adam slot, EMA tensor and metric bitwise equal
+  after a warm-up, a capture and a replay; K3 launched in each replay."""
+  from wcgan_tpu_torch.ops import mm_bf16x3, whiten
+  from wcgan_tpu_torch.train.step import (_multi, make_dataset_step,
+                                          make_jit_dataset_step)
+  gan, (jit_st, ref_st), data = _jit_states(dev)
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  torch.backends.cudnn.deterministic = True
+  try:
+    with whiten.precision("high"):
+      jit = make_jit_dataset_step(gan, 16, 3)
+      eager = _multi(make_dataset_step(gan, 16), 3)
+      for call in range(3):
+        before = mm_bf16x3.MM_BF16X3_LAUNCHES
+        m_j = jit(jit_st, *data)
+        launched = mm_bf16x3.MM_BF16X3_LAUNCHES - before
+        m_e = eager(ref_st, *data)
+        assert launched > 3 * 45, (call, launched)
+        for k in m_e:
+          assert torch.equal(m_j[k], m_e[k]), (call, k)
+  finally:
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+  assert jit.calls == {"warm-up": 1, "capture": 1, "replay": 1, "eager": 0}
+  for st_j, st_e in ((jit_st.g, ref_st.g), (jit_st.d, ref_st.d)):
+    for (k, v), (_, w) in zip(st_j.state_dict().items(),
+                              st_e.state_dict().items()):
+      assert torch.equal(v, w), k
+  for k, v in ref_st.g_ema.items():
+    assert torch.equal(jit_st.g_ema[k], v), k

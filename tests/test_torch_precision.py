@@ -133,15 +133,88 @@ def test_autograd_is_the_transposed_products_and_differentiates_again(rng):
   np.testing.assert_allclose(grads[0], grads[1], atol=1e-4 * scale)
 
 
+@pytest.mark.parametrize("c", [16, 64])
+@pytest.mark.parametrize("layout", ["nn", "nt", "tn"])
+def test_fused_epilogue_is_the_unfused_one_bitwise(c, layout, rng):
+  """``mm_bf16x3(z, y, -0.5, 1.5)``, Newton-Schulz's T in one call, has
+  the bits of the product followed by ``1.5 * I - 0.5 * p``: the scaling
+  by a power of two is exact, so both round once, at the same sum. Also
+  on an SPD y and the identity, the operands of the first iteration."""
+  _, _, z, y = _operands(rng, c, c, c, layout)
+  ident = torch.eye(c)
+  spd = torch.from_numpy(_spd(rng, c, 1e3))
+  for a, b in ((z, y), (ident, spd), (spd, spd)):
+    want = 1.5 * ident - 0.5 * k3.mm_bf16x3_reference(a, b)
+    assert torch.equal(k3.mm_bf16x3_reference(a, b, -0.5, 1.5), want)
+    assert torch.equal(k3.mm_bf16x3(a, b, -0.5, 1.5), want)
+  # alpha alone scales; beta alone lands on the diagonal only.
+  p = k3.mm_bf16x3_reference(z, y)
+  assert torch.equal(k3.mm_bf16x3_reference(z, y, 0.25), 0.25 * p)
+  assert torch.equal(k3.mm_bf16x3_reference(z, y, 1.0, 2.0), p + 2.0 * ident)
+
+
+def test_fused_gradients_match_the_unfused_expression(rng):
+  """First- and second-order gradients of the fused T against autograd of
+  ``1.5 * I - 0.5 * mm_bf16x3(z, y)`` on the same inputs, bitwise: the
+  backward's products carry alpha in their epilogue, where the unfused
+  chain scales dT by -0.5 first (exact either way)."""
+  c = 24
+  z0 = torch.from_numpy(rng.standard_normal((c, c)).astype(np.float32))
+  y0 = torch.from_numpy(_spd(rng, c, 1e2))
+  probe = torch.from_numpy(rng.standard_normal((c, c)).astype(np.float32))
+  probe2 = torch.from_numpy(rng.standard_normal((c, c)).astype(np.float32))
+  ident = torch.eye(c)
+  results = []
+  for fused in (True, False):
+    z = z0.clone().requires_grad_(True)
+    y = y0.clone().requires_grad_(True)
+    t = (k3.mm_bf16x3(z, y, -0.5, 1.5) if fused
+         else 1.5 * ident - 0.5 * k3.mm_bf16x3(z, y))
+    gz, gy = torch.autograd.grad((t * probe).sum(), (z, y),
+                                 create_graph=True)
+    ggz, ggy = torch.autograd.grad(
+        (k3.mm_bf16x3(gz, gy) * probe2).sum() + (gz ** 2).sum(), (z, y))
+    results.append((t, gz, gy, ggz, ggy))
+  for got, want in zip(*results):
+    assert torch.equal(got, want)
+  assert float(results[0][3].abs().max()) > 0
+
+
+@pytest.mark.parametrize("c", [16, 32])
+def test_ns_iterate_high_fuses_t_and_matches_jax(c, rng, high, monkeypatch):
+  """``_ns_iterate`` under 'high' (T by the fused call) against the same
+  loop with T unfused, bitwise in Y and Z, and against the JAX package's
+  ``_ns_iterate`` (exact float32 on the CPU) within
+  ``test_newton_schulz_high_matches_jax``'s 1e-3 of the largest value;
+  under 'highest' no product goes through bf16x3."""
+  cov = torch.from_numpy(_spd(rng, c, 1e3))
+  a, _, ident = twhiten._jittered_normalized(cov, 1e-5)
+  y_f, z_f = twhiten._ns_iterate(a, ident, 15)
+  y_u, z_u = twhiten._ns_iterate(a, ident, 15, twhiten._mm)
+  assert torch.equal(y_f, y_u) and torch.equal(z_f, z_u)
+  y_j, z_j = (np.asarray(v) for v in jwhiten._ns_iterate(
+      jnp.asarray(_np(a)), jnp.asarray(_np(ident)), 15))
+  for got, want in ((y_f, y_j), (z_f, z_j)):
+    np.testing.assert_allclose(_np(got), want, atol=1e-3 * np.abs(want).max())
+  twhiten.set_precision("highest")
+
+  def refuse(*args):
+    raise AssertionError("bf16x3 under 'highest'")
+
+  monkeypatch.setattr(twhiten, "mm_bf16x3", refuse)
+  y_h, _ = twhiten._ns_iterate(a, ident, 15)
+  np.testing.assert_allclose(_np(y_h), y_j, atol=1e-4 * np.abs(y_j).max())
+
+
 def test_set_precision_switch(rng, high, monkeypatch):
   """The counterpart of tests/test_whiten.py::test_set_precision_switch:
   'high' still whitens (W Sigma W^T near I), through bf16x3, and an
   unknown name raises."""
   calls = []
 
-  def counting(a, b):
-    calls.append((tuple(a.shape), tuple(b.shape)))
-    return k3.mm_bf16x3(a, b)
+  def counting(a, b, *epilogue):
+    calls.append((tuple(a.shape), tuple(b.shape), epilogue))
+    return k3.mm_bf16x3(a, b, *epilogue)
 
   monkeypatch.setattr(twhiten, "mm_bf16x3", counting)
   c = 16
@@ -149,8 +222,10 @@ def test_set_precision_switch(rng, high, monkeypatch):
   assert twhiten.get_precision() == "high"
   mean, cov = twhiten.batch_moments(x)
   out = twhiten.whiten_apply(x, mean, twhiten.inv_sqrt(cov))
-  # The covariance, 3 products an iteration of 15, the row product.
+  # The covariance, 3 products an iteration of 15 (T = 1.5 I - 0.5 Z Y
+  # one of them, its epilogue in the call), the row product.
   assert len(calls) == 1 + 45 + 1
+  assert [e for *_, e in calls].count((-0.5, 1.5)) == 15
   twhiten.set_precision("highest")
   mean_o, cov_o = twhiten.batch_moments(out)
   np.testing.assert_allclose(_np(mean_o), np.zeros(c), atol=1e-4)

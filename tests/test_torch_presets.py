@@ -176,8 +176,9 @@ def test_whitening_precision_high_builds_and_steps(tmp_path, monkeypatch):
           "16", "--generator_filters", "8,8", "--discriminator_filters",
           "8,8", "--batch_size", "4", "--output_dir", str(tmp_path)]
   calls = []
-  monkeypatch.setattr(whiten, "mm_bf16x3", lambda a, b: calls.append(1)
-                      or mm_bf16x3.mm_bf16x3(a, b))
+  monkeypatch.setattr(whiten, "mm_bf16x3",
+                      lambda a, b, *epilogue: calls.append(1)
+                      or mm_bf16x3.mm_bf16x3(a, b, *epilogue))
   metrics = {}
   try:
     for precision in ("high", "highest"):

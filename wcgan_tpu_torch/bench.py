@@ -603,16 +603,16 @@ def bench_scoring(device: str = "cuda", seed: int = 0,
                   batch: int = 100, inception_tf32: bool = False,
                   out_dir: str = os.path.join("build", "bench")) -> dict:
   """One scorer call (``make_scorer``) at the reference's defaults on the
-  headline G, by part. With ``inception_tf32`` the call is made in
-  turns with and without TF32 convolutions in InceptionV3 (float32,
-  TF32, TF32, float32), and ``inception_tf32_error`` holds TF32's rows
-  and scores against the float32 path's."""
+  headline G, by part, with the scorer's default TF32 convolutions. With
+  ``inception_tf32`` the call is made in turns with and without them
+  (float32, TF32, TF32, float32), and ``inception_tf32_error`` holds
+  TF32's rows and scores against the float32 path's."""
   dev = resolve_device(device)
   trainer = _scoring_trainer(dev, seed, samples_fid, out_dir)
   row = {"mode": "scoring", "samples_is": samples_is,
          "samples_fid": samples_fid, "batch": batch}
   if not inception_tf32:
-    row.update(_score_once(trainer, samples_is, samples_fid, batch, False))
+    row.update(_score_once(trainer, samples_is, samples_fid, batch, True))
     return row
   calls = {False: [], True: []}
   for conv_tf32 in (False, True, True, False):
@@ -742,8 +742,9 @@ def parse_args(argv=None) -> argparse.Namespace:
   p.add_argument("--quick", action="store_true",
                  help="--variants: the first two only")
   p.add_argument("--inception-tf32", action="store_true",
-                 help="--scoring: also with TF32 convolutions in "
-                      "InceptionV3, in turns, and their error")
+                 help="--scoring: with and without TF32 convolutions "
+                      "in InceptionV3 (the scorer's default), in turns, "
+                      "and their error")
   p.add_argument("--samples-is", type=int, default=50000)
   p.add_argument("--samples-fid", type=int, default=10000)
   p.add_argument("--whitening-precision", choices=("highest", "high"),

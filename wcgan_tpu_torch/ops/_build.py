@@ -120,9 +120,20 @@ def load_mm_bf16x3() -> ctypes.CDLL:
   if lib is None:
     path, _, _ = compile_library("mm_bf16x3")
     lib = ctypes.CDLL(str(path))
-    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    p, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                        ctypes.c_float)
     lib.wcgan_mm_bf16x3.argtypes = [p, i32, i64, p, i32, i64, p, i32, i32,
-                                    i32, p]
+                                    i32, f32, f32, p]
     lib.wcgan_mm_bf16x3.restype = i32
+    lib.wcgan_mm_bf16x3_plan.argtypes = [p, i64, i32, i32, i32, p]
+    lib.wcgan_mm_bf16x3_plan.restype = i32
+    lib.wcgan_mm_bf16x3_prepare.argtypes = []
+    lib.wcgan_mm_bf16x3_prepare.restype = i32
+    # The row kernels' shared-memory opt-in, on the current device, before
+    # any capture can hold the first launch.
+    err = lib.wcgan_mm_bf16x3_prepare()
+    if err != 0:
+      raise RuntimeError(f"mm_bf16x3: preparing the kernels failed: "
+                         f"cudaError_t {err}")
     _LOADED["mm_bf16x3"] = lib
   return lib

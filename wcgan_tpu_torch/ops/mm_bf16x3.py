@@ -1,7 +1,7 @@
 """K3: a float32 product as three bf16 tensor-core products (bf16x3).
 
-``mm_bf16x3(a, b)`` computes ``a @ b`` for float32 ``a`` (M, K) or (K,)
-and ``b`` (K, N) as
+``mm_bf16x3(a, b, alpha, beta)`` computes ``alpha * (a @ b) + beta * I``
+for float32 ``a`` (M, K) or (K,) and ``b`` (K, N), the product as
 
   a b ~= a_lo b_hi + a_hi b_lo + a_hi b_hi,
   a_hi = bf16(a), a_lo = bf16(a - a_hi)  (round to nearest even),
@@ -21,17 +21,25 @@ the products of JAX's ``_PRECISION`` sites here when its precision is
   contiguous first.
 - A CPU tensor goes to the plain version, ``mm_bf16x3_reference``: the
   same pieces by ``.to(torch.bfloat16)``, summed as three float32 products
-  in the kernel's order. The CPU tests use it and ``chip_smoke.py`` holds
-  the kernel against it.
+  in the kernel's order, then ``alpha * p + beta * I``. The CPU tests use
+  it and ``chip_smoke.py`` holds the kernel against it.
+
+``alpha`` and ``beta`` are the kernel's epilogue, ``fmaf(alpha, p,
+beta)`` on the diagonal: Newton-Schulz's ``T = 1.5 I - 0.5 Z Y`` is one
+call (``alpha = -0.5, beta = 1.5``, ``ops.whiten._ns_iterate``) with the
+bits of the product followed by ``1.5 * I - 0.5 * p``, since a power of
+two scales exactly.
 
 The gradient is JAX's transpose rule for a product at HIGH, which keeps
-the precision: dA = dC B^T and dB = A^T dC, each itself ``mm_bf16x3``, so
-the backward is differentiable again (WGAN-GP with WC layers in D takes a
-double backward through Newton-Schulz).
+the precision: dA = alpha dC B^T and dB = alpha A^T dC, each itself
+``mm_bf16x3`` with alpha in its epilogue, so the backward is
+differentiable again (WGAN-GP with WC layers in D takes a double backward
+through Newton-Schulz).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -57,13 +65,24 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
                      f"{tuple(a.shape)} and {tuple(b.shape)}")
 
 
-def mm_bf16x3_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _epilogue(p: torch.Tensor, alpha: float, beta: float) -> torch.Tensor:
+  """alpha * p + beta * I (I of p's shape), as K3's epilogue rounds it."""
+  if alpha != 1.0:
+    p = alpha * p
+  if beta != 0.0:
+    p = p + beta * torch.eye(*p.shape, dtype=p.dtype, device=p.device)
+  return p
+
+
+def mm_bf16x3_reference(a: torch.Tensor, b: torch.Tensor, alpha: float = 1.0,
+                        beta: float = 0.0) -> torch.Tensor:
   """The plain version: the bf16 pieces of ``a`` and ``b``, then
-  (a_lo b_hi + a_hi b_lo) + a_hi b_hi as float32 products."""
+  (a_lo b_hi + a_hi b_lo) + a_hi b_hi as float32 products, then
+  alpha * p + beta * I."""
   _check(a, b)
   a_hi, a_lo = (p.float() for p in split_bf16(a))
   b_hi, b_lo = (p.float() for p in split_bf16(b))
-  return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+  return _epilogue((a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi, alpha, beta)
 
 
 def _operand(t: torch.Tensor) -> Tuple[torch.Tensor, bool, int]:
@@ -79,9 +98,27 @@ def _operand(t: torch.Tensor) -> Tuple[torch.Tensor, bool, int]:
   return t.contiguous(), False, cols
 
 
-def mm_bf16x3_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def plan(a: torch.Tensor, b: torch.Tensor) -> Tuple[str, int, int]:
+  """The path K3 takes for ``a @ b`` on ``a``'s device: ('rows', column
+  slice, 1) for the wgmma row path, ('split-k', tile edge, CTAs a
+  cluster) for the split-K path."""
+  _check(a, b)
+  (m, k), n = a.shape, b.shape[1]
+  a, _, lda = _operand(a)
+  out = (ctypes.c_int * 3)()
+  with torch.cuda.device(a.device):
+    err = _build.load_mm_bf16x3().wcgan_mm_bf16x3_plan(
+        a.data_ptr(), lda, m, n, k, out)
+  if err != 0:
+    raise RuntimeError(f"mm_bf16x3 plan failed: cudaError_t {err}")
+  return ("rows" if out[0] else "split-k", out[1], out[2])
+
+
+def mm_bf16x3_cuda(a: torch.Tensor, b: torch.Tensor, alpha: float = 1.0,
+                   beta: float = 0.0) -> torch.Tensor:
   """Launch K3 on ``a``'s device, on the current stream, without
-  synchronising. Raises on anything the kernel does not take."""
+  synchronising: ``alpha * (a @ b) + beta * I``. Raises on anything the
+  kernel does not take."""
   global MM_BF16X3_LAUNCHES
   if not (a.is_cuda and b.device == a.device):
     raise ValueError(f"mm_bf16x3_cuda needs both operands on one CUDA "
@@ -99,9 +136,11 @@ def mm_bf16x3_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   a, ta, lda = _operand(a)
   b, tb, ldb = _operand(b)
   lib = _build.load_mm_bf16x3()
-  err = lib.wcgan_mm_bf16x3(a.data_ptr(), int(ta), lda, b.data_ptr(),
-                            int(tb), ldb, out.data_ptr(), m, n, k,
-                            torch.cuda.current_stream(a.device).cuda_stream)
+  with torch.cuda.device(a.device):
+    err = lib.wcgan_mm_bf16x3(a.data_ptr(), int(ta), lda, b.data_ptr(),
+                              int(tb), ldb, out.data_ptr(), m, n, k,
+                              float(alpha), float(beta),
+                              torch.cuda.current_stream(a.device).cuda_stream)
   if err != 0:
     raise RuntimeError(f"mm_bf16x3 kernel launch failed at ({m}, {k}) x "
                        f"({k}, {n}): cudaError_t {err}")
@@ -109,37 +148,42 @@ def mm_bf16x3_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   return out
 
 
-def _forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _forward(a: torch.Tensor, b: torch.Tensor, alpha: float = 1.0,
+             beta: float = 0.0) -> torch.Tensor:
   if a.is_cuda:
-    return mm_bf16x3_cuda(a, b)
+    return mm_bf16x3_cuda(a, b, alpha, beta)
   if a.device.type == "cpu":
-    return mm_bf16x3_reference(a, b)
+    return mm_bf16x3_reference(a, b, alpha, beta)
   raise ValueError(f"mm_bf16x3: no kernel for device {a.device}")
 
 
 class MmBf16x3Fn(torch.autograd.Function):
   """K3 (or its plain version) with the product's gradient in the same
-  precision: dA = dC B^T, dB = A^T dC, through this function again."""
+  precision: dA = alpha dC B^T, dB = alpha A^T dC (beta I is constant),
+  through this function again."""
 
   @staticmethod
-  def forward(ctx, a, b):
+  def forward(ctx, a, b, alpha, beta):
     ctx.save_for_backward(a, b)
-    return _forward(a, b)
+    ctx.alpha = alpha
+    return _forward(a, b, alpha, beta)
 
   @staticmethod
   def backward(ctx, grad):
     a, b = ctx.saved_tensors
     da = db = None
     if ctx.needs_input_grad[0]:
-      da = MmBf16x3Fn.apply(grad, b.T)
+      da = MmBf16x3Fn.apply(grad, b.T, ctx.alpha, 0.0)
     if ctx.needs_input_grad[1]:
-      db = MmBf16x3Fn.apply(a.T, grad)
-    return da, db
+      db = MmBf16x3Fn.apply(a.T, grad, ctx.alpha, 0.0)
+    return da, db, None, None
 
 
-def mm_bf16x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-  """``a @ b`` in bf16x3, differentiable; ``a`` (M, K) or (K,), ``b``
-  (K, N). K3 for CUDA tensors, the plain version for CPU tensors."""
+def mm_bf16x3(a: torch.Tensor, b: torch.Tensor, alpha: float = 1.0,
+              beta: float = 0.0) -> torch.Tensor:
+  """``alpha * (a @ b) + beta * I`` in bf16x3, differentiable; ``a``
+  (M, K) or (K,), ``b`` (K, N). K3 for CUDA tensors, the plain version for
+  CPU tensors."""
   if a.dim() == 1:
-    return MmBf16x3Fn.apply(a.unsqueeze(0), b).squeeze(0)
-  return MmBf16x3Fn.apply(a, b)
+    return MmBf16x3Fn.apply(a.unsqueeze(0), b, alpha, beta).squeeze(0)
+  return MmBf16x3Fn.apply(a, b, alpha, beta)

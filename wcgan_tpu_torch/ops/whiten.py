@@ -167,11 +167,17 @@ def _ns_iterate(a: torch.Tensor, ident: torch.Tensor, num_iters: int,
 
   Y_0 = A, Z_0 = I; T = (3I - Z Y)/2; Y <- Y T; Z <- T Z. Autograd runs
   through the loop, as the reference differentiates through its scan.
-  The products are ``mm``'s, by default the set precision's (``_mm``)."""
+  The products are ``mm``'s, by default the set precision's (``_mm``);
+  under 'high' T is one K3 call with its epilogue (alpha -0.5, beta 1.5),
+  the bits of ``1.5 * ident - 0.5 * mm(z, y)``."""
+  fused = mm is None and _PRECISION == "high"
   mm = mm or _mm
   y, z = a, ident
   for _ in range(num_iters):
-    t = 1.5 * ident - 0.5 * mm(z, y)
+    if fused:
+      t = mm_bf16x3(z, y, -0.5, 1.5)
+    else:
+      t = 1.5 * ident - 0.5 * mm(z, y)
     y = mm(y, t)
     z = mm(t, z)
   return y, z
