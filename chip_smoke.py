@@ -32,14 +32,12 @@ from a saved and from its restored state together, counts K1 in one
 standing-statistics recompute (7 x 16) and K2 in EMA sampling
 (``generate(1024, batch=256)`` with K2 forced, 7 a forward), and times
 the checkpoint, ``diagnostics()``, the recompute and EMA sampling. One
-training outer step
-is profiled (``torch.profiler``) for K1's share of kernel time, and one
-K2 generate forward for K2's kernels, launches per call and the device's
-busy share. Then slice 11's ``bench`` phase: the port's
-benchmark (``wcgan_tpu_torch.bench``) cut short, the headline's measured
-windows (K1 42 a step), its FLOP count, MFU and one profiled window (busy
-share), the sampling arms (K2 7 a forward and 0) and the cfg1 row, its
-record printed on one line. Then slice 12's ``graph`` phase, the compiled
+K2 generate forward is profiled (``torch.profiler``) for K2's kernels,
+launches per call and the device's busy share. Then slice 11's ``bench``
+phase: the port's benchmark (``wcgan_tpu_torch.bench``) cut short, the
+headline's measured windows (K1 42 a step), its FLOP count and MFU, the
+sampling arms (K2 7 a forward and 0) and the cfg1 row, its record
+printed on one line. Then slice 12's ``graph`` phase, the compiled
 step (``make_jit_step``, ``make_jit_dataset_step``: CUDA graphs): the
 headline with EMA from one seed, a captured chain of 8 dataset steps
 against the eager chain from the same state and generator (float32 within
@@ -758,32 +756,9 @@ def _traced_kernels(fn):
               and e.device_type == torch.autograd.DeviceType.CPU]
   return [e for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA
-          and not bench._is_annotation(e)
+          and not getattr(e, "is_user_annotation", False)
+          and not e.name.startswith("Optimizer.")
           and e.time_range.start >= start], wall
-
-
-def phase_profile(state, gan) -> None:
-  """One training outer step of the slice under torch.profiler: K1's
-  device time and its share of all kernel time."""
-  step = make_outer_step(gan)
-  dev = state.generator.device
-  real = torch.randint(0, 256, (5, 64, 32, 32, 3), dtype=torch.uint8,
-                       generator=torch.Generator(device=dev).manual_seed(9),
-                       device=dev)
-  labels = torch.zeros((5, 64), dtype=torch.int32, device=dev)
-  step(state, real, labels)
-  torch.cuda.synchronize()
-  kernels, wall = _traced_kernels(lambda: step(state, real, labels))
-  total = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-  k1 = [e for e in kernels if any(n in e.name for n in K1_KERNELS)]
-  k1_ms = sum(e.time_range.elapsed_us() for e in k1) / 1e3
-  gram = sum(1 for e in k1 if "centered_gram" in e.name)
-  check(total > 0 and gram == 42, (total, gram))
-  log("profile", f"one outer step under torch.profiler on {nvidia_smi()}: "
-      f"{len(kernels)} kernels, {total:.3f} ms of kernel time in "
-      f"{wall:.1f} ms of wall (busy {total / wall:.2f}); K1 {k1_ms:.3f} ms "
-      f"({k1_ms / total:.1%}; {len(k1)} launches of its 4 kernels, {gram} "
-      f"Gram) against 6.6 ms of 65.1 in the slice-1 profile")
 
 
 # The bench phase (slice 11): wcgan_tpu_torch.bench at reduced sizes.
@@ -802,9 +777,8 @@ def phase_bench(dev: torch.device):
   steps: K1 42 a step), ``--sampling``'s two arms in bf16 (BENCH_FORWARDS
   forwards a window at batch 256: K2 7 a forward with ``kernel_eval``, 0
   on the split path), the cfg1 shape row (BENCH_CFG1_STEPS steps a window:
-  K1 8 a step), then one ``--profile`` window of the headline (busy share,
-  K1 in the trace) and the headline's FLOP count (on the plain moments: no
-  K1). Every value finite and positive, ``mfu`` and ``busy`` in (0, 1].
+  K1 8 a step), then the headline's FLOP count (on the plain moments: no
+  K1). Every value finite and positive, ``mfu`` in (0, 1].
   Prints the record on one line; returns the K1 and K2 launches by path,
   each counted from 0 just before its run (``measure`` and
   ``bench_sampling`` reset the counts before their windows)."""
@@ -818,49 +792,39 @@ def phase_bench(dev: torch.device):
   c1 = bench.measure(cfg1, BENCH_CFG1_STEPS, BENCH_REPEATS)
   cfg1_k1 = cuda_wc.MOMENTS_LAUNCHES
   del cfg1
-  prof = bench.profile(head)                   # last, as the record has it
   cuda_wc.MOMENTS_LAUNCHES = 0
   flops = bench.count_flops(head)
   check(cuda_wc.MOMENTS_LAUNCHES == 0, ("FLOP count launched K1",
                                         cuda_wc.MOMENTS_LAUNCHES))
   del head
   eff = bench.mfu(flops, m["median"], 5 * 64, "bfloat16", dev)
-  record = {"bench": {"headline": m, **eff, "profile": prof,
-                      "sampling": samp, "cfg1": c1}}
+  record = {"bench": {"headline": m, **eff, "sampling": samp,
+                      "cfg1": c1}}
   print(json.dumps(record), flush=True)
   arms = (samp["k2_kernel"], samp["split"], samp["k2_kernel_eager"],
           samp["split_eager"])
   check(_positive(m["median"], m["min"], m["max"], c1["median"], c1["min"],
-                  flops, prof["wall_ms"], prof["kernel_ms"],
+                  flops,
                   *(a[k] for a in arms for k in ("median", "min", "max"))),
         record)
   check(m["k1_launches_per_step"] == 42 and c1["k1_launches_per_step"] == 8,
         (m["k1_launches_per_step"], c1["k1_launches_per_step"]))
-  check(prof["k1_launches"] == 42 * bench.PROFILE_STEPS
-        and prof["k1_kernels"] >= prof["k1_launches"], prof)
   check(arms[0]["k2_launches_per_forward"] == 7
         and arms[1]["k2_launches_per_forward"] == 0
         and arms[2]["k2_launches_per_forward"] == 7
         and arms[3]["k2_launches_per_forward"] == 0, arms)
-  check(0 < eff["mfu"] <= 1 and 0 < prof["busy"] <= 1,
-        (eff["mfu"], prof["busy"]))
+  check(0 < eff["mfu"] <= 1, eff["mfu"])
   windows = BENCH_FORWARDS * BENCH_REPEATS
   log("bench", f"on {nvidia_smi()}: headline {m['median']:.1f} imgs/s "
       f"({m['min']:.1f}-{m['max']:.1f}, {BENCH_REPEATS} windows of "
       f"{BENCH_STEPS} steps; K1 {m['k1_launches_per_step']:g} a step); "
       f"{flops / 1e12:.4f} TFLOP a step, MFU {eff['mfu']:.4%} of "
-      f"{eff['peak']}; profile of {bench.PROFILE_STEPS} steps: "
-      f"{prof['kernels']} kernels, {prof['kernel_ms']:.3f} ms in "
-      f"{prof['wall_ms']:.1f} ms (busy {prof['busy']:.4f}; unprofiled "
-      f"{prof['wall_ms_unprofiled']:.1f} ms), K1 {prof['k1_share']:.2%}; "
-      f"sampling bf16 captured K2 {arms[0]['median']:.1f} imgs/s, split "
+      f"{eff['peak']}; sampling bf16 captured K2 {arms[0]['median']:.1f} imgs/s, split "
       f"{arms[1]['median']:.1f}, eager K2 {arms[2]['median']:.1f}, split "
       f"{arms[3]['median']:.1f}; cfg1 {c1['median']:.1f} imgs/s; phase "
       f"{time.perf_counter() - t_phase:.1f} s")
   k1 = {f"bench: headline measure, {BENCH_STEPS * BENCH_REPEATS} outer "
         f"steps": head_k1,
-        f"bench: profile window, {bench.PROFILE_STEPS} outer steps":
-            prof["k1_launches"],
         f"bench: cfg1 measure, {BENCH_CFG1_STEPS * BENCH_REPEATS} outer "
         f"steps": cfg1_k1}
   k2 = {f"bench: sampling, captured K2 arm, {windows} forwards":
@@ -3876,7 +3840,6 @@ def main(argv=None) -> int:
       dev)
   phase_step_parity(dev)
   launches, state, gan = phase_slice(dev)
-  phase_profile(state, gan)
   bench_k1, bench_k2 = phase_bench(dev)
   graph_k1, graph_k2 = phase_graph(dev)
   sg_k1, sg_k2 = phase_sample_graph(dev)

@@ -130,11 +130,12 @@ def test_bench_cli_record_on_cpu():
   for key in ("metric", "value", "unit", "vs_baseline", "spread",
               "k1_launches_per_step", "device", "tf32_matmul", "tf32_cudnn",
               "cudnn_benchmark", "torch", "cuda", "flops_per_outer_step",
-              "mfu", "peak", "busy", "max_memory_mib"):
+              "mfu", "peak", "max_memory_mib"):
     assert key in rec, key
   assert rec["unit"] == "imgs/sec/chip" and "float32" in rec["metric"]
   assert rec["device"]["platform"] == "cpu"
-  assert rec["mfu"] is None and rec["busy"] is None and rec["peak"] is None
+  assert rec["mfu"] is None and rec["peak"] is None
+  assert "busy" not in rec and "profile" not in rec
   assert rec["tf32_matmul"] is False and rec["tf32_cudnn"] is False
   lo, hi = rec["spread"]["value"]
   assert 0 < lo <= rec["value"] <= hi
@@ -150,7 +151,7 @@ def test_bench_cuda_without_a_card_raises():
   if torch.cuda.is_available():
     pytest.skip("a CUDA GPU is present")
   with pytest.raises(RuntimeError, match="no CUDA"):
-    bench.main(["--profile"])
+    bench.main(["--sampling"])
 
 
 def test_sampling_arms_on_cpu(monkeypatch):
@@ -368,19 +369,6 @@ def test_flop_count_of_remat_counts_the_recomputation():
       analytic_flops(TINY)
 
 
-def test_profile_leaves_annotation_ranges_out():
-  """Kernel names may hold '#' (a lambda's); annotation ranges are not
-  kernels."""
-  kinds = [("Optimizer.step#Adam.step", False, True),
-           ("void at::native::elementwise_kernel<128, 2, "
-            "at::native::gpu_kernel_impl<{lambda(int)#1}>>(int, F)", False,
-            False),
-           ("my_range", True, True)]
-  for name, flag, want in kinds:
-    event = type("Event", (), {"name": name, "is_user_annotation": flag})
-    assert bench._is_annotation(event) == want, name
-
-
 def test_mfu_names_its_peak():
   cpu, gpu = torch.device("cpu"), torch.device("cuda")
   assert bench.mfu(10**12, 100.0, 320, "bfloat16", cpu)["mfu"] is None
@@ -421,19 +409,10 @@ def test_shapes_and_acgan_reach_every_config(narrow, capsys):
     assert r["mfu"] is None
 
 
-def test_profile_mode_on_cpu(narrow, capsys):
-  """The profile runs off the card too: wall times, and no kernel
-  numbers under the device's name."""
-  (row,) = _rows(capsys, ["--profile"])
-  assert row["mode"] == "profile" and row["steps"] == bench.PROFILE_STEPS
-  assert row["wall_ms"] > 0 and row["wall_ms_unprofiled"] > 0
-  assert row["busy"] is None and row["kernels"] is None
-
-
 def test_whitening_precision_flag_and_the_ablation_rows(narrow, capsys,
                                                         monkeypatch):
   """--whitening-precision sets --shapes' precision (and the record's,
-  --sampling's, --profile's, --scoring's) and every line names it; the
+  --sampling's, --scoring's) and every line names it; the
   ablation modes run the reference's: 'high' for every row but --swing's
   ns15_highest_b64, and refuse the flag."""
   rows = _rows(capsys, ["--shapes", "--only", "headline",

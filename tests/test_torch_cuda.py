@@ -1290,3 +1290,93 @@ def test_high_captured_chain_is_bit_equal_to_eager(dev):
       assert torch.equal(v, w), k
   for k, v in ref_st.g_ema.items():
     assert torch.equal(jit_st.g_ema[k], v), k
+
+
+# --- the program's spans in its graphs (wcgan_tpu_torch/trace.py) ----------
+
+
+def _no_spans(monkeypatch):
+  """Every span and the WC block's backward markers off; the capture
+  still keeps its graph's span map."""
+  import contextlib
+  from wcgan_tpu_torch import trace
+  monkeypatch.setattr(trace, "span", lambda name: contextlib.nullcontext())
+  monkeypatch.setattr(trace, "backward_span",
+                      lambda name, fn, x, *a, **kw: fn(x, *a, **kw))
+
+
+def test_span_map_lines_up_with_profiled_replays(dev, monkeypatch):
+  """A captured chain of 3 under 'high': the benchmark's traced slice of
+  two calls holds two whole replays of the span map's nodes, one event a
+  node, in order; the spans add no node (the same chain captured with
+  every span off has the same nodes); every K1 and K3 kernel lies in a
+  ``wc.*`` span; the step's spans hold every node but the chain's means,
+  and their device time is within 2 % of the replay's."""
+  from wcbench.core import trace as slice_trace
+  from wcbench.work import kernels
+  from wcgan_tpu_torch import trace
+  from wcgan_tpu_torch.ops import whiten
+  from wcgan_tpu_torch.train.step import make_jit_dataset_step
+  gan, (st, st_plain), data = _jit_states(dev)
+  with whiten.precision("high"):
+    jit = make_jit_dataset_step(gan, 16, 3)
+    for _ in range(2):
+      jit(st, *data)
+    span_map = trace.maps()["make_jit_dataset_step"]
+    s = slice_trace.profile(lambda: jit(st, *data), 2, dev)
+    with monkeypatch.context() as m:
+      _no_spans(m)
+      plain = make_jit_dataset_step(gan, 16, 3)
+      for _ in range(2):
+        plain(st_plain, *data)
+  assert trace.maps()["make_jit_dataset_step"].names == span_map.names
+  events = sorted(s.kernels, key=lambda k: (k[1], k[2]))
+  blocks = trace.replays(span_map, events)
+  assert len(blocks) == 2
+  assert 0 <= len(events) - 2 * span_map.nodes <= 2 * 16
+  got = [trace.attribute(span_map, b) for b in blocks]
+  assert all(g is not None for g in got)
+  steps = ("step.draws", "step.fakes", "step.d_pass", "step.d_adam",
+           "step.g_pass", "step.g_adam")
+  assert {n: len(span_map.spans[n]) for n in steps} == {
+      "step.draws": 6, "step.fakes": 6, "step.d_pass": 6,
+      "step.d_adam": 6, "step.g_pass": 3, "step.g_adam": 3}
+  wc = {i for n in ("wc.forward", "wc.backward")
+        for lo, hi in span_map.spans[n] for i in range(lo, hi)}
+  named = [i for i, n in enumerate(span_map.names)
+           if kernels.is_k1(blocks[0][i][0]) or kernels.is_k3(blocks[0][i][0])]
+  assert named and set(named) <= wc
+  in_steps = {i for n in steps for lo, hi in span_map.spans[n]
+              for i in range(lo, hi)}
+  assert span_map.nodes - len(in_steps) <= 3 * 8 + 8
+  for g, b in zip(got, blocks):
+    busy = slice_trace.Slice(1, 0.0, list(b), [], b[0][1],
+                             max(e for _, _, e in b)).busy_s() * 1e6
+    spanned = sum(g[n]["busy_us"] for n in steps)
+    assert abs(spanned - busy) <= 0.02 * busy, (spanned, busy)
+
+
+def test_sampling_span_map_lines_up_with_profiled_replays(dev, tmp_path):
+  """``Trainer.sample_u8``'s graph: the benchmark's traced slice of three
+  batches (each copied to the host) holds three whole replays of its span
+  map; the WC layers' forwards are spans of it."""
+  from wcbench.core import trace as slice_trace
+  from wcgan_tpu_torch import trace
+  from wcgan_tpu_torch.data import get_dataset
+  from wcgan_tpu_torch.train.trainer import Trainer, TrainerConfig
+  gan, (st, _), _ = _jit_states(dev)
+  ds = get_dataset("synthetic", batch_size=16, seed=0, z_dim=32,
+                   synthetic_size=64)
+  tt = Trainer(ds, st, gan, TrainerConfig(
+      name="lane", output_dir=str(tmp_path), device_data=False,
+      ema_standing_batches=0))
+  z = torch.randn((32, 32), device=dev)
+  for _ in range(2):
+    tt.sample_u8(z)
+  span_map = trace.maps()["Trainer.sample_u8"]
+  s = slice_trace.profile(lambda: tt.sample_u8(z).cpu(), 3, dev)
+  blocks = trace.replays(span_map,
+                         sorted(s.kernels, key=lambda k: (k[1], k[2])))
+  assert len(blocks) == 3
+  got = trace.attribute(span_map, blocks[0])
+  assert got["wc.forward"]["nodes"] > 0 and "wc.backward" not in got

@@ -15,6 +15,9 @@ within stated tolerances (``tests/test_torch_*.py``). The layout mirrors
   schedules, the epoch loop (full-state checkpoints, resume, the
   whitening probe and guard) and the sampling surfaces (EMA weights with
   standing statistics).
+- ``wcgan_tpu_torch.trace`` — the port's spans: host time of each
+  compiled program's call and of the set-up, ``torch.profiler`` ranges
+  while it records, and where each span lies in a captured CUDA graph.
 - ``wcgan_tpu_torch.weights`` — moves flax weights to the port and back,
   and reads and writes the JAX package's weights-only npz.
 - ``wcgan_tpu_torch.cli``    — ``python -m wcgan_tpu_torch``.

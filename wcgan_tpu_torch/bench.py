@@ -5,8 +5,6 @@
   python -m wcgan_tpu_torch.bench --acgan | --dfake | --modes | --nsscale
   python -m wcgan_tpu_torch.bench --gap | --swing | --variants [--quick]
   python -m wcgan_tpu_torch.bench --sampling
-  python -m wcgan_tpu_torch.bench --profile [--config cfg2] [--dfake-running]
-                                  # the compiled step, then the eager one
   python -m wcgan_tpu_torch.bench --scoring [--inception-tf32]
 
 Every mode runs on ``--device cuda`` (the default; it raises without a
@@ -22,9 +20,8 @@ turns with ``value`` on the same state), ``value_b128`` (batch twice
 ``--batch``) and ``value_dfake_running`` (``d_fake_stats="running"``)
 unless ``--no-b128`` / ``--no-dfake``; beside them each value's
 ``spread`` (min, max), ``k1_launches_per_step``, ``flops_per_outer_step``
-and ``mfu`` with its ``peak``, the device's ``busy`` share and kernels a
-step in a profiled window of each arm, the capture's seconds, the device,
-the precision switches and the versions.
+and ``mfu`` with its ``peak``, the capture's seconds, the device, the
+precision switches and the versions.
 
 The step measured is the reference bench's: the compiled outer step
 (``train/step.py::make_jit_step``, as ``bench.py`` measures ``jax.jit`` of
@@ -56,7 +53,7 @@ against the float32 peak outside the tensor cores, as TF32 is off.
 
 Whitening precision (``ops/whiten.py::set_precision``):
 ``--whitening-precision {highest,high}`` sets it for the record,
-``--shapes``, ``--sampling``, ``--profile`` and ``--scoring`` ('highest',
+``--shapes``, ``--sampling`` and ``--scoring`` ('highest',
 true float32, by default; 'high' runs every whitening-path product as
 bf16x3 through K3, ``ops/mm_bf16x3.py``). The ablation modes run as the
 reference's ``bench_ablate.py`` runs them: 'high' for every row but
@@ -110,18 +107,14 @@ PEAKS = {
     "float32": (67e12, "67 TFLOP/s float32 without tensor cores (TF32 "
                        "off), H100 SXM data sheet, 700 W"),
 }
-# Kernel names of K1 in a profiler's table.
-K1_KERNELS = ("col_partial_sums", "finalize_mean", "centered_gram_tf32x3",
-              "reduce_gram")
 WARMUP_STEPS = 2
-PROFILE_STEPS = 3
 # The ablation modes, which run at the reference's whitening precision
 # (bench_ablate.py:27-35: every row at HIGH but ns15_highest_b64), and the
 # others, which take --whitening-precision.
 ABLATION_PRECISION = "high"
 ABLATION_MODES = ("acgan", "dfake", "modes", "nsscale", "gap", "swing",
                   "variants")
-MODES = ABLATION_MODES + ("shapes", "sampling", "profile", "scoring")
+MODES = ABLATION_MODES + ("shapes", "sampling", "scoring")
 # --shapes: one row per CONFIGS key but acgan (--acgan's), named as the
 # JAX package's rows, the headline first.
 SHAPES = (("cifar10_wc_resnet_headline", "headline"),
@@ -299,87 +292,6 @@ def mfu(flops: int, imgs_per_sec: float, imgs_per_step: int, dtype: str,
     return {"flops_per_outer_step": flops, "mfu": None, "peak": None}
   return {"flops_per_outer_step": flops, "model_tflops_per_sec": rate / 1e12,
           "mfu": rate / peak, "peak": name}
-
-
-def _kernel_name(name: str) -> str:
-  """'void (anonymous namespace)::rows_apply_bf16<128>(...)' ->
-  'rows_apply_bf16'."""
-  name = name.replace("(anonymous namespace)::", "").replace("void ", "")
-  return re.split(r"[<(]", name)[0].split("::")[-1][:64]
-
-
-def _is_annotation(event) -> bool:
-  """A range laid over the kernels it holds (``record_function``, such as
-  'Optimizer.step#Adam.step'), not a kernel. Kernel names may hold '#'
-  too ('{lambda(int)#1}')."""
-  return bool(getattr(event, "is_user_annotation", False)) or \
-      event.name.startswith("Optimizer.")
-
-
-def profile(bench: Bench, steps: int = PROFILE_STEPS, top: int = 10,
-            eager: bool = False) -> dict:
-  """A window of ``steps`` outer steps of the bench's step (the eager
-  step it wraps with ``eager``) under ``torch.profiler``: kernels, and
-  kernels a step, kernel ms, wall ms, the busy share (kernel time over
-  the profiled window's wall time), the ``top`` kernels by device time,
-  K1's share; and the same window's wall time unprofiled before it (the
-  profiler's overhead) and after it (what tracing leaves behind in the
-  process), and K1's launches in the profiled window. Two calls come
-  first (a compiled step's warm-up and capture). Off the card there are
-  no kernels: those fields are None."""
-  from torch.profiler import ProfilerActivity, profile as torch_profile
-  step_fn, state, (real, labels), _ = bench
-  if eager:
-    step_fn = _eager(step_fn)
-  dev = real.device
-  for _ in range(2):
-    step_fn(state, real, labels)
-
-  def window_ms() -> float:
-    fence(dev)
-    t0 = time.perf_counter()
-    for _ in range(steps):
-      step_fn(state, real, labels)
-    fence(dev)
-    return (time.perf_counter() - t0) * 1e3
-
-  plain_ms = window_ms()
-  activities = [ProfilerActivity.CPU]
-  if dev.type == "cuda":
-    activities.append(ProfilerActivity.CUDA)
-  cuda_wc.MOMENTS_LAUNCHES = 0
-  with torch_profile(activities=activities) as prof:
-    wall_ms = window_ms()
-  k1_launches = cuda_wc.MOMENTS_LAUNCHES
-  out = {"steps": steps, "wall_ms": wall_ms, "wall_ms_unprofiled": plain_ms,
-         "profiler_overhead": wall_ms / plain_ms - 1.0,
-         "wall_ms_unprofiled_after": window_ms(),
-         "k1_launches": k1_launches, "kernels": None,
-         "kernels_per_step": None, "kernel_ms": None, "busy": None,
-         "top_kernels": None,
-         "k1_kernels": None, "k1_ms": None, "k1_share": None}
-  if dev.type != "cuda":
-    return out
-  by_name: Dict[str, list] = {}
-  for e in prof.events():
-    if e.device_type == torch.autograd.DeviceType.CUDA and \
-        not _is_annotation(e):
-      entry = by_name.setdefault(_kernel_name(e.name), [0, 0.0])
-      entry[0] += 1
-      entry[1] += e.time_range.elapsed_us() / 1e3
-  kernel_ms = sum(ms for _, ms in by_name.values())
-  k1 = [v for k, v in by_name.items() if any(n in k for n in K1_KERNELS)]
-  k1_ms = sum(ms for _, ms in k1)
-  ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
-  kernels = sum(n for n, _ in by_name.values())
-  out.update(
-      kernels=kernels, kernels_per_step=kernels / steps, kernel_ms=kernel_ms,
-      busy=kernel_ms / wall_ms, k1_kernels=sum(n for n, _ in k1),
-      k1_ms=k1_ms,
-      k1_share=k1_ms / kernel_ms if kernel_ms else None,
-      top_kernels=[{"name": k, "launches": n, "ms": ms}
-                   for k, (n, ms) in ranked])
-  return out
 
 
 def variant_bench(norm: str = "d", dtype: str = "bfloat16",
@@ -692,11 +604,6 @@ def record(a, dtype: str) -> dict:
     rec["value_dfake_running"] = m["median"]
     spread["value_dfake_running"] = [m["min"], m["max"]]
     memory["value_dfake_running"] = m["max_memory_mib"]
-  # The profiles come last: CUDA tracing may slow the process's later
-  # launches. The busy share is the device's; off the card there is none.
-  on_card = dev.type == "cuda"
-  prof = profile(bench) if on_card else None
-  prof_eager = profile(bench, eager=True) if on_card else None
   flops = count_flops(bench)
   per_step = _imgs_per_step(bench)
   rec.update(
@@ -705,10 +612,7 @@ def record(a, dtype: str) -> dict:
       k1_launches_per_step_eager=e["k1_launches_per_step"],
       capture_s=b["capture_s"],
       **mfu(flops, b["median"], per_step, dtype, dev),
-      busy=prof and prof["busy"], busy_eager=prof_eager and prof_eager["busy"],
-      kernels_per_step=prof and prof["kernels_per_step"],
-      kernels_per_step_eager=prof_eager and prof_eager["kernels_per_step"],
-      profile=prof, profile_eager=prof_eager, max_memory_mib=memory,
+      max_memory_mib=memory,
       device=device_info(dev), **switches(), torch=torch.__version__,
       cuda=torch.version.cuda, dtype=dtype, batch=a.batch)
   return rec
@@ -728,17 +632,16 @@ def parse_args(argv=None) -> argparse.Namespace:
   p.add_argument("--batch", type=int, default=None,
                  help="64 (sampling 256)")
   p.add_argument("--f32", action="store_true",
-                 help="float32 in place of bf16 (record, shapes, profile)")
+                 help="float32 in place of bf16 (record, shapes)")
   p.add_argument("--no-b128", action="store_true")
   p.add_argument("--no-dfake", action="store_true")
-  p.add_argument("--config", default="headline", help="--profile's shape")
   mode = p.add_mutually_exclusive_group()
   for flag in MODES:
     mode.add_argument(f"--{flag}", action="store_true")
   p.add_argument("--only", action="append", default=[],
                  help="--shapes: rows whose name contains this")
   p.add_argument("--dfake-running", action="store_true",
-                 help="--shapes, --profile with d_fake_stats='running'")
+                 help="--shapes with d_fake_stats='running'")
   p.add_argument("--quick", action="store_true",
                  help="--variants: the first two only")
   p.add_argument("--inception-tf32", action="store_true",
@@ -749,8 +652,8 @@ def parse_args(argv=None) -> argparse.Namespace:
   p.add_argument("--samples-fid", type=int, default=10000)
   p.add_argument("--whitening-precision", choices=("highest", "high"),
                  default=None,
-                 help="the record, --shapes, --sampling, --profile, "
-                      "--scoring: 'highest' (default, true float32) or "
+                 help="the record, --shapes, --sampling, --scoring: "
+                      "'highest' (default, true float32) or "
                       "'high' (bf16x3 through K3); the ablation modes run "
                       "the reference's own")
   a = p.parse_args(argv)
@@ -837,13 +740,6 @@ def main(argv=None) -> int:
   elif a.sampling:
     for dt in ("bfloat16", "float32"):
       emit(bench_sampling(dt, a.batch, a.steps, a.repeats, a.device, a.seed))
-  elif a.profile:
-    dfake = "running" if a.dfake_running else "batch"
-    bench = build_bench(a.config, batch=a.batch, dtype=dtype,
-                        d_fake_stats=dfake, device=a.device, seed=a.seed)
-    emit({"mode": "profile", "config": a.config, "dtype": dtype,
-          "batch": a.batch, "d_fake_stats": dfake, **profile(bench),
-          "eager": profile(bench, eager=True)})
   elif a.scoring:
     emit(bench_scoring(a.device, a.seed, a.samples_is, a.samples_fid,
                        inception_tf32=a.inception_tf32))

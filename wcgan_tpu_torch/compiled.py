@@ -35,6 +35,12 @@ On the CPU every call after the warm-up runs the function eagerly on the
 static buffers. ``last`` says what the last call did: 'warm-up',
 'capture', 'replay' or 'eager' (the CPU's), and ``calls`` counts each.
 
+Each part of a call is a span (``trace``) named ``<name>.<part>``:
+``key`` (the binding key), ``fill`` (the static buffers), ``warm_up``,
+``capture``, ``launch`` (the replay), ``counts`` (the host counts) and
+``clone`` (the outputs). A capture keeps the graph's span map in
+``trace.maps()`` under the program's name.
+
 The binding key is the caller's, and must hold everything the graph is
 bound to: each tensor it reads in place, by identity and address
 (``tensors_key``), the inputs' shapes, dtypes and devices (``spec``),
@@ -50,10 +56,13 @@ from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from wcgan_tpu_torch import trace
 from wcgan_tpu_torch.ops import cuda_wc, mm_bf16x3, whiten
 from wcgan_tpu_torch.parallel import mesh
 
 KINDS = ("warm-up", "capture", "replay", "eager")
+# A call's spans (``trace``), each ``<name>.<part>``.
+SPANS = ("key", "fill", "warm_up", "capture", "launch", "counts", "clone")
 
 
 def _tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
@@ -180,6 +189,7 @@ class Program:
 
   def __init__(self, name: str):
     self.name = name
+    self._spans = {part: f"{name}.{part}" for part in SPANS}
     self.calls = dict.fromkeys(KINDS, 0)
     self.last: Optional[str] = None
     self._stream = None
@@ -200,32 +210,43 @@ class Program:
     ``key()``; ``state``, when given, is the train state whose
     ``generator`` the graph registers and whose ``step`` and
     ``g_version`` a replay advances."""
-    if self._key is None or self._key != key():
+    spans = self._spans
+    with trace.span(spans["key"]):
+      stale = self._key is None or self._key != key()
+    if stale:
       self.invalidate()
-      self._static = _tree_map(
-          lambda a: torch.empty_like(_host(a), device=device), inputs)
-      _fill(self._static, inputs)
+      with trace.span(spans["fill"]):
+        self._static = _tree_map(
+            lambda a: torch.empty_like(_host(a), device=device), inputs)
+        _fill(self._static, inputs)
       self._note("warm-up")
-      out = self._warm_up(fn, device)
+      with trace.span(spans["warm_up"]):
+        out = self._warm_up(fn, device)
       # Bound to what the warm-up left (Adam's slots, say).
-      self._key = key()
+      with trace.span(spans["key"]):
+        self._key = key()
       return out
-    _fill(self._static, inputs)
+    with trace.span(spans["fill"]):
+      _fill(self._static, inputs)
     if device.type != "cuda":
       self._note("eager")
       return fn(self._static)
     if self._graph is None:
-      self._capture(fn, device, state)
+      with trace.span(spans["capture"]):
+        self._capture(fn, device, state)
       self._note("capture")
     else:
       self._note("replay")
-    self._graph.replay()
-    counts = _counts(state)
-    for k, v in self._advance.items():
-      if v:
-        counts[k] = counts.get(k, 0) + v
-    _put(counts, state)
-    return _tree_map(torch.Tensor.clone, self._out)
+    with trace.span(spans["launch"]):
+      self._graph.replay()
+    with trace.span(spans["counts"]):
+      counts = _counts(state)
+      for k, v in self._advance.items():
+        if v:
+          counts[k] = counts.get(k, 0) + v
+      _put(counts, state)
+    with trace.span(spans["clone"]):
+      return _tree_map(torch.Tensor.clone, self._out)
 
   def _note(self, kind: str) -> None:
     self.calls[kind] += 1
@@ -264,7 +285,7 @@ class Program:
     try:
       with torch.cuda.stream(side), torch.autograd.set_detect_anomaly(
           anomaly, check_nan=False):
-        with torch.cuda.graph(graph, stream=side):
+        with torch.cuda.graph(graph, stream=side), trace.graph_map(self.name):
           out = fn(self._static)
     except Exception as err:
       raise capture_failure(self.name, err) from err

@@ -41,6 +41,7 @@ from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from wcgan_tpu_torch import trace
 from wcgan_tpu_torch.ops import coloring as coloring_ops
 from wcgan_tpu_torch.ops import cuda_wc
 from wcgan_tpu_torch.ops import sn as sn_ops
@@ -385,7 +386,9 @@ class NormColor(nn.Module):
   'uconv' layer through K2; on a conditional layer it raises, naming the
   layer (``layer_name``, set by the model that holds it): K2 has one
   coloring for all rows. Every other pair of codes runs the general path:
-  ``NormLayer`` (submodule ``norm``), then ``Coloring`` (``color``)."""
+  ``NormLayer`` (submodule ``norm``), then ``Coloring`` (``color``).
+  Its forward is the span ``wc.forward`` and its backward ``wc.backward``
+  (``trace``)."""
 
   STAT_NAMES = ("mean", "cov")
 
@@ -451,6 +454,12 @@ class NormColor(nn.Module):
 
   def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None,
               train: bool = True, update_stats: bool = True) -> torch.Tensor:
+    with trace.span("wc.forward"):
+      return trace.backward_span("wc.backward", self._forward, x, labels,
+                                 train, update_stats)
+
+  def _forward(self, x: torch.Tensor, labels: Optional[torch.Tensor],
+               train: bool, update_stats: bool) -> torch.Tensor:
     if not self.fused:
       return self.color(self.norm(x, train, update_stats), labels)
     if self.coloring == "uconv":

@@ -7,7 +7,8 @@ root, on first use, and ``ctypes`` loads it. The library's file name carries
 a hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
 an edited source is rebuilt and an unchanged one is reused across
 processes. A missing ``nvcc`` or a failed compile raises with the
-compiler's output; nothing falls back.
+compiler's output; nothing falls back. A compile is the span
+``kernels.build`` (``trace``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Tuple
+
+from wcgan_tpu_torch import trace
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -64,7 +67,8 @@ def compile_library(name: str) -> Tuple[Path, str, float]:
   tmp = out.with_suffix(f".{os.getpid()}.tmp")
   cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
   t0 = time.perf_counter()
-  proc = subprocess.run(cmd, capture_output=True, text=True)
+  with trace.span("kernels.build"):
+    proc = subprocess.run(cmd, capture_output=True, text=True)
   seconds = time.perf_counter() - t0
   if proc.returncode != 0:
     tmp.unlink(missing_ok=True)

@@ -17,6 +17,7 @@ from typing import Dict, Optional
 
 import torch
 
+from wcgan_tpu_torch import trace
 from wcgan_tpu_torch.device import place
 from wcgan_tpu_torch.models.discriminator import (Discriminator,
                                                   DiscriminatorConfig)
@@ -102,9 +103,11 @@ def create_state(g_cfg: GeneratorConfig, d_cfg: DiscriminatorConfig,
                  group: mesh.Group = None) -> GANTrainState:
   """Random G and D from ``seed`` (initialized on the CPU, so the same seed
   gives the same weights on any device, and every rank of ``group`` the
-  same state), placed on ``device``; their layers reduce over ``group``."""
-  init = torch.Generator().manual_seed(seed)
-  g = place(Generator(g_cfg, init, group), device)
-  d = place(Discriminator(d_cfg, init, group), device)
-  return state_from_modules(g, d, opt_cfg, training_ratio, device, seed + 1,
-                            g_ema_decay)
+  same state), placed on ``device``; their layers reduce over ``group``.
+  The span ``state.create`` (``trace``)."""
+  with trace.span("state.create"):
+    init = torch.Generator().manual_seed(seed)
+    g = place(Generator(g_cfg, init, group), device)
+    d = place(Discriminator(d_cfg, init, group), device)
+    return state_from_modules(g, d, opt_cfg, training_ratio, device,
+                              seed + 1, g_ema_decay)

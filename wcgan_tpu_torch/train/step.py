@@ -40,6 +40,12 @@ pass that must not see the update runs before the pass that makes it.
 dataset that lives there, and ``_multi`` chains outer steps, as the
 reference's device-data path does.
 
+A step's parts are spans (``trace``), which a captured chain keeps in its
+span map: ``step.draws`` (the draws, the dataset's gather and flip),
+``step.fakes`` (the D phase's fakes), ``step.d_pass`` (D's forward and
+loss, their gradient and its reduce), ``step.d_adam`` (the norm and
+Adam), ``step.g_pass`` and ``step.g_adam`` (with the EMA).
+
 The compiled step (the reference's ``make_jit_step`` and
 ``make_jit_dataset_step``, ``jax.jit`` of the step and of its
 ``steps_per_call`` chain, and with a process group its
@@ -75,7 +81,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from wcgan_tpu_torch import compiled
+from wcgan_tpu_torch import compiled, trace
 from wcgan_tpu_torch.ops import losses as loss_ops
 from wcgan_tpu_torch.parallel import mesh
 from wcgan_tpu_torch.train.state import GANTrainState
@@ -238,7 +244,7 @@ def make_outer_step(cfg: GANConfig, group: mesh.Group = None
 
   def fakes(state: GANTrainState, z, zy):
     """D-phase fakes of a frozen G: its statistics do not advance."""
-    with torch.no_grad():
+    with trace.span("step.fakes"), torch.no_grad():
       return state.g(z, zy, train=d_fake_train, update_stats=False)
 
   def d_update(state: GANTrainState, x, y, fake, zy, eps, d_has_norm: bool,
@@ -247,73 +253,79 @@ def make_outer_step(cfg: GANConfig, group: mesh.Group = None
     y_in = y if d_takes_labels else None
     zy_in = zy if d_takes_labels else None
     d = state.d
-    penalty = None
-    if gp_weight > 0.0:
-      penalty = loss_ops.gradient_penalty(
-          lambda xi: d(xi, y_in)[0], x, fake, eps, weight=gp_weight)
-    if d_has_norm:
-      fs, _ = d(fake, zy_in)
-      rs, rl = d(x, y_in, update_sn=True, update_stats=True)
-    else:
-      yy = torch.cat([y_in, zy_in]) if y_in is not None else None
-      scores, logits = d(torch.cat([x, fake]), yy, update_sn=True,
-                         update_stats=True)
-      rs, fs = scores[:b], scores[b:]
-      rl = logits[:b] if logits is not None else None
-    loss = d_loss_fn(rs, fs)
-    if penalty is not None:
-      loss = loss + penalty
-    if acgan and rl is not None:
-      loss = loss + loss_ops.ac_gan_aux_loss(rl, y)
-    params = list(d.parameters())
-    loss, grads = reduced(loss, torch.autograd.grad(loss, params))
-    gnorm = _global_norm(grads)
-    _apply(params, grads, state.d_opt, state.d_sched)
+    with trace.span("step.d_pass"):
+      penalty = None
+      if gp_weight > 0.0:
+        penalty = loss_ops.gradient_penalty(
+            lambda xi: d(xi, y_in)[0], x, fake, eps, weight=gp_weight)
+      if d_has_norm:
+        fs, _ = d(fake, zy_in)
+        rs, rl = d(x, y_in, update_sn=True, update_stats=True)
+      else:
+        yy = torch.cat([y_in, zy_in]) if y_in is not None else None
+        scores, logits = d(torch.cat([x, fake]), yy, update_sn=True,
+                           update_stats=True)
+        rs, fs = scores[:b], scores[b:]
+        rl = logits[:b] if logits is not None else None
+      loss = d_loss_fn(rs, fs)
+      if penalty is not None:
+        loss = loss + penalty
+      if acgan and rl is not None:
+        loss = loss + loss_ops.ac_gan_aux_loss(rl, y)
+      params = list(d.parameters())
+      loss, grads = reduced(loss, torch.autograd.grad(loss, params))
+    with trace.span("step.d_adam"):
+      gnorm = _global_norm(grads)
+      _apply(params, grads, state.d_opt, state.d_sched)
     return loss, gnorm
 
   def g_update(state: GANTrainState, z, zy, d_takes_labels: bool):
-    fake = state.g(z, zy, train=True, update_stats=True)
-    # D's only pass here, so advancing u in it reads the old u first.
-    fs, fl = state.d(fake, zy if d_takes_labels else None,
-                     update_sn=cfg.sn_update_on_g_step)
-    loss = g_loss_fn(fs)
-    if acgan and fl is not None:
-      loss = loss + loss_ops.ac_gan_aux_loss(fl, zy)
-    params = list(state.g.parameters())
-    loss, grads = reduced(loss, torch.autograd.grad(loss, params))
-    gnorm = _global_norm(grads)
-    _apply(params, grads, state.g_opt, state.g_sched)
-    if cfg.g_ema_decay > 0.0 and state.g_ema:
-      # e <- d*e + (1-d)*p, the reference's form and rounding (lerp rounds
-      # otherwise).
-      with torch.no_grad():
-        ema = list(state.g_ema.values())
-        torch._foreach_mul_(ema, cfg.g_ema_decay)
-        torch._foreach_add_(ema, params, alpha=1.0 - cfg.g_ema_decay)
+    with trace.span("step.g_pass"):
+      fake = state.g(z, zy, train=True, update_stats=True)
+      # D's only pass here, so advancing u in it reads the old u first.
+      fs, fl = state.d(fake, zy if d_takes_labels else None,
+                       update_sn=cfg.sn_update_on_g_step)
+      loss = g_loss_fn(fs)
+      if acgan and fl is not None:
+        loss = loss + loss_ops.ac_gan_aux_loss(fl, zy)
+      params = list(state.g.parameters())
+      loss, grads = reduced(loss, torch.autograd.grad(loss, params))
+    with trace.span("step.g_adam"):
+      gnorm = _global_norm(grads)
+      _apply(params, grads, state.g_opt, state.g_sched)
+      if cfg.g_ema_decay > 0.0 and state.g_ema:
+        # e <- d*e + (1-d)*p, the reference's form and rounding (lerp
+        # rounds otherwise).
+        with torch.no_grad():
+          ema = list(state.g_ema.values())
+          torch._foreach_mul_(ema, cfg.g_ema_decay)
+          torch._foreach_add_(ema, params, alpha=1.0 - cfg.g_ema_decay)
     state.g_version += 1
     return loss, gnorm
 
   def outer_step(state: GANTrainState, real_u8, labels,
                  noise: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
     device = state.generator.device
-    real = as_tensor(real_u8, device)
-    if real.shape[0] != ratio:
-      raise ValueError(f"got {real.shape[0]} D batches, expected "
-                       f"training_ratio={ratio}")
-    b = real.shape[1]
     d_cfg = state.d.cfg
     d_has_norm = d_cfg.norm != "n"
     d_takes_labels = cfg.conditional and (
         d_cfg.projection or d_cfg.ac_gan or d_cfg.num_classes > 0)
-    if noise is None:
-      noise = rank_block(
-          draw_noise(cfg, state.generator, b * world, device), group)
-    noise = {k: as_tensor(v, device) for k, v in noise.items()}
-    real = prepare_real(real, noise.get("flip") if cfg.random_flip else None)
-    y_real = y_d = y_g = None
-    if cfg.conditional:
-      y_real = as_tensor(labels, device).long()
-      y_d, y_g = noise["y_d"].long(), noise["y_g"].long()
+    with trace.span("step.draws"):
+      real = as_tensor(real_u8, device)
+      if real.shape[0] != ratio:
+        raise ValueError(f"got {real.shape[0]} D batches, expected "
+                         f"training_ratio={ratio}")
+      b = real.shape[1]
+      if noise is None:
+        noise = rank_block(
+            draw_noise(cfg, state.generator, b * world, device), group)
+      noise = {k: as_tensor(v, device) for k, v in noise.items()}
+      real = prepare_real(real,
+                          noise.get("flip") if cfg.random_flip else None)
+      y_real = y_d = y_g = None
+      if cfg.conditional:
+        y_real = as_tensor(labels, device).long()
+        y_d, y_g = noise["y_d"].long(), noise["y_g"].long()
 
     if cfg.batched_fake_gen:
       z_all = noise["z_d"].reshape(ratio * b, -1)
@@ -398,12 +410,13 @@ def make_dataset_step(cfg: GANConfig, batch_size: int,
 
   def step(state: GANTrainState, data_x: torch.Tensor, data_y: torch.Tensor,
            noise: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
-    idx = torch.randint(0, data_x.shape[0], (ratio, batch_size),
-                        generator=state.generator, device=data_x.device)
-    idx = idx[:, lo:lo + local].reshape(-1)
-    real = data_x.index_select(0, idx).view(
-        (ratio, local) + tuple(data_x.shape[1:]))
-    labels = data_y.index_select(0, idx).view(ratio, local)
+    with trace.span("step.draws"):
+      idx = torch.randint(0, data_x.shape[0], (ratio, batch_size),
+                          generator=state.generator, device=data_x.device)
+      idx = idx[:, lo:lo + local].reshape(-1)
+      real = data_x.index_select(0, idx).view(
+          (ratio, local) + tuple(data_x.shape[1:]))
+      labels = data_y.index_select(0, idx).view(ratio, local)
     return inner(state, real, labels, noise=noise)
 
   return step

@@ -87,7 +87,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from wcgan_tpu_torch import compiled
+from wcgan_tpu_torch import compiled, trace
 from wcgan_tpu_torch.data.base import ArrayDataset
 from wcgan_tpu_torch.models import layers as L
 from wcgan_tpu_torch.utils.images import make_grid, save_png
@@ -766,9 +766,13 @@ class Trainer:
     return imgs
 
   def _sample(self, kind: str, z, labels) -> torch.Tensor:
-    inputs = list(self._sampling_inputs(z, labels))
-    tensors = self.sampling_state()
-    signature = compiled.spec(inputs)
+    """A sampling program's call; its host work before the program's are
+    the spans ``Trainer.<kind>.inputs`` and ``Trainer.<kind>.state``."""
+    with trace.span(f"Trainer.{kind}.inputs"):
+      inputs = list(self._sampling_inputs(z, labels))
+      signature = compiled.spec(inputs)
+    with trace.span(f"Trainer.{kind}.state"):
+      tensors = self.sampling_state()
     return self._program(kind, signature)(
         lambda static: self._sample_body(kind, tensors, *static),
         lambda: (self._g_key(tensors), compiled.backend_key(), signature),
