@@ -72,8 +72,12 @@ C x C x C shape against torch.matmul, and one Newton-Schulz iteration
 fused, unfused and under 'highest'; one float32 headline step under
 each precision from one state (within STEP_RTOL); the whitening residual
 under each on the headline's covariances, fresh and after 7 steps, and
-at conditioning 1e3; the captured bf16 headline step under 'high' (K3
-2,499 and K1 42 a replay), a captured chain of 8 against the eager one
+at conditioning 1e3; the fused Newton-Schulz launch (a whitening's 15
+iterations in one launch) bitwise against the chain of K3 launches and
+within HIGH_NS_PLAIN of its plain version at C = 64, 128 and 256, timed
+against both in turns; the captured bf16
+headline step under 'high' (K3 959, 35 of them fused, and K1 42 a
+replay), a captured chain of 8 against the eager one
 bit for bit, the step timed in turns against 'highest', each step
 profiled for its kernel time and kernel count. ``python3
 chip_smoke.py --phase high`` runs that phase alone. Then the conditional
@@ -331,9 +335,9 @@ def phase_build() -> None:
                                                report))
     else:
       # Split-K: 2 tile shapes x 4 layouts; rows: 2 slices x A as given or
-      # transposed.
+      # transposed; the fused Newton-Schulz launch at its 3 widths.
       k3 = [sp for k, _, sp in report if "mm_bf16x3_" in k]
-      check(len(k3) == 12 and not any(k3), ("K3 spills", report))
+      check(len(k3) == 15 and not any(k3), ("K3 spills", report))
   log("build", f"all three loaded in {time.perf_counter() - t0:.2f} s")
 
 
@@ -3331,11 +3335,26 @@ HIGH_RESID = 1e-3      # the whitening residual under 'high' on the
 HIGH_PROBE_STEPS = 4   # captured steps between the two residual probes
 # K3's launches in one headline outer step under 'high' (counted on the
 # CPU through the plain version with K1's route forced: the count does not
-# depend on the widths): 7 WC layers x 45 Newton-Schulz products in each
-# of the 6 train-mode G forwards (1,890), and in the G update's backward
-# 86 transposed products a layer (none where an operand is the constant I
-# or the last Y, which W does not read) and K1's row product (602).
-HIGH_K3_PER_STEP = 2499
+# depend on the widths): the 5 fakes' forwards take no gradient, so each
+# of their 35 whitenings is one fused Newton-Schulz launch (35); the G
+# update's forward keeps the chain, 7 WC layers x 45 products (315); its
+# backward 86 transposed products a layer (none where an operand is the
+# constant I or the last Y, which W does not read) and K1's row product
+# (602 + 7). 35 + 315 + 609 = 959; the products the step computes stay
+# 2,499 (the fused launch skips one Y a whitening: 2,464).
+HIGH_K3_PER_STEP = 959
+HIGH_NS_PER_STEP = 35   # of them fused (mm_bf16x3.MM_BF16X3_NS_LAUNCHES)
+HIGH_NS_C = (64, 128, 256)  # the fused launch's widths
+# The fused launch's Z against its plain version (``_ns_iterate`` with
+# ``mm_bf16x3_reference`` as every product: float32 products of the bf16
+# pieces, TF32 off), max|Z - Z_plain| / max|Z_plain| after 15 iterations,
+# at each C of HIGH_NS_C, on a fresh covariance and on one conditioned at
+# 1e3. Measured on an H100 over these operands and the cuda lane's: the
+# fused launch (the chain's bits) at most 2.4e-5 fresh and 1.9e-4 at 1e3;
+# a bf16x3 without its a_lo b_hi term at least 1.0e-2 and 0.11 (the
+# chain of float32 products, 'highest', reads 2.0e-5 to 2.7e-4).
+HIGH_NS_PLAIN = {"fresh": 2e-4, "cond 1e3": 1e-3}
+HIGH_NS_ITERS = 15
 HIGH_TIME_STEPS, HIGH_TIME_ROUNDS = 5, 3
 
 
@@ -3511,6 +3530,126 @@ def _high_fused(dev: torch.device) -> None:
       f"derivatives at C = {C} bitwise equal to the unfused expression's")
 
 
+def _ns_chain_z(a: torch.Tensor) -> torch.Tensor:
+  """Z of the 15-iteration chain of K3 launches ``_ns_iterate`` runs under
+  'high' (T by K3's epilogue)."""
+  with whiten.precision("high"), torch.no_grad():
+    return whiten._ns_iterate(a, torch.eye(a.shape[0], device=a.device),
+                              HIGH_NS_ITERS)[1]
+
+
+def _ns_plain_z(a: torch.Tensor, mm=mm_bf16x3.mm_bf16x3_reference):
+  """Z of the fused launch's plain version: ``_ns_iterate``'s 15
+  iterations with ``mm`` as every product."""
+  with torch.no_grad():
+    return whiten._ns_iterate(a, torch.eye(a.shape[0], device=a.device),
+                              HIGH_NS_ITERS, mm=mm)[1]
+
+
+def _mm_two_terms(a, b):
+  """bf16x3 without its a_lo b_hi term: a planted fault that the
+  comparison with the plain version has to catch."""
+  (a_hi, _), (b_hi, b_lo) = ([p.float() for p in mm_bf16x3.split_bf16(t)]
+                             for t in (a, b))
+  return a_hi @ b_lo + a_hi @ b_hi
+
+
+def _ns_gap(z: torch.Tensor, plain: torch.Tensor) -> float:
+  """max|z - plain| / max|plain|, in float64."""
+  plain = plain.double()
+  return float((z.double() - plain).abs().max() / plain.abs().max())
+
+
+def _graphed(fn):
+  """A CUDA graph of one call of ``fn`` (warmed up on a side stream), and
+  the call's output."""
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    fn()
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    out = fn()
+  return graph, out
+
+
+def _high_ns(dev: torch.device) -> dict:
+  """The fused Newton-Schulz launch (mm_bf16x3_ns, 15 iterations) at each
+  C of HIGH_NS_C, on a fresh batch covariance and one conditioned at 1e3:
+  bitwise against the chain of K3 launches it replaces, eager and each in
+  a CUDA graph; within HIGH_NS_PLAIN of its plain version, which a
+  bf16x3 without its a_lo b_hi term must exceed (the chain of float32
+  products, what 'highest' runs, is printed beside it); one launch and one
+  count on each counter a call. Then the fused launch
+  (eager and captured), the chain and the plain version (each captured, as
+  the step runs them: the chain's 44 launches eager are host-bound) timed
+  in turns. Returns {"ms": {C: (fused, fused captured, chain captured,
+  plain captured)}, "gap": the largest gap to the plain version,
+  "controls": the least gap of each planted fault}."""
+  gen = torch.Generator(device=dev).manual_seed(19)
+  out, gaps, least, readings = {}, {}, {}, []
+  controls = {"float32 products": torch.matmul,
+              "bf16x3 without a_lo b_hi": _mm_two_terms}
+  for c in HIGH_NS_C:
+    x = torch.randn((4 * c, c), generator=gen, device=dev)
+    x = x - x.mean(dim=0)
+    for kind, cov in (("fresh", x.T @ x / x.shape[0]),
+                      ("cond 1e3", _k2_inputs(4 * c, c, gen, dev)[2])):
+      a = whiten._jittered_normalized(cov, 1e-5)[0]
+      want = _ns_chain_z(a)
+      plain = _ns_plain_z(a)
+      before = (mm_bf16x3.MM_BF16X3_LAUNCHES,
+                mm_bf16x3.MM_BF16X3_NS_LAUNCHES)
+      got = mm_bf16x3.mm_bf16x3_ns_cuda(a, HIGH_NS_ITERS)
+      counted = (mm_bf16x3.MM_BF16X3_LAUNCHES - before[0],
+                 mm_bf16x3.MM_BF16X3_NS_LAUNCHES - before[1])
+      gap = _ns_gap(got, plain)
+      faults = {k: _ns_gap(_ns_plain_z(a, mm), plain)
+                for k, mm in controls.items()}
+      gaps[(c, kind)] = gap
+      readings.append(f"C = {c} {kind}: {gap:.3e} ("
+                      + ", ".join(f"{k} {v:.3e}" for k, v in faults.items())
+                      + ")")
+      check(torch.equal(got, want) and counted == (1, 1),
+            ("fused Newton-Schulz against the chain", c, kind, counted,
+             int((got != want).sum())))
+      check(gap <= HIGH_NS_PLAIN[kind] < faults["bf16x3 without a_lo b_hi"],
+            ("fused Newton-Schulz against its plain version", c, kind, gap,
+             HIGH_NS_PLAIN[kind], faults))
+      for k, v in faults.items():
+        least[k] = min(least.get(k, v), v)
+    fused, fused_z = _graphed(
+        lambda: mm_bf16x3.mm_bf16x3_ns_cuda(a, HIGH_NS_ITERS))
+    chain, chain_z = _graphed(lambda: _ns_chain_z(a))
+    plain_g, plain_z = _graphed(lambda: _ns_plain_z(a))
+    fused.replay()
+    chain.replay()
+    plain_g.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(fused_z, chain_z) and torch.equal(fused_z, want)
+          and torch.equal(plain_z, plain),
+          ("captured fused Newton-Schulz against the chain", c))
+    out[c] = _in_turns(
+        (mm_bf16x3.mm_bf16x3_ns_cuda, (a, HIGH_NS_ITERS)),
+        (fused.replay, ()), (chain.replay, ()), (plain_g.replay, ()))
+    del fused, chain, plain_g
+  log("high", f"the fused Newton-Schulz launch ({HIGH_NS_ITERS} iterations, "
+      f"one cooperative launch) bitwise equal to the chain of 44 K3 "
+      f"launches at C = {', '.join(map(str, HIGH_NS_C))} (a fresh "
+      f"covariance and one at conditioning 1e3; eager and captured), one "
+      f"launch a whitening; max|Z - Z_plain| / max|Z_plain| against its "
+      f"plain version (gate {HIGH_NS_PLAIN}; beside each, the chain "
+      f"of float32 products and the planted fault, bf16x3 without a_lo "
+      f"b_hi, which must exceed it): " + "; ".join(readings))
+  log("high", f"device us a whitening in turns on {nvidia_smi()}: "
+      + "; ".join(f"C = {c}: fused {f * 1e3:.1f} (captured {fg * 1e3:.1f}), "
+                  f"chain captured {ch * 1e3:.1f} ({ch / fg:.2f}x), plain "
+                  f"version captured {pl * 1e3:.1f}"
+                  for c, (f, fg, ch, pl) in out.items()))
+  return {"ms": out, "gap": max(gaps.values()), "controls": least}
+
+
 def _high_residual(cov: torch.Tensor) -> float:
   """max|W cov W^T - I| with W by the Newton-Schulz G runs (15 steps,
   trace scaling) at the set precision, taken in float64."""
@@ -3667,6 +3806,7 @@ def phase_high(dev: torch.device):
   try:
     err = _high_parity(dev)
     _high_fused(dev)
+    fused_ns = _high_ns(dev)
     times, small, ns = _high_kernel_times(dev)
     for m, t in times.items():
       check(_positive(t["ms"], t["plain_ms"], t["f32_ms"], t["tf32_ms"]), t)
@@ -3675,8 +3815,10 @@ def phase_high(dev: torch.device):
           f"{t['bound_ms'] / t['ms']:.1%} of it); plain version "
           f"{t['plain_ms']:.4f} ms; torch.matmul float32 TF32 off "
           f"{t['f32_ms']:.4f} ms, TF32 on {t['tf32_ms']:.4f} ms (yardsticks)")
-    check(_positive(*(v for t in small.values() for v in t), *ns),
-          (small, ns))
+    times["ns"] = dict(fused_ns, launches={})
+    check(_positive(*(v for t in small.values() for v in t), *ns,
+                    *(v for t in fused_ns["ms"].values() for v in t)),
+          (small, ns, fused_ns))
     log("high", f"K3 at C x C x C against torch.matmul float32 (TF32 off), "
         f"in turns, on {nvidia_smi()}: " + "; ".join(
             f"C = {c}: {k3 * 1e3:.2f} us / {f32 * 1e3:.2f} us = "
@@ -3709,11 +3851,15 @@ def phase_high(dev: torch.device):
     for _ in range(2):                       # warm-up, capture + replay
       step(state, real, labels)
     mm_bf16x3.MM_BF16X3_LAUNCHES = cuda_wc.MOMENTS_LAUNCHES = 0
+    mm_bf16x3.MM_BF16X3_NS_LAUNCHES = 0
     metrics = step(state, real, labels)
     torch.cuda.synchronize()
     k3, k1 = mm_bf16x3.MM_BF16X3_LAUNCHES, cuda_wc.MOMENTS_LAUNCHES
-    check(step.last == "replay" and k3 == HIGH_K3_PER_STEP and k1 == 42,
-          (step.last, k3, k1))
+    k3_ns = mm_bf16x3.MM_BF16X3_NS_LAUNCHES
+    check(step.last == "replay" and k3 == HIGH_K3_PER_STEP and k1 == 42
+          and k3_ns == HIGH_NS_PER_STEP, (step.last, k3, k1, k3_ns))
+    times["ns"]["launches"][
+        "high: one captured bf16 headline step under 'high'"] = k3_ns
     values = {k: float(v) for k, v in metrics.items()}
     check(all(np.isfinite(v) for v in values.values()), values)
     for _ in range(HIGH_PROBE_STEPS):
@@ -3731,7 +3877,8 @@ def phase_high(dev: torch.device):
         + f" (gate under high: {HIGH_RESID}, at cond 1e3 highest's + "
         f"{HIGH_RESID}) on {nvidia_smi()}")
     log("high", f"captured bf16 headline step under high: one replay "
-        f"launched K3 {k3}, K1 {k1}; metrics "
+        f"launched K3 {k3} ({k3_ns} of them fused Newton-Schulz), K1 {k1}; "
+        f"metrics "
         + ", ".join(f"{k} {v:.4f}" for k, v in values.items()))
     ab, ab_at, cb, cb_at, same_gen, _, n_t, _ = _graph_parity(dev,
                                                               "bfloat16")
@@ -3792,7 +3939,7 @@ def main_nccl() -> int:
 def _k3_line(paths, err, times) -> dict:
   """K3's entry of the kernels line: its launches by path, its largest
   |d| against its plain version, its times at C x C x C (C = 256) and
-  (rows_*) at 131,072 x 256 x 256, the library call torch.matmul in
+  (rows_*) at 131,072 x 256 x 256, and the library call torch.matmul in
   float32 with TF32 off."""
   t, rows = times[C], times[HIGH_RC[-1]]
   return {"name": "mm_bf16x3", "route": "cuda",
@@ -3807,13 +3954,45 @@ def _k3_line(paths, err, times) -> dict:
           "rows_library_ms": rows["f32_ms"]}
 
 
+def _ns_bound(c: int, iters: int = HIGH_NS_ITERS):
+  """The fused launch's bound on this card, ms: the larger of its
+  3 iters - 1 products' bf16 tensor-core operations (6 C^3 flop each) and
+  its bytes over HBM (A read, Z written; Y, Z and T need not leave L2);
+  and which."""
+  hbm = 2 * 4 * c * c / HBM_BYTES * 1e3
+  ops = (3 * iters - 1) * 6 * c ** 3 / BF16_FLOPS * 1e3
+  return max(hbm, ops), "bytes" if hbm >= ops else "operations"
+
+
+def _ns_line(ns) -> dict:
+  """The fused Newton-Schulz launch's entry of the kernels line: its
+  launches by path, its largest gap to its plain version (max|Z -
+  Z_plain| / max|Z_plain|), and one whitening's 15 iterations at C = 256,
+  each captured: the launch, its plain version, its bound, and the chain
+  of K3 launches it replaces as the yardstick (no library call computes
+  it)."""
+  _, fused, chain, plain = ns["ms"][C]
+  bound, by = _ns_bound(C)
+  return {"name": "mm_bf16x3_ns", "route": "cuda",
+          "source": "wcgan_tpu_torch/csrc/mm_bf16x3.cu",
+          "replaces": "the chain of 44 mm_bf16x3 launches of "
+                      "wcgan_tpu_torch/ops/whiten.py::_ns_iterate (no Pallas "
+                      "kernel: XLA's Precision.HIGH, "
+                      "wcgan_tpu/ops/whiten.py:48)",
+          "launches": sum(ns["launches"].values()),
+          "launches_by_path": ns["launches"], "max_rel_err": ns["gap"],
+          "ms": fused, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+          "chain_ms": chain}
+
+
 def main_high() -> int:
   """``--phase high``: K3 and the 'high' precision alone."""
   dev = phase_device()
   phase_build()
   paths, err, times = phase_high(dev)
   print(nvidia_smi(), flush=True)
-  print(json.dumps({"kernels": [_k3_line(paths, err, times)]}), flush=True)
+  print(json.dumps({"kernels": [_k3_line(paths, err, times),
+                                 _ns_line(times["ns"])]}), flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}), flush=True)
@@ -3919,7 +4098,8 @@ def main(argv=None) -> int:
       "max_abs_err": max(k2_err, dcgan_k2_err),
       "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
       "bound_by": k2_bound_by, "library_ms": k2_lib_ms},
-      _k3_line(k3_paths, k3_err, k3_times)]}), flush=True)
+      _k3_line(k3_paths, k3_err, k3_times), _ns_line(k3_times["ns"])]}),
+        flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}), flush=True)

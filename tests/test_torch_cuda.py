@@ -1257,11 +1257,135 @@ def test_k3_tall_offset_view_takes_split_k(dev):
                <= gate).all())
 
 
+def _ns_operand(c, kind, dev):
+  """The jittered, normalized A of a fresh batch covariance or of one
+  conditioned at 1e3."""
+  from wcgan_tpu_torch.ops import whiten
+  gen = torch.Generator(device=dev).manual_seed(c + (kind == "cond"))
+  if kind == "fresh":
+    x = torch.randn((4 * c, c), generator=gen, device=dev)
+    x = x - x.mean(dim=0)
+    cov = x.T @ x / x.shape[0]
+  else:
+    q, _ = torch.linalg.qr(torch.randn((c, c), generator=gen, device=dev,
+                                       dtype=torch.float64))
+    cov = ((q * torch.logspace(0, -3, c, device=dev,
+                               dtype=torch.float64)) @ q.T).float()
+  return whiten._jittered_normalized(cov, 1e-5)[0]
+
+
+def _ns_chain(a, iters=15, mm=None):
+  """Z of the chain of K3 launches ``_ns_iterate`` runs under 'high', or
+  with ``mm`` as every product."""
+  from wcgan_tpu_torch.ops import whiten
+  with whiten.precision("high"), torch.no_grad():
+    return whiten._ns_iterate(a, torch.eye(a.shape[0], device=a.device),
+                              iters, mm=mm)[1]
+
+
+# chip_smoke.py's HIGH_NS_PLAIN: the fused Z's largest distance from its
+# plain version, max|Z - Z_plain| / max|Z_plain| after 15 iterations
+# (measured on an H100: at most 2.4e-5 fresh, 1.9e-4 at 1e3; without the
+# a_lo b_hi term at least 1.0e-2 and 0.11).
+NS_PLAIN_GAP = {"fresh": 2e-4, "cond": 1e-3}
+
+
+def _mm_two_terms(a, b):
+  """bf16x3 without its a_lo b_hi term (a planted fault)."""
+  from wcgan_tpu_torch.ops import mm_bf16x3
+  (a_hi, _), (b_hi, b_lo) = ([p.float() for p in mm_bf16x3.split_bf16(t)]
+                             for t in (a, b))
+  return a_hi @ b_lo + a_hi @ b_hi
+
+
+@pytest.mark.parametrize("c", [64, 128, 256])
+@pytest.mark.parametrize("kind", ["fresh", "cond"])
+def test_k3_fused_ns_is_the_chain_bitwise(c, kind, dev):
+  """The whole Newton-Schulz iteration in one K3 launch (mm_bf16x3_ns):
+  Z bit-equal to the chain of 44 K3 launches, and within NS_PLAIN_GAP of
+  its plain version (``_ns_iterate`` with ``mm_bf16x3_reference``), where
+  a bf16x3 without one of its terms is not; counted once by each counter;
+  two calls bitwise equal."""
+  from wcgan_tpu_torch.ops import mm_bf16x3
+  a = _ns_operand(c, kind, dev)
+  want = _ns_chain(a)
+  before = (mm_bf16x3.MM_BF16X3_LAUNCHES, mm_bf16x3.MM_BF16X3_NS_LAUNCHES)
+  got = mm_bf16x3.mm_bf16x3_ns_cuda(a, 15)
+  assert (mm_bf16x3.MM_BF16X3_LAUNCHES,
+          mm_bf16x3.MM_BF16X3_NS_LAUNCHES) == (before[0] + 1, before[1] + 1)
+  assert torch.equal(got, want)
+  assert torch.equal(mm_bf16x3.mm_bf16x3_ns_cuda(a, 15), got)
+  plain = _ns_chain(a, mm=mm_bf16x3.mm_bf16x3_reference).double()
+
+  def gap(z):
+    return float((z.double() - plain).abs().max() / plain.abs().max())
+
+  fault = gap(_ns_chain(a, mm=_mm_two_terms))
+  assert gap(got) <= NS_PLAIN_GAP[kind] < fault, (gap(got), fault)
+  for iters in (1, 2):
+    assert torch.equal(mm_bf16x3.mm_bf16x3_ns_cuda(a, iters),
+                       _ns_chain(a, iters))
+
+
+def test_k3_fused_ns_in_a_captured_graph(dev):
+  """The fused launch captured in a CUDA graph (a cooperative launch):
+  each replay gives the chain's Z of what its input holds then."""
+  from wcgan_tpu_torch.ops import mm_bf16x3
+  static = _ns_operand(256, "fresh", dev).clone()
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    mm_bf16x3.mm_bf16x3_ns_cuda(static, 15)
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    out = mm_bf16x3.mm_bf16x3_ns_cuda(static, 15)
+  for kind in ("fresh", "cond"):
+    static.copy_(_ns_operand(256, kind, dev))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, _ns_chain(static)), kind
+
+
+def test_whitening_takes_one_fused_launch_without_grad(dev):
+  """``newton_schulz_inv_sqrt`` under 'high' at C = 256: without a
+  gradient one K3 kernel on the device (mm_bf16x3_ns) and one count on
+  each counter; with one, the chain (45 launches, no fused one); W
+  bitwise equal."""
+  from torch.profiler import ProfilerActivity, profile
+  from wcgan_tpu_torch.ops import mm_bf16x3, whiten
+  gen = torch.Generator(device=dev).manual_seed(5)
+  x = torch.randn((1024, 256), generator=gen, device=dev)
+  cov = (x.T @ x / 1024).requires_grad_(True)
+  with whiten.precision("high"):
+    before = (mm_bf16x3.MM_BF16X3_LAUNCHES, mm_bf16x3.MM_BF16X3_NS_LAUNCHES)
+    w_chain = whiten.newton_schulz_inv_sqrt(cov)
+    assert w_chain.requires_grad
+    assert (mm_bf16x3.MM_BF16X3_LAUNCHES - before[0],
+            mm_bf16x3.MM_BF16X3_NS_LAUNCHES - before[1]) == (45, 0)
+    torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+      before = (mm_bf16x3.MM_BF16X3_LAUNCHES,
+                mm_bf16x3.MM_BF16X3_NS_LAUNCHES)
+      w_fused = whiten.newton_schulz_inv_sqrt(cov)
+      launched = (mm_bf16x3.MM_BF16X3_LAUNCHES - before[0],
+                  mm_bf16x3.MM_BF16X3_NS_LAUNCHES - before[1])
+      torch.cuda.synchronize()
+  assert launched == (1, 1)
+  k3_kernels = [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "mm_bf16x3" in e.name]
+  assert len(k3_kernels) == 1 and "mm_bf16x3_ns" in k3_kernels[0], k3_kernels
+  assert torch.equal(w_fused, w_chain.detach())
+
+
 def test_high_captured_chain_is_bit_equal_to_eager(dev):
   """make_jit_dataset_step under 'high' (a chain of 3, float32,
   deterministic kernels) against the eager chain from the same state:
   every parameter, buffer, Adam slot, EMA tensor and metric bitwise equal
-  after a warm-up, a capture and a replay; K3 launched in each replay."""
+  after a warm-up, a capture and a replay; K3 launched in each replay, and
+  the fakes' whitenings (no gradient) through the fused launch in both
+  chains alike."""
   from wcgan_tpu_torch.ops import mm_bf16x3, whiten
   from wcgan_tpu_torch.train.step import (_multi, make_dataset_step,
                                           make_jit_dataset_step)
@@ -1274,10 +1398,16 @@ def test_high_captured_chain_is_bit_equal_to_eager(dev):
       eager = _multi(make_dataset_step(gan, 16), 3)
       for call in range(3):
         before = mm_bf16x3.MM_BF16X3_LAUNCHES
+        fused = mm_bf16x3.MM_BF16X3_NS_LAUNCHES
         m_j = jit(jit_st, *data)
         launched = mm_bf16x3.MM_BF16X3_LAUNCHES - before
+        fused_j = mm_bf16x3.MM_BF16X3_NS_LAUNCHES - fused
+        fused = mm_bf16x3.MM_BF16X3_NS_LAUNCHES
         m_e = eager(ref_st, *data)
+        fused_e = mm_bf16x3.MM_BF16X3_NS_LAUNCHES - fused
         assert launched > 3 * 45, (call, launched)
+        # The fakes' whitenings take the fused launch in both chains.
+        assert fused_j == fused_e > 0, (call, fused_j, fused_e)
         for k in m_e:
           assert torch.equal(m_j[k], m_e[k]), (call, k)
   finally:

@@ -10,6 +10,9 @@ to JAX within what the emulation loses: bf16x3 keeps about 16 bits of
 each operand (2^-16 ~ 1.5e-5 relative per product), which Newton-Schulz
 at conditioning ~1e3 amplifies. Tolerances are stated where used."""
 
+import contextlib
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +21,7 @@ import torch
 
 from wcgan_tpu.ops import pallas_wc
 from wcgan_tpu.ops import whiten as jwhiten
-from wcgan_tpu_torch import compiled
+from wcgan_tpu_torch import compiled, trace
 from wcgan_tpu_torch.ops import cuda_wc
 from wcgan_tpu_torch.ops import mm_bf16x3 as k3
 from wcgan_tpu_torch.ops import whiten as twhiten
@@ -254,6 +257,118 @@ def test_newton_schulz_high_matches_jax(c, rng, high):
                                               num_iters=15))
   s_t = _np(twhiten.newton_schulz_sqrt(torch.from_numpy(cov), num_iters=15))
   np.testing.assert_allclose(s_t, s_j, atol=1e-3 * np.abs(s_j).max())
+
+
+# --- the fused Newton-Schulz launch (mm_bf16x3_ns) and its rule ----------
+
+
+class _Seen(types.SimpleNamespace):
+  """What ``ns_path`` reads of a tensor, on a device the CPU lacks."""
+
+
+@pytest.mark.parametrize(
+    "precision,is_cuda,requires_grad,grad_mode,c,want", [
+        ("high", True, False, True, 256, "fused"),   # eval, dr mode
+        ("high", True, True, False, 256, "fused"),   # under no_grad
+        ("high", True, False, False, 128, "fused"),
+        ("high", True, False, False, 64, "fused"),
+        ("high", True, False, False, 32, "chain"),    # widths no
+        ("high", True, False, False, 96, "chain"),    # configuration runs
+        ("high", True, True, True, 256, "chain"),    # the G update's forward
+        ("highest", True, False, False, 256, "chain"),
+        ("high", False, False, False, 256, "chain"),  # the CPU
+        ("high", True, False, False, 512, "chain"),   # wider C
+        ("high", True, False, False, 200, "chain"),   # not a tile width
+    ])
+def test_ns_path_rule(precision, is_cuda, requires_grad, grad_mode, c, want):
+  """The fused launch is taken exactly where the precision is 'high', the
+  matrix is on CUDA, no gradient is taken through it and C is a width it
+  takes; everything else keeps the chain."""
+  a = _Seen(shape=(c, c), is_cuda=is_cuda, requires_grad=requires_grad)
+  twhiten.set_precision(precision)
+  try:
+    with torch.set_grad_enabled(grad_mode):
+      assert twhiten.ns_path(a) == want
+  finally:
+    twhiten.set_precision("highest")
+  assert k3.ns_takes(c) == (c in (64, 128, 256))
+
+
+@pytest.mark.parametrize("c", [16, 64])
+def test_inverse_root_is_the_same_with_and_without_grad(c, rng, high):
+  """On the CPU ``newton_schulz_inv_sqrt`` under 'high' gives bit-equal W
+  under ``torch.no_grad()`` and where autograd records it."""
+  cov = torch.from_numpy(_spd(rng, c, 1e2)).requires_grad_(True)
+  w = twhiten.newton_schulz_inv_sqrt(cov)
+  assert w.requires_grad
+  with torch.no_grad():
+    w_free = twhiten.newton_schulz_inv_sqrt(cov)
+  assert torch.equal(w.detach(), w_free)
+
+
+def test_only_the_inverse_root_takes_the_fused_launch(rng, high,
+                                                      monkeypatch):
+  """Where the rule says 'fused', ``newton_schulz_inv_sqrt`` takes Z from
+  ``mm_bf16x3_ns_cuda`` (here its plain version, ``_ns_iterate`` with
+  ``mm_bf16x3_reference`` as every product: W bit-equal to the chain's);
+  ``newton_schulz_sqrt``, which needs Y, never calls it."""
+  calls = []
+
+  def fused(a, iters):
+    calls.append(iters)
+    ident = torch.eye(a.shape[-1])
+    return twhiten._ns_iterate(a, ident, iters,
+                               mm=k3.mm_bf16x3_reference)[1]
+
+  cov = torch.from_numpy(_spd(rng, 32, 1e2))
+  want = twhiten.newton_schulz_inv_sqrt(cov)
+  monkeypatch.setattr(twhiten, "ns_path", lambda a: "fused")
+  monkeypatch.setattr(k3, "mm_bf16x3_ns_cuda", fused)
+  assert torch.equal(twhiten.newton_schulz_inv_sqrt(cov), want)
+  twhiten.newton_schulz_sqrt(cov)
+  assert calls == [15]
+
+
+def test_fused_counter_is_added_on_replay(monkeypatch):
+  """``MM_BF16X3_NS_LAUNCHES`` is a host count of ``compiled._counts``: a
+  capture records what the captured call added to it and puts it back,
+  and each replay adds that again, as for ``MM_BF16X3_LAUNCHES`` (the
+  CUDA graph and streams are stand-ins on the CPU)."""
+  class Stream:
+    cuda_stream = 0
+
+    def wait_stream(self, other):
+      pass
+
+  class Graph:
+    def replay(self):
+      pass
+
+  for name, value in (
+      ("CUDAGraph", Graph), ("Stream", lambda device=None: Stream()),
+      ("current_stream", lambda device=None: Stream()),
+      ("stream", lambda s: contextlib.nullcontext()),
+      ("graph", lambda g, stream=None: contextlib.nullcontext())):
+    monkeypatch.setattr(torch.cuda, name, value)
+  monkeypatch.setattr(trace, "graph_map",
+                      lambda name: contextlib.nullcontext())
+  monkeypatch.setattr(k3, "MM_BF16X3_LAUNCHES", 0)
+  monkeypatch.setattr(k3, "MM_BF16X3_NS_LAUNCHES", 0)
+
+  def whitening(s):  # one fused launch and one product, as counted
+    k3.MM_BF16X3_LAUNCHES += 2
+    k3.MM_BF16X3_NS_LAUNCHES += 1
+    return s[0] + 1
+
+  program = compiled.Program("ns")
+  x = torch.ones(2)
+  cuda = types.SimpleNamespace(type="cuda")
+  program(whitening, lambda: 0, [x], torch.device("cpu"))  # the warm-up
+  for _ in range(3):
+    program(whitening, lambda: 0, [x], cuda)
+  assert program.calls["capture"] == 1 and program.calls["replay"] == 2
+  assert (k3.MM_BF16X3_LAUNCHES, k3.MM_BF16X3_NS_LAUNCHES) == (8, 4)
+  assert compiled._counts(None)["mm_bf16x3_ns"] == 4
 
 
 def test_k1_backward_high_matches_the_pallas_vjp(rng, high, monkeypatch):

@@ -23,10 +23,10 @@ statistics, a device dataset). A call:
   calls replay. A capture that fails raises, naming the call that could
   not be captured (``capture_failure``); nothing falls back to eager;
 - the host-side counts a call advances (the kernels' launch counts
-  ``cuda_wc.MOMENTS_LAUNCHES``, ``WC_APPLY_LAUNCHES`` and
-  ``mm_bf16x3.MM_BF16X3_LAUNCHES``, the collectives
-  of ``mesh.STATS``, and a state's ``step`` and ``g_version``) are those of
-  the captured call, added on each replay;
+  ``cuda_wc.MOMENTS_LAUNCHES``, ``WC_APPLY_LAUNCHES``,
+  ``mm_bf16x3.MM_BF16X3_LAUNCHES`` and ``MM_BF16X3_NS_LAUNCHES``, the
+  collectives of ``mesh.STATS``, and a state's ``step`` and ``g_version``)
+  are those of the captured call, added on each replay;
 - the outputs are new tensors on each call (clones of the graph's);
 - ``torch.autograd`` anomaly detection stays on in a capture without its
   NaN check, which reads the device on the host.
@@ -163,7 +163,8 @@ def _counts(state) -> Dict[Any, int]:
   """The host-side counts a call advances."""
   out: Dict[Any, int] = {"moments": cuda_wc.MOMENTS_LAUNCHES,
                          "wc_apply": cuda_wc.WC_APPLY_LAUNCHES,
-                         "mm_bf16x3": mm_bf16x3.MM_BF16X3_LAUNCHES}
+                         "mm_bf16x3": mm_bf16x3.MM_BF16X3_LAUNCHES,
+                         "mm_bf16x3_ns": mm_bf16x3.MM_BF16X3_NS_LAUNCHES}
   out.update({("calls", k): v for k, v in mesh.STATS.calls.items()})
   out.update({("bytes", k): v for k, v in mesh.STATS.bytes.items()})
   if state is not None:
@@ -175,6 +176,7 @@ def _put(counts: Dict[Any, int], state) -> None:
   cuda_wc.MOMENTS_LAUNCHES = counts["moments"]
   cuda_wc.WC_APPLY_LAUNCHES = counts["wc_apply"]
   mm_bf16x3.MM_BF16X3_LAUNCHES = counts["mm_bf16x3"]
+  mm_bf16x3.MM_BF16X3_NS_LAUNCHES = counts["mm_bf16x3_ns"]
   mesh.STATS.reset()
   for k, v in counts.items():
     if isinstance(k, tuple):

@@ -34,7 +34,9 @@
 //
 // The design: one launch a product, two paths picked by the shape, no
 // workspace, no atomics, every sum in a fixed order, so two calls give the
-// same bits.
+// same bits. A third entry point (path 3, mm_bf16x3_ns) runs a whole
+// Newton-Schulz iteration's 44 products in one launch, each with path 1's
+// arithmetic.
 // 1. mma.sync, K split over a thread-block cluster where K is long
 //    (mm_bf16x3_splitk), for every product whose 128 x 128 tiles would
 //    not fill the card (every C x C product at C = 64 ... 512, the bias's
@@ -163,7 +165,7 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 // An asynchronous 16-byte copy of `bytes` (0 to 16) bytes, the rest of the
 // 16 filled with 0.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int bytes) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
@@ -609,7 +611,326 @@ __global__ void __launch_bounds__(kRowThreads, 1)
   }
 }
 
+// Path 3. A whole coupled Newton-Schulz inverse square root in one
+// cooperative launch (mm_bf16x3_ns): from A (C x C, float32), Y_0 = A and
+// Z_0 = I, each of `iters` iterations T = 1.5 I - 0.5 Z Y, Y <- Y T,
+// Z <- T Z (the last Y skipped: Z does not read it); Z out in float32;
+// C = 64, 128 or 256, the widths the configurations whiten at.
+// Every product is computed element by element as path 1 computes it at
+// C <= 256 (32 x 32 tiles, four warps of 16 x 16, K not split): the same
+// mma.sync fragments in the same order, a fresh accumulator a 32-deep K
+// tile, Kahan's compensation over the tiles in K order, the same epilogue.
+// So Z has the bits of the chain of 44 path-1 launches it replaces,
+// whatever the grid. What the launch saves is the chain's latency: each of
+// those launches waits for the one before, and at C = 256 one takes
+// ~5.5 us in a graph where its bytes take 0.23 us.
+// The design: every block co-resident (cudaLaunchCooperativeKernel), a
+// grid-wide barrier between dependent stages, two stages an iteration: T
+// (C^2 / 1,024 tiles), then Y T and T Z side by side (twice the tiles;
+// both read T). The matrices live in a workspace in L2, each as its bf16
+// pieces, hi and lo, as stored and transposed: a stage's epilogue splits
+// its output once, and every tile that reads it copies the pieces
+// (cp.async.cg, through L2, never a stale L1 line) with no conversion. A
+// block has two groups of four warps; each copies and multiplies one half
+// of K (both operands, a K tile per commit group, each multiplied as it
+// lands), the second hands its K tiles' sums to the first through shared
+// memory, and the first adds them in K order. The operand of a block's
+// Y T or T Z tile that the T stage does not write (Y or Z) is copied
+// before the barrier that ends the T stage.
+// Measured and not kept (PERF.md): in place of the barriers, counts of
+// the tiles done in each row and column block that a tile polls for
+// (atomics, or a flag a warp; with and without back-off: as fast at
+// C = 256); TMA bulk copies in place of cp.async (slower: the proxy
+// fences); one group of four warps over all of K (10 % slower), or four
+// groups on a quarter each (13 % slower).
+constexpr int kNsThreads = 256;  // two groups of four warps
+constexpr int kNsPad = 8;        // bf16 of padding a staged row
+constexpr int kNsWidths = 3;     // C = 64, 128, 256 (KT = 2, 4, 8 K tiles)
+constexpr int kNsMatrices = 5;   // Y twice, Z twice, T
+
+// One matrix of the iteration as its bf16 pieces, C x C each: hi and lo as
+// stored (row-major), and their transposes (a right operand's columns).
+struct Pieces {
+  __nv_bfloat16* hi;
+  __nv_bfloat16* lo;
+  __nv_bfloat16* hi_t;
+  __nv_bfloat16* lo_t;
+};
+
+__device__ __forceinline__ Pieces pieces_at(__nv_bfloat16* ws, int index,
+                                            int64_t cc) {
+  __nv_bfloat16* p = ws + index * 4 * cc;
+  return {p, p + cc, p + 2 * cc, p + 3 * cc};
+}
+
+// cp.async.wait_group with a count known once the loop is unrolled.
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<3>(); break;
+  }
+}
+
+// K tile kt of one operand of a tile into its staged rows (C + kNsPad
+// wide), one 16-byte chunk of each piece for each of 128 threads (`i`):
+// the left operand's rows r0 ... r0 + 31 (as stored), or the right
+// operand's columns r0 ... (its transposes' rows).
+template <int KT>
+__device__ __forceinline__ void ns_issue(uint8_t* smem, bool left,
+                                         const Pieces& x, int r0, int kt,
+                                         int i) {
+  constexpr int C = 32 * KT, LD = C + kNsPad;
+  __nv_bfloat16* s_hi = reinterpret_cast<__nv_bfloat16*>(smem) +
+                        (left ? 0 : 2 * 32 * LD);
+  const int r = i / 4, chunk = i % 4;
+  const int64_t src = static_cast<int64_t>(r0 + r) * C + kt * 32 + chunk * 8;
+  const int dst = r * LD + kt * 32 + chunk * 8;
+  cp_async16(s_hi + dst, (left ? x.hi : x.hi_t) + src, 16);
+  cp_async16(s_hi + 32 * LD + dst, (left ? x.lo : x.lo_t) + src, 16);
+}
+
+__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The pieces of the pair (x0, x1) at (row, col), (row, col + 1) of `out`,
+// as stored and transposed.
+__device__ __forceinline__ void ns_store_pair(const Pieces& out, int c,
+                                              int row, int col, float x0,
+                                              float x1) {
+  uint32_t hi, lo;
+  split2(x0, x1, hi, lo);
+  const int64_t at = static_cast<int64_t>(row) * c + col;
+  *reinterpret_cast<uint32_t*>(out.hi + at) = hi;
+  *reinterpret_cast<uint32_t*>(out.lo + at) = lo;
+  const int64_t at_t = static_cast<int64_t>(col) * c + row;
+  uint16_t* hi_t = reinterpret_cast<uint16_t*>(out.hi_t);
+  uint16_t* lo_t = reinterpret_cast<uint16_t*>(out.lo_t);
+  hi_t[at_t] = static_cast<uint16_t>(hi);
+  hi_t[at_t + c] = static_cast<uint16_t>(hi >> 16);
+  lo_t[at_t] = static_cast<uint16_t>(lo);
+  lo_t[at_t + c] = static_cast<uint16_t>(lo >> 16);
+}
+
+// Output tile (tm, tn) of alpha A B + beta I from the pieces of A and B,
+// into `out`'s pieces or, where `out32` is set, as float32. Group 0 of
+// the block takes K tiles 0 ... H - 1, group 1 the other H. `issued`: 0,
+// or the operand ns_prefetch has copied already (1 A, 2 B).
+template <int KT>
+__device__ void ns_tile(const Pieces& a, const Pieces& b, int tm, int tn,
+                        float alpha, float beta, const Pieces& out,
+                        float* out32, uint8_t* smem, int issued) {
+  static_assert(KT % 2 == 0, "two groups on equal halves of K");
+  constexpr int C = 32 * KT, LD = C + kNsPad, H = KT / 2;
+  const __nv_bfloat16* sa_hi = reinterpret_cast<__nv_bfloat16*>(smem);
+  const __nv_bfloat16* sa_lo = sa_hi + 32 * LD;
+  const __nv_bfloat16* sb_hi = sa_lo + 32 * LD;
+  const __nv_bfloat16* sb_lo = sb_hi + 32 * LD;
+  float* handed = reinterpret_cast<float*>(smem + 4 * 32 * LD * 2);
+  const int m0 = tm * 32, n0 = tn * 32;
+  const int tid = threadIdx.x, group = tid / 128, gi = tid % 128;
+  const int lane = tid & 31, warp = gi >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp / 2) * 16, wn = (warp % 2) * 16;
+  const int k_lo = group == 0 ? 0 : H;
+  __syncthreads();  // the last tile's sums are read
+  // Every thread commits H groups here (after ns_prefetch's H), so that
+  // its K tile i of both operands has landed once at most H - 1 - i are
+  // left.
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    if (issued != 1) ns_issue<KT>(smem, true, a, m0, k_lo + i, gi);
+    if (issued != 2) ns_issue<KT>(smem, false, b, n0, k_lo + i, gi);
+    cp_async_commit();
+  }
+
+  float acc[2][4], comp[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = comp[j][q] = 0.f;
+  auto kahan = [&](const float (&part)[2][4]) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float y = part[j][q] - comp[j][q];
+        const float sum = acc[j][q] + y;
+        comp[j][q] = (sum - acc[j][q]) - y;
+        acc[j][q] = sum;
+      }
+  };
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const int kt = k_lo + i;
+    cp_async_wait_n(H - 1 - i);
+    named_barrier_sync(1 + group, 128);
+    float part[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) part[j][q] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kBK; ks += 16) {
+      // Path 1's fragments (PTX m16n8k16), the pieces read as they lie.
+      const int k0 = kt * kBK + ks + 2 * t;
+      uint32_t ahi[4], alo[4], bhi[2][2], blo[2][2];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int at = (wm + g + (q & 1) * 8) * LD + k0 + (q >> 1) * 8;
+        ahi[q] = lds32(sa_hi + at);
+        alo[q] = lds32(sa_lo + at);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int at = (wn + j * 8 + g) * LD + k0 + q * 8;
+          bhi[j][q] = lds32(sb_hi + at);
+          blo[j][q] = lds32(sb_lo + at);
+        }
+      // Smallest first: a_lo b_hi, a_hi b_lo, then a_hi b_hi.
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        mma_bf16(part[j], alo, bhi[j]);
+        mma_bf16(part[j], ahi, blo[j]);
+        mma_bf16(part[j], ahi, bhi[j]);
+      }
+    }
+    if (group == 0) {
+      kahan(part);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          handed[(i * 8 + j * 4 + q) * 128 + gi] = part[j][q];
+    }
+  }
+  __syncthreads();  // the second half's sums handed over; staging free
+  if (group != 0) return;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    float part[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        part[j][q] = handed[(i * 8 + j * 4 + q) * 128 + gi];
+    kahan(part);
+  }
+
+  // Fragment j: rows g and g + 8 (h), columns 2t and 2t + 1.
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + wm + g + h * 8, col = n0 + wn + j * 8 + 2 * t;
+      const float v0 = finish(acc[j][2 * h] - comp[j][2 * h], alpha, beta,
+                              row, col);
+      const float v1 = finish(acc[j][2 * h + 1] - comp[j][2 * h + 1], alpha,
+                              beta, row, col + 1);
+      if (out32 != nullptr)
+        *reinterpret_cast<float2*>(out32 + static_cast<int64_t>(row) * C +
+                                   col) = make_float2(v0, v1);
+      else
+        ns_store_pair(out, C, row, col, v0, v1);
+    }
+}
+
+// This thread's group's half of K of one operand of a tile, a commit group
+// a K tile, before the tile's ns_tile: the left operand's rows r0 ..., or
+// the right operand's columns r0 ....
+template <int KT>
+__device__ __forceinline__ void ns_prefetch(uint8_t* smem, bool left,
+                                            const Pieces& x, int r0) {
+  constexpr int H = KT / 2;
+  const int group = threadIdx.x / 128, gi = threadIdx.x % 128;
+  const int k_lo = group == 0 ? 0 : H;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    ns_issue<KT>(smem, left, x, r0, k_lo + i, gi);
+    cp_async_commit();
+  }
+}
+
+// z (C x C) = the iteration's Z after `iters` (>= 1) iterations from a
+// (C x C, row-major), C = 32 KT. ws: kNsMatrices x 4 x C x C bf16.
+template <int KT>
+__global__ void __launch_bounds__(kNsThreads, 1)
+    mm_bf16x3_ns(const float* __restrict__ a, __nv_bfloat16* ws,
+                 float* __restrict__ z, int iters) {
+  constexpr int C = 32 * KT, TT = KT * KT;
+  constexpr int64_t cc = static_cast<int64_t>(C) * C;
+  extern __shared__ __align__(16) uint8_t ns_smem[];
+  cg::grid_group grid = cg::this_grid();
+  Pieces y = pieces_at(ws, 0, cc), y_next = pieces_at(ws, 1, cc);
+  Pieces zp = pieces_at(ws, 2, cc), z_next = pieces_at(ws, 3, cc);
+  const Pieces tp = pieces_at(ws, 4, cc);
+
+  // Y_0 = A and Z_0 = I, as pieces.
+  const int64_t gstride = static_cast<int64_t>(gridDim.x) * kNsThreads;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * kNsThreads +
+                   threadIdx.x;
+       e < cc / 2; e += gstride) {
+    const int row = static_cast<int>(e / (C / 2));
+    const int col = static_cast<int>(2 * (e % (C / 2)));
+    ns_store_pair(y, C, row, col, a[row * C + col], a[row * C + col + 1]);
+    ns_store_pair(zp, C, row, col, row == col ? 1.f : 0.f,
+                  row == col + 1 ? 1.f : 0.f);
+  }
+  grid.sync();
+
+  for (int it = 0; it < iters; ++it) {
+    const bool last = it == iters - 1;
+    // T = 1.5 I - 0.5 Z Y.
+    for (int job = blockIdx.x; job < TT; job += gridDim.x)
+      ns_tile<KT>(zp, y, job / KT, job % KT, -0.5f, 1.5f, tp, nullptr,
+                  ns_smem, 0);
+    // T Z (the first TT jobs), then Y T (none in the last iteration); the
+    // operand of this block's first one that T does not write, now.
+    const int jobs = last ? TT : 2 * TT;
+    int issued = 0;
+    if (static_cast<int>(blockIdx.x) < jobs) {
+      const int job = blockIdx.x;
+      __syncthreads();  // the T tile's staging is free
+      if (job < TT) {
+        ns_prefetch<KT>(ns_smem, false, zp, (job % KT) * 32);
+        issued = 2;
+      } else {
+        ns_prefetch<KT>(ns_smem, true, y, ((job - TT) / KT) * 32);
+        issued = 1;
+      }
+    }
+    grid.sync();
+    for (int job = blockIdx.x; job < jobs; job += gridDim.x) {
+      const int tm = (job % TT) / KT, tn = job % KT;
+      const int pre = job == static_cast<int>(blockIdx.x) ? issued : 0;
+      if (job < TT)
+        ns_tile<KT>(tp, zp, tm, tn, 1.f, 0.f, z_next, last ? z : nullptr,
+                    ns_smem, pre);
+      else
+        ns_tile<KT>(y, tp, tm, tn, 1.f, 0.f, y_next, nullptr, ns_smem, pre);
+    }
+    const Pieces y_old = y, z_old = zp;
+    y = y_next;
+    y_next = y_old;
+    zp = z_next;
+    z_next = z_old;
+    if (!last) grid.sync();
+  }
+}
+
 // --- host side -------------------------------------------------------------
+
+// Dynamic shared memory of the fused Newton-Schulz launch: both operands'
+// pieces, 32 rows of C + kNsPad each, then the second group's K-tile sums
+// (32 x 32 floats each).
+constexpr int ns_smem_bytes(int kt) {
+  return 4 * 32 * (32 * kt + kNsPad) * 2 + (kt / 2) * 32 * 32 * 4;
+}
 
 // Dynamic shared memory of the row path: B's two pieces, the ring, two
 // sets of A's two pieces, the barriers.
@@ -624,12 +945,15 @@ static_assert(kRowsMaxSmem <= 232448, "the row path's shared memory");
 struct DeviceInfo {
   bool ready = false;
   int sms = 0;
+  // The fused Newton-Schulz launch's grid at C = 64, 128, 256: its largest
+  // stage's tiles, or as many blocks as the card holds at once.
+  int ns_grid[kNsWidths] = {};
 };
 DeviceInfo g_devices[kMaxDevices];
 
-// Once per device, outside any capture when called at load: the row
-// kernels' opt-in to more than 48 KB of dynamic shared memory, and the
-// device's SM count.
+// Once per device, outside any capture when called at load: the row and
+// fused Newton-Schulz kernels' opt-in to more than 48 KB of dynamic shared
+// memory, the device's SM count and the fused launch's grids.
 cudaError_t prepare(DeviceInfo** out) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -649,6 +973,23 @@ cudaError_t prepare(DeviceInfo** out) {
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  kRowsMaxSmem);
       if (err != cudaSuccess) return err;
+    }
+    const void* ns_kernels[kNsWidths] = {
+        reinterpret_cast<const void*>(mm_bf16x3_ns<2>),
+        reinterpret_cast<const void*>(mm_bf16x3_ns<4>),
+        reinterpret_cast<const void*>(mm_bf16x3_ns<8>)};
+    for (int w = 0; w < kNsWidths; ++w) {
+      const int kt = 2 << w;
+      err = cudaFuncSetAttribute(ns_kernels[w],
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 ns_smem_bytes(kt));
+      if (err != cudaSuccess) return err;
+      int per_sm = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, ns_kernels[w], kNsThreads, ns_smem_bytes(kt));
+      if (err != cudaSuccess) return err;
+      d.ns_grid[w] = per_sm * d.sms < 2 * kt * kt ? per_sm * d.sms
+                                                  : 2 * kt * kt;
     }
     d.ready = true;
   }
@@ -772,6 +1113,17 @@ cudaError_t launch_rows(const float* a, int64_t lda, const float* b, bool tb,
                    amap, b, ldb, tb, c, m, n, k, kchunks, slices, alpha, beta);
 }
 
+template <int KT>
+cudaError_t launch_ns(const float* a, __nv_bfloat16* ws, float* z, int iters,
+                      int grid, cudaStream_t stream) {
+  if (grid < 1) return cudaErrorCooperativeLaunchTooLarge;
+  void* params[] = {&a, &ws, &z, &iters};
+  return cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(mm_bf16x3_ns<KT>), dim3(grid),
+      dim3(kNsThreads), params, static_cast<size_t>(ns_smem_bytes(KT)),
+      stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -827,6 +1179,35 @@ int wcgan_mm_bf16x3(const float* a, int trans_a, int64_t lda, const float* b,
   else
     err = launch_splitk<32, 32, 2, 2, 4>(a, ta, lda, b, tb, ldb, c, m, n, k,
                                          p.split, alpha, beta, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of the fused Newton-Schulz launch's workspace at width c.
+int64_t wcgan_mm_bf16x3_ns_workspace_bytes(int c) {
+  return static_cast<int64_t>(kNsMatrices) * 4 * c * c * 2;
+}
+
+// z (c x c) = Z after `iters` coupled Newton-Schulz iterations from a
+// (c x c), both float32, row-major and contiguous, in one cooperative
+// launch, bit-equal to the chain of wcgan_mm_bf16x3 calls (T with alpha
+// -0.5 and beta 1.5, then Y T and T Z). c 64, 128 or 256; iters >= 1;
+// ws wcgan_mm_bf16x3_ns_workspace_bytes(c) bytes, 16-byte aligned.
+// Enqueues on `stream`; returns the launch's cudaError_t.
+int wcgan_mm_bf16x3_ns(const float* a, int c, int iters, void* ws, float* z,
+                       cudaStream_t stream) {
+  if ((c != 64 && c != 128 && c != 256) || iters < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  DeviceInfo* d = nullptr;
+  cudaError_t err = prepare(&d);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  __nv_bfloat16* w = static_cast<__nv_bfloat16*>(ws);
+  if (c == 64)
+    err = launch_ns<2>(a, w, z, iters, d->ns_grid[0], stream);
+  else if (c == 128)
+    err = launch_ns<4>(a, w, z, iters, d->ns_grid[1], stream);
+  else
+    err = launch_ns<8>(a, w, z, iters, d->ns_grid[2], stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -119,7 +119,7 @@ def load_wc_apply() -> ctypes.CDLL:
 
 
 def load_mm_bf16x3() -> ctypes.CDLL:
-  """The K3 library with its C signature declared (built on first use)."""
+  """The K3 library with its C signatures declared (built on first use)."""
   lib = _LOADED.get("mm_bf16x3")
   if lib is None:
     path, _, _ = compile_library("mm_bf16x3")
@@ -131,6 +131,10 @@ def load_mm_bf16x3() -> ctypes.CDLL:
     lib.wcgan_mm_bf16x3.restype = i32
     lib.wcgan_mm_bf16x3_plan.argtypes = [p, i64, i32, i32, i32, p]
     lib.wcgan_mm_bf16x3_plan.restype = i32
+    lib.wcgan_mm_bf16x3_ns.argtypes = [p, i32, i32, p, p, p]
+    lib.wcgan_mm_bf16x3_ns.restype = i32
+    lib.wcgan_mm_bf16x3_ns_workspace_bytes.argtypes = [i32]
+    lib.wcgan_mm_bf16x3_ns_workspace_bytes.restype = i64
     lib.wcgan_mm_bf16x3_prepare.argtypes = []
     lib.wcgan_mm_bf16x3_prepare.restype = i32
     # The row kernels' shared-memory opt-in, on the current device, before

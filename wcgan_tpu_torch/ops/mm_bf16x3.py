@@ -30,6 +30,13 @@ call (``alpha = -0.5, beta = 1.5``, ``ops.whiten._ns_iterate``) with the
 bits of the product followed by ``1.5 * I - 0.5 * p``, since a power of
 two scales exactly.
 
+``mm_bf16x3_ns_cuda(a, num_iters)`` runs a whole coupled Newton-Schulz
+iteration's products (Z of ``ops.whiten._ns_iterate`` from Y = A, Z = I)
+in one K3 launch, with each product's arithmetic, so Z has the chain's
+bits; it has no gradient, and ``ops.whiten.ns_path`` takes it only where
+none is taken. Its plain version is ``_ns_iterate`` with
+``mm_bf16x3_reference`` as the product.
+
 The gradient is JAX's transpose rule for a product at HIGH, which keeps
 the precision: dA = alpha dC B^T and dB = alpha A^T dC, each itself
 ``mm_bf16x3`` with alpha in its epilogue, so the backward is
@@ -48,6 +55,14 @@ from wcgan_tpu_torch.ops import _build
 
 # Number of times the wrapper has launched K3 (one per call, on CUDA only).
 MM_BF16X3_LAUNCHES = 0
+# Of those, the whitenings that ran as one fused Newton-Schulz launch
+# (``mm_bf16x3_ns_cuda``).
+MM_BF16X3_NS_LAUNCHES = 0
+# The widths the fused launch takes: those the configurations whiten at
+# (C <= 256, where K3's C x C products are 32 x 32 tiles that walk all of
+# K, the split-K path without a split, whose arithmetic it repeats element
+# by element).
+NS_WIDTHS = (64, 128, 256)
 
 
 def split_bf16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -177,6 +192,44 @@ class MmBf16x3Fn(torch.autograd.Function):
     if ctx.needs_input_grad[1]:
       db = MmBf16x3Fn.apply(a.T, grad, ctx.alpha, 0.0)
     return da, db, None, None
+
+
+def ns_takes(c: int) -> bool:
+  """Whether the fused Newton-Schulz launch takes width ``c``."""
+  return c in NS_WIDTHS
+
+
+def mm_bf16x3_ns_cuda(a: torch.Tensor, num_iters: int) -> torch.Tensor:
+  """The whole Newton-Schulz inverse square root's Z in one K3 launch on
+  ``a``'s device (``csrc/mm_bf16x3.cu``'s ``mm_bf16x3_ns``), bit-equal to
+  the chain of ``mm_bf16x3_cuda`` products; on the current stream, without
+  synchronising. No gradient: autograd does not see it."""
+  global MM_BF16X3_LAUNCHES, MM_BF16X3_NS_LAUNCHES
+  if not a.is_cuda:
+    raise ValueError(f"mm_bf16x3_ns_cuda needs a CUDA tensor, got "
+                     f"{a.device}")
+  if a.dtype != torch.float32 or a.dim() != 2 or a.shape[0] != a.shape[1] \
+      or not ns_takes(a.shape[1]):
+    raise ValueError(f"mm_bf16x3_ns takes a float32 C x C matrix with C in "
+                     f"{NS_WIDTHS}, got {a.dtype} {tuple(a.shape)}")
+  c = a.shape[1]
+  if num_iters < 1:
+    return torch.eye(c, dtype=torch.float32, device=a.device)
+  a = a.contiguous()
+  lib = _build.load_mm_bf16x3()
+  ws = torch.empty(lib.wcgan_mm_bf16x3_ns_workspace_bytes(c) // 2,
+                   dtype=torch.bfloat16, device=a.device)
+  z = torch.empty((c, c), dtype=torch.float32, device=a.device)
+  with torch.cuda.device(a.device):
+    err = lib.wcgan_mm_bf16x3_ns(
+        a.data_ptr(), c, int(num_iters), ws.data_ptr(), z.data_ptr(),
+        torch.cuda.current_stream(a.device).cuda_stream)
+  if err != 0:
+    raise RuntimeError(f"mm_bf16x3_ns kernel launch failed at C = {c}: "
+                       f"cudaError_t {err}")
+  MM_BF16X3_LAUNCHES += 1
+  MM_BF16X3_NS_LAUNCHES += 1
+  return z
 
 
 def mm_bf16x3(a: torch.Tensor, b: torch.Tensor, alpha: float = 1.0,

@@ -18,7 +18,10 @@ default because on the CPU JAX's HIGH is exact float32 while the port's
 'high' runs the emulation, so its CPU parity tests hold 'highest' against
 JAX. Under data parallelism the moments are those of the global batch:
 ``batch_moments`` takes the reference's ``axis_name`` as a process group
-(``wcgan_tpu_torch.parallel.mesh``).
+(``wcgan_tpu_torch.parallel.mesh``). Under 'high' a Newton–Schulz inverse
+square root that no gradient goes through (the fakes of the D updates,
+every eval forward) runs as one K3 launch with the chain's bits
+(``ns_path``).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from wcgan_tpu_torch.ops import cuda_wc
+from wcgan_tpu_torch.ops import mm_bf16x3 as k3
 from wcgan_tpu_torch.ops.mm_bf16x3 import mm_bf16x3
 from wcgan_tpu_torch.parallel import mesh
 
@@ -183,6 +187,23 @@ def _ns_iterate(a: torch.Tensor, ident: torch.Tensor, num_iters: int,
   return y, z
 
 
+def ns_path(a) -> str:
+  """The path of ``newton_schulz_inv_sqrt``'s iteration on the jittered,
+  normalized ``a`` (C x C): 'fused', the whole iteration in one K3 launch
+  (``mm_bf16x3.mm_bf16x3_ns_cuda``), where the precision is 'high', ``a``
+  is a CUDA tensor, no gradient is taken through it and C is a width the
+  launch takes (``mm_bf16x3.ns_takes``: 64, 128 or 256); else
+  'chain', ``_ns_iterate``'s products, which autograd records. The fused
+  Z has the chain's bits, so the path changes no result.
+  ``newton_schulz_sqrt`` always takes the chain: the launch returns Z
+  only, and it needs Y."""
+  if (_PRECISION == "high" and a.is_cuda
+      and not (torch.is_grad_enabled() and a.requires_grad)
+      and k3.ns_takes(a.shape[-1])):
+    return "fused"
+  return "chain"
+
+
 def newton_schulz_inv_sqrt(cov: torch.Tensor, num_iters: int = 15,
                            eps: float = 1e-5,
                            scaling: str = "trace") -> torch.Tensor:
@@ -192,7 +213,10 @@ def newton_schulz_inv_sqrt(cov: torch.Tensor, num_iters: int = 15,
   once the conditioning passes ~1e3 and feed back into it (measured on the
   reference)."""
   a, scale, ident = _jittered_normalized(cov, eps, scaling)
-  _, z = _ns_iterate(a, ident, num_iters)
+  if ns_path(a) == "fused":
+    z = k3.mm_bf16x3_ns_cuda(a, num_iters)
+  else:
+    _, z = _ns_iterate(a, ident, num_iters)
   return z / torch.sqrt(scale)
 
 
