@@ -367,3 +367,16 @@ def test_dp_jit_dataset_chain_equals_the_eager_chain(dp_jit):
       assert all(np.isfinite(v) for v in call["jit"]["metrics"].values())
   assert ranks[0]["digests"] == ranks[1]["digests"]
   assert ranks[0]["per_call"] == ranks[1]["per_call"]
+
+
+def test_dp_chain_collectives_lie_in_mesh_spans(dp_jit):
+  """Every all-reduce of the data-parallel chain (eager on the CPU) runs
+  inside a span of the port's: one ``mesh.moments`` a statistics
+  all-reduce, forward and backward, and one ``mesh.grads`` an update's,
+  as ``mesh.STATS`` counts them, on every rank and call of both arms."""
+  for r in dp_jit["chain"]:
+    for call in r["per_call"]:
+      for arm in ("jit", "eager"):
+        c = call[arm]
+        assert c["spans"] == {"mesh.moments": c["calls"]["moments"],
+                              "mesh.grads": c["calls"]["grads"]}, c

@@ -10,8 +10,8 @@ equal):
 3. uncond WC ResNet STL-10 48x48 with spectral-norm D
 4. cond cWC-sa Tiny-ImageNet 64x64 (shared-basis soft assignment)
 5. large-batch cond cWC ImageNet-64, data-parallel with cross-replica
-   whitening stats (``--mesh``, which the port refuses until data
-   parallelism is ported)
+   whitening stats (``--mesh``: one process a replica, a card each on
+   CUDA, ``wcgan_tpu_torch.parallel``)
 
 Flags given after ``--preset <name>`` override the preset's (argparse
 keeps the last).

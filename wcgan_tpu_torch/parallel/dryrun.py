@@ -37,6 +37,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from wcgan_tpu_torch import trace
 from wcgan_tpu_torch.cli import run as cli_run
 from wcgan_tpu_torch.data.base import ArrayDataset
 from wcgan_tpu_torch.data.datasets import _synthetic
@@ -213,6 +214,16 @@ def worst_rel(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]):
   return worst, where
 
 
+def _mesh_spans(since: Optional[Dict[str, int]] = None) -> Dict[str, int]:
+  """How many ``mesh.*`` spans (``parallel/mesh.py``) this process has
+  ended, by name, less those counted in ``since``; a replayed graph ends
+  none on the host."""
+  since = since or {}
+  out = {n: e["count"] - since.get(n, 0) for n, e in trace.table().items()
+         if n.startswith("mesh.")}
+  return {n: c for n, c in out.items() if c}
+
+
 def jit_dp_rank(ctx: launch.RankContext, g_cfg: GeneratorConfig,
                 d_cfg: DiscriminatorConfig, gan_cfg: GANConfig,
                 batch_size: int, steps_per_call: int, calls: int,
@@ -225,9 +236,10 @@ def jit_dp_rank(ctx: launch.RankContext, g_cfg: GeneratorConfig,
   rank: two states from ``seed`` on this rank's block of the synthetic
   dataset of ``synthetic``'s shape ({"resolution", "classes", "n",
   "seed"}), ``calls`` calls of each, in turns. Returns each call's
-  metrics, K1 launches and collectives (calls and bytes by kind) for both
-  arms, the compiled step's calls by kind, the worst relative difference
-  of the states' tensors (compiled against eager) and where, whether the
+  metrics, K1 launches, collectives (calls and bytes by kind) and the
+  ``mesh.*`` spans ended on the host (``_mesh_spans``) for both arms,
+  the compiled step's calls by kind, the worst relative difference of
+  the states' tensors (compiled against eager) and where, whether the
   generators agree, and a digest of each state (``state_digest``: equal
   on every rank when the state stays replicated). With ``time_rounds``,
   then ``time_rounds`` rounds of ``time_calls`` calls of each arm in
@@ -256,11 +268,13 @@ def jit_dp_rank(ctx: launch.RankContext, g_cfg: GeneratorConfig,
       sync()
       cuda_wc.MOMENTS_LAUNCHES = 0
       mesh.STATS.reset()
+      spans = _mesh_spans()
       metrics = {k: float(v) for k, v in fn(st, *data).items()}
       sync()
       row[name] = {"metrics": metrics, "k1": cuda_wc.MOMENTS_LAUNCHES,
                    "calls": dict(mesh.STATS.calls),
-                   "bytes": dict(mesh.STATS.bytes)}
+                   "bytes": dict(mesh.STATS.bytes),
+                   "spans": _mesh_spans(spans)}
     per_call.append(row)
   got, want = (_tensors(full_state(st)) for st in states)
   rel, where = worst_rel(got, want)

@@ -26,7 +26,10 @@ that the caller passes to every layer and step that reduces over it
 
 ``STATS`` counts the collectives issued in this process, with their
 bytes, by what they carry (a captured step's are added on each replay,
-``compiled.Program``).
+``compiled.Program``). The all-reduces lie in the port's spans
+(``wcgan_tpu_torch.trace``): ``mesh.moments`` around each of the
+statistics, forward and backward, ``mesh.grads`` around ``pmean_many``;
+in a captured step they hold its NCCL kernels in the graph's span map.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from wcgan_tpu_torch import trace
 
 Group = Optional[dist.ProcessGroup]
 
@@ -114,8 +119,9 @@ class _SumOverRanks(torch.autograd.Function):
   @staticmethod
   def forward(ctx, x, group):
     ctx.group = group
-    out = x.clone(memory_format=torch.contiguous_format)
-    _all_reduce_sum(out, group, "moments")
+    with trace.span("mesh.moments"):
+      out = x.clone(memory_format=torch.contiguous_format)
+      _all_reduce_sum(out, group, "moments")
     return out
 
   @staticmethod
@@ -135,9 +141,10 @@ def pmean_many(tensors: Sequence[torch.Tensor], group: dist.ProcessGroup
                ) -> List[torch.Tensor]:
   """Each tensor's mean over the ranks, float32, outside autograd, from
   one all-reduce of their concatenation; counted as 'grads'."""
-  flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
-  _all_reduce_sum(flat, group, "grads")
-  flat /= world_size(group)
+  with trace.span("mesh.grads"):
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    _all_reduce_sum(flat, group, "grads")
+    flat /= world_size(group)
   return [part.view(t.shape) for part, t in
           zip(flat.split([t.numel() for t in tensors]), tensors)]
 
