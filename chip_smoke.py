@@ -80,7 +80,15 @@ headline step under 'high' (K3 959, 35 of them fused, and K1 42 a
 replay), a captured chain of 8 against the eager one
 bit for bit, the step timed in turns against 'highest', each step
 profiled for its kernel time and kernel count. ``python3
-chip_smoke.py --phase high`` runs that phase alone. Then the conditional
+chip_smoke.py --phase high`` runs that phase alone. Then the ``pool``
+phase, K4 (csrc/avg_pool2x2.cu, D's 2x2 average pool): forward and
+backward bit for bit ``F.avg_pool2d`` at every pool shape of the
+configurations' D, bf16 and float32; both timed in turns against ATen's
+kernels and the bytes bound at (128, 64, 64, 64) and (128, 128, 32, 32)
+bf16; and K4's launches (91) in one replayed bf16 step of
+tinyin64_cwcsa's models, with no gradient copied to channels_last, that
+replay traced for K4's kernel time. ``python3 chip_smoke.py --phase
+pool`` runs it alone. Then the conditional
 slice (slice 6):
 
 - k1-widths: K1 at C = 64, 128 and 512, f32 and bf16 rows, at every R of
@@ -212,7 +220,8 @@ from wcgan_tpu_torch.models.discriminator import (Discriminator,
                                                   DiscriminatorConfig)
 from wcgan_tpu_torch.models import layers as L
 from wcgan_tpu_torch.models.generator import Generator, GeneratorConfig
-from wcgan_tpu_torch.ops import _build, cuda_wc, losses, mm_bf16x3, whiten
+from wcgan_tpu_torch.ops import (_build, cuda_wc, losses, mm_bf16x3, pool,
+                                 whiten)
 from wcgan_tpu_torch.parallel import dryrun, launch, mesh
 from wcgan_tpu_torch.tools import digits_quality
 from wcgan_tpu_torch.train import schedules
@@ -307,16 +316,17 @@ def _ptxas_report(out: str):
 
 
 def phase_build() -> None:
-  """The three kernels at once, one nvcc each; ptxas's registers and
+  """The four kernels at once, one nvcc each; ptxas's registers and
   spills of every kernel function. K1's Gram kernel, K2's bf16 row apply
-  (wgmma accumulators in registers) and K3 must not spill."""
+  (wgmma accumulators in registers), K3 and K4 must not spill."""
   t0 = time.perf_counter()
-  names = ("moments", "wc_apply", "mm_bf16x3")
-  with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-    builds = dict(zip(names, pool.map(_build.compile_library, names)))
+  names = ("moments", "wc_apply", "mm_bf16x3", "avg_pool2x2")
+  with concurrent.futures.ThreadPoolExecutor(len(names)) as workers:
+    builds = dict(zip(names, workers.map(_build.compile_library, names)))
   _build.load_moments()
   _build.load_wc_apply()
   _build.load_mm_bf16x3()
+  _build.load_avg_pool2x2()
   for name, (path, out, compile_s) in builds.items():
     report = _ptxas_report(out)
     log("build", f"{name}: {path.name} built in {compile_s:.2f} s; ptxas -v: "
@@ -333,12 +343,16 @@ def phase_build() -> None:
       rows = [sp for k, _, sp in report if "rows_apply_bf16" in k]
       check(len(rows) == 2 and not any(rows), ("K2 row apply spills",
                                                report))
-    else:
+    elif name == "mm_bf16x3":
       # Split-K: 2 tile shapes x 4 layouts; rows: 2 slices x A as given or
       # transposed; the fused Newton-Schulz launch at its 3 widths.
       k3 = [sp for k, _, sp in report if "mm_bf16x3_" in k]
       check(len(k3) == 15 and not any(k3), ("K3 spills", report))
-  log("build", f"all three loaded in {time.perf_counter() - t0:.2f} s")
+    else:
+      # Forward and backward, 2 types x 16-byte or 1-element threads.
+      check(len(report) == 8 and not any(sp for _, _, sp in report),
+            ("K4 spills", report))
+  log("build", f"all four loaded in {time.perf_counter() - t0:.2f} s")
 
 
 def phase_parity(dev: torch.device) -> float:
@@ -3923,6 +3937,164 @@ def phase_high(dev: torch.device):
   return paths, err, times
 
 
+# K4: D's 2x2 average pool. The pools the main path times: the
+# optimized block's conv output at 64x64 and block 1's at 32x32 of the
+# 64x64 configurations, a D update's 128 images, bf16.
+POOL_SHAPES = ((128, 64, 64, 64), (128, 128, 32, 32))
+# Every pool of those configurations' D and of cifar10_wcres_high's.
+POOL_CHECK = ((128, 3, 64, 64), (128, 64, 64, 64), (128, 128, 32, 32),
+              (128, 256, 16, 16), (128, 512, 8, 8), (128, 3, 32, 32),
+              (128, 128, 16, 16))
+POOL_PER_STEP = 91      # a tinyin64 step: 6 D forwards x 8, backwards 43
+POOL_ROTATE_BYTES = 200 * 2 ** 20   # inputs cycled past the 50 MB L2
+
+
+def _pool_bits(t: torch.Tensor) -> torch.Tensor:
+  return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+def _pool_held(dev: torch.device) -> None:
+  """K4's forward and backward bit for bit ATen's at every pool shape of
+  the configurations, bf16 and float32."""
+  gen = torch.Generator(device=dev).manual_seed(22)
+  for shape in POOL_CHECK:
+    for dtype in (torch.bfloat16, torch.float32):
+      x = (torch.randn(shape, generator=gen, device=dev) * 3).to(dtype)
+      x = x.contiguous(memory_format=torch.channels_last)
+      g = pool.avg_pool2x2_reference(x).clone().normal_(generator=gen)
+      y, dx = pool.AvgPool2x2Fn.apply(x), pool.AvgPool2x2BackwardFn.apply(g)
+      xr = x.clone().requires_grad_(True)
+      y_a = pool.avg_pool2x2_reference(xr)
+      dx_a, = torch.autograd.grad(y_a, xr, g)
+      torch.cuda.synchronize()
+      check(torch.equal(_pool_bits(y), _pool_bits(y_a)) and torch.equal(
+          _pool_bits(dx), _pool_bits(dx_a)), ("K4 against ATen", shape,
+                                              dtype))
+  log("pool", f"K4 forward and backward bit-equal to F.avg_pool2d at "
+      f"{len(POOL_CHECK)} shapes, bf16 and float32")
+
+
+def _cycled(fn, inputs):
+  """``fn`` on each of ``inputs`` in turn, one a call."""
+  at = [0]
+
+  def call():
+    at[0] = (at[0] + 1) % len(inputs)
+    return fn(*inputs[at[0]])
+  return call
+
+
+def _pool_times(dev: torch.device) -> dict:
+  """K4 and ATen's kernels (the plain version, F.avg_pool2d, is ATen's
+  call: plain and library are one) in turns at POOL_SHAPES, forward and
+  backward, each call on inputs cycled past L2, beside the bytes bound
+  (the input read once and the output written once, each way)."""
+  gen = torch.Generator(device=dev).manual_seed(23)
+  out = {}
+  for shape in POOL_SHAPES:
+    n, c, h, w = shape
+    count = max(1, -(-POOL_ROTATE_BYTES // (2 * n * c * h * w)))
+    xs = [torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+          for _ in range(count)]
+    gs = [pool.avg_pool2x2_reference(x).clone().normal_(generator=gen)
+          for x in xs]
+    aten_bwd = lambda g, x: torch.ops.aten.avg_pool2d_backward(  # noqa
+        g, x, [2, 2], [2, 2], [0, 0], False, True, None)
+    fwd, fwd_lib = _in_turns(
+        (_cycled(pool.AvgPool2x2Fn.apply, [(x,) for x in xs]), ()),
+        (_cycled(pool.avg_pool2x2_reference, [(x,) for x in xs]), ()))
+    bwd, bwd_lib = _in_turns(
+        (_cycled(pool.AvgPool2x2BackwardFn.apply, [(g,) for g in gs]), ()),
+        (_cycled(aten_bwd, list(zip(gs, xs))), ()))
+    bound = 2 * n * c * h * w * 5 / 4 / HBM_BYTES * 1e3
+    out[shape] = dict(ms=fwd, library_ms=fwd_lib, bwd_ms=bwd,
+                      bwd_library_ms=bwd_lib, bound_ms=bound)
+    log("pool", f"{shape} bf16: forward K4 {fwd:.4f} ms, F.avg_pool2d "
+        f"{fwd_lib:.4f} ms; backward K4 {bwd:.4f} ms, ATen "
+        f"{bwd_lib:.4f} ms; bound (bytes) {bound:.4f} ms each way: K4 at "
+        f"{100 * bound / fwd:.1f} % / {100 * bound / bwd:.1f} %, ATen at "
+        f"{100 * bound / fwd_lib:.1f} % / {100 * bound / bwd_lib:.1f} %; "
+        f"{count} inputs cycled")
+  return out
+
+
+def _pool_step(dev: torch.device) -> dict:
+  """tinyin64_cwcsa's outer step (cWC-sa G, projection D 64..1024 at
+  64x64, bf16) compiled: K4's launches and copies over one replay, and
+  that replay traced for K4's kernels."""
+  g_cfg, d_cfg, gan, b, res = _cond_cfgs("cwcsa", "bfloat16")
+  state = create_state(g_cfg, d_cfg, OptimConfig(), gan.training_ratio, dev,
+                       seed=0)
+  real, labels, _ = _cond_inputs(dev, gan, b, res, seed=4)
+  step = step_lib.make_jit_step(gan)
+  for _ in range(2):
+    step(state, real, labels)
+  before = pool.AVG_POOL2X2_LAUNCHES, pool.AVG_POOL2X2_COPIES
+  step(state, real, labels)
+  torch.cuda.synchronize()
+  launched = pool.AVG_POOL2X2_LAUNCHES - before[0]
+  copied = pool.AVG_POOL2X2_COPIES - before[1]
+  check(step.last == "replay" and launched == POOL_PER_STEP and not copied,
+        ("K4 in a replayed tinyin64 step", step.calls, launched, copied))
+  kernels, _ = _traced_kernels(lambda: step(state, real, labels))
+  k4 = [e for e in kernels if "avg_pool2x2_" in e.name]
+  k4_ms = sum(e.time_range.elapsed_us() for e in k4) / 1e3
+  total = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+  log("pool", f"tinyin64_cwcsa, one replayed bf16 outer step: K4 {launched}"
+      f" launches ({POOL_PER_STEP} a step), {copied} copies; traced: "
+      f"{len(k4)} K4 kernels {k4_ms:.3f} ms of {total:.3f} ms of kernel "
+      f"time, {len(kernels)} kernels")
+  del state, step
+  torch.cuda.empty_cache()
+  return {"pool: one replayed tinyin64_cwcsa outer step": launched,
+          "pool: the same step traced": len(k4)}
+
+
+def phase_pool(dev: torch.device):
+  """K4 (csrc/avg_pool2x2.cu), D's 2x2 average pool: bit for bit ATen's,
+  timed against it and its bound in turns, and counted in a replayed
+  tinyin64_cwcsa step."""
+  t0 = time.perf_counter()
+  pool.AVG_POOL2X2_LAUNCHES = 0
+  _pool_held(dev)
+  held = pool.AVG_POOL2X2_LAUNCHES
+  times = _pool_times(dev)
+  paths = {"pool: the bit-equality checks": held, **_pool_step(dev)}
+  log("pool", f"phase {time.perf_counter() - t0:.1f} s")
+  return paths, times
+
+
+def _pool_line(paths, times) -> dict:
+  """K4's entry of the kernels line: its launches by path and its times at
+  the largest pool shape, forward and backward, against F.avg_pool2d's
+  (the plain version is that call) and the bytes bound."""
+  t = times[POOL_SHAPES[0]]
+  return {"name": "avg_pool2x2", "route": "cuda",
+          "source": "wcgan_tpu_torch/csrc/avg_pool2x2.cu",
+          "replaces": "no Pallas kernel: XLA's reshape-mean, "
+                      "wcgan_tpu/models/layers.py::downsample_avg; on the "
+                      "card ATen's avg_pool2d NHWC kernels",
+          "launches": sum(paths.values()), "launches_by_path": paths,
+          "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["library_ms"],
+          "bound_ms": t["bound_ms"], "bound_by": "bytes",
+          "library_ms": t["library_ms"], "bwd_ms": t["bwd_ms"],
+          "bwd_library_ms": t["bwd_library_ms"]}
+
+
+def main_pool() -> int:
+  """``--phase pool``: K4 alone."""
+  dev = phase_device()
+  phase_build()
+  paths, times = phase_pool(dev)
+  print(nvidia_smi(), flush=True)
+  print(json.dumps({"kernels": [_pool_line(paths, times)]}), flush=True)
+  print(json.dumps({"ok": True, "device": {
+      "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+      "count": torch.cuda.device_count()}}), flush=True)
+  return 0
+
+
 def main_nccl() -> int:
   """``--phase nccl``: the NCCL checks alone, on every card of the
   machine (one rank a card), the last ones timed."""
@@ -4005,9 +4177,11 @@ def main(argv=None) -> int:
     return main_nccl()
   if argv == ["--phase", "high"]:
     return main_high()
+  if argv == ["--phase", "pool"]:
+    return main_pool()
   if argv:
-    raise SystemExit(f"usage: python3 chip_smoke.py [--phase nccl|high]; "
-                     f"got {argv}")
+    raise SystemExit(f"usage: python3 chip_smoke.py [--phase "
+                     f"nccl|high|pool]; got {argv}")
   t_script = time.perf_counter()
   dev = phase_device()
   phase_build()
@@ -4023,6 +4197,7 @@ def main(argv=None) -> int:
   graph_k1, graph_k2 = phase_graph(dev)
   sg_k1, sg_k2 = phase_sample_graph(dev)
   k3_paths, k3_err, k3_times = phase_high(dev)
+  pool_paths, pool_times = phase_pool(dev)
   k2_launches, npz = phase_sampling(dev, state, gan)
   phase_cli(npz)
   run_step_launches, standing_launches, run_k2_launches = phase_run(dev)
@@ -4098,7 +4273,8 @@ def main(argv=None) -> int:
       "max_abs_err": max(k2_err, dcgan_k2_err),
       "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
       "bound_by": k2_bound_by, "library_ms": k2_lib_ms},
-      _k3_line(k3_paths, k3_err, k3_times), _ns_line(k3_times["ns"])]}),
+      _k3_line(k3_paths, k3_err, k3_times), _ns_line(k3_times["ns"]),
+      _pool_line(pool_paths, pool_times)]}),
         flush=True)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

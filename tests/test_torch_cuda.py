@@ -1,4 +1,5 @@
-"""K1 and K2 on a CUDA card (marker ``cuda``; skipped without one).
+"""The port's kernels on a CUDA card (marker ``cuda``; skipped without
+one).
 
 These need a GPU and nvcc, and import no JAX, so they run where the port
 runs. tests/conftest.py imports JAX, so on such a machine skip it:
@@ -16,13 +17,16 @@ fused kernel and the composition, tests/test_pallas_wc.py) and, with
 bf16 rows, to 2 bf16 ulps of the output's largest magnitude (both round
 a float32 result once; the float32 results differ by far less). At
 R = 262,144 its bf16 rows are also held against a float64 run of the same
-fold: no further from it than twice the plain version's distance."""
+fold: no further from it than twice the plain version's distance. K4,
+D's 2x2 average pool, is held to ATen's ``F.avg_pool2d`` bit for bit,
+forward, backward and double backward."""
 
 import os
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from wcgan_tpu_torch.ops import cuda_wc
 
@@ -523,6 +527,7 @@ def test_wgan_gp_with_wc_in_d_on_card(dev):
   from wcgan_tpu_torch.models.discriminator import DiscriminatorConfig
   from wcgan_tpu_torch.models.generator import GeneratorConfig
   from wcgan_tpu_torch.train.state import OptimConfig, create_state
+  from wcgan_tpu_torch.ops import pool
   from wcgan_tpu_torch.train.step import GANConfig, make_outer_step
   gan = GANConfig(loss="wgan-gp", gradient_penalty_weight=10.0,
                   gan_type="projection", num_classes=10, training_ratio=2,
@@ -557,9 +562,12 @@ def test_wgan_gp_with_wc_in_d_on_card(dev):
                                   use_kernel=use_kernel)
       state = create_state(g_cfg, d_cfg, OptimConfig(), 2, dev, seed=3)
       before = cuda_wc.MOMENTS_LAUNCHES
+      pooled = pool.AVG_POOL2X2_LAUNCHES
       metrics = make_outer_step(gan)(state, *inputs[:2], noise=inputs[2])
       results.append(({k: float(v) for k, v in metrics.items()},
                       cuda_wc.MOMENTS_LAUNCHES - before))
+      # D's pools, the penalty's double backward among them, through K4.
+      assert pool.AVG_POOL2X2_LAUNCHES > pooled
   finally:
     torch.use_deterministic_algorithms(False)
     torch.backends.cudnn.deterministic = False
@@ -1510,3 +1518,149 @@ def test_sampling_span_map_lines_up_with_profiled_replays(dev, tmp_path):
   assert len(blocks) == 3
   got = trace.attribute(span_map, blocks[0])
   assert got["wc.forward"]["nodes"] > 0 and "wc.backward" not in got
+
+
+# --- K4: D's 2x2 average pool -------------------------------------------
+
+# Every pool of the configurations' D at batch 128 (a D update's real and
+# fake images, the G update's fakes): tinyin64_cwcsa's and in64_cwcsa_dp4's
+# (the optimized block's 3-channel image, then C = 64 at 64x64 to C = 512
+# at 8x8) and cifar10_wcres_high's (C = 3 and 128 at 32x32, 128 at 16x16);
+# then channels that are not 16-byte rows and small odd widths.
+K4_SHAPES = [(128, 3, 64, 64), (128, 64, 64, 64), (128, 128, 32, 32),
+             (128, 256, 16, 16), (128, 512, 8, 8), (128, 3, 32, 32),
+             (128, 128, 16, 16), (3, 12, 6, 10), (2, 1, 2, 2),
+             (5, 20, 4, 14)]
+
+
+def _k4_input(shape, dtype, dev, seed):
+  """Channels_last values with exact zeros of both signs and ties of the
+  output's rounding among them."""
+  gen = torch.Generator(device=dev).manual_seed(seed)
+  x = torch.randn(shape, generator=gen, device=dev) * 3
+  x[0, :, :2, :2] = -0.0
+  x[-1, :, :2, :2] = 0.0
+  x[:, :, 2:4, :2] = 2.0 ** -7 * torch.randint(
+      -512, 512, x[:, :, 2:4, :2].shape, generator=gen, device=dev)
+  return x.to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _bits(t):
+  return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+def _bits_equal(k4, aten):
+  """K4's channels_last result has ATen's bits, element for element."""
+  return k4.is_contiguous(memory_format=torch.channels_last) and torch.equal(
+      _bits(k4), _bits(aten))
+
+
+@pytest.mark.parametrize("shape", K4_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_is_atens_pool_bitwise(shape, dtype, dev):
+  """K4's forward and backward, one launch each, bit for bit ATen's
+  avg_pool2d and its backward, output channels_last."""
+  from wcgan_tpu_torch.ops import pool
+  x = _k4_input(shape, dtype, dev, sum(shape)).requires_grad_(True)
+  n, c, h, w = shape
+  g = _k4_input((n, c, h // 2, w // 2), dtype, dev, 1)
+  before = pool.AVG_POOL2X2_LAUNCHES, pool.AVG_POOL2X2_COPIES
+  y = pool.avg_pool2x2(x)
+  dx, = torch.autograd.grad(y, x, g)
+  torch.cuda.synchronize()
+  assert pool.AVG_POOL2X2_LAUNCHES == before[0] + 2
+  assert pool.AVG_POOL2X2_COPIES == before[1]
+  y_a = F.avg_pool2d(x, 2)
+  dx_a, = torch.autograd.grad(y_a, x, g)
+  assert _bits_equal(y, y_a) and _bits_equal(dx, dx_a)
+
+
+@pytest.mark.parametrize("shape", [(128, 64, 64, 64), (128, 3, 64, 64),
+                                   (8, 512, 8, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_double_backward_is_atens(shape, dtype, dev):
+  """The gradient of K4's backward (WGAN-GP's penalty) is K4's forward of
+  the incoming gradient: bit for bit ATen's double backward through
+  ``torch.autograd.grad(..., create_graph=True)``, one launch each, and a
+  gradient that is not channels_last copied once first."""
+  from wcgan_tpu_torch.ops import pool
+  x = _k4_input(shape, dtype, dev, 2)
+  n, c, h, w = shape
+  out = []
+  for fn in (pool.avg_pool2x2, lambda t: F.avg_pool2d(t, 2)):
+    xs = x.clone().requires_grad_(True)
+    g = _k4_input((n, c, h // 2, w // 2), dtype, dev, 3).requires_grad_(True)
+    dx, = torch.autograd.grad(fn(xs), xs, g, create_graph=True)
+    wt = _k4_input(shape, dtype, dev, 4)
+    before = pool.AVG_POOL2X2_LAUNCHES, pool.AVG_POOL2X2_COPIES
+    gg, = torch.autograd.grad(dx, g, wt, retain_graph=True)
+    gg_nchw, = torch.autograd.grad(dx, g, wt.contiguous())
+    torch.cuda.synchronize()
+    out.append((dx, gg, gg_nchw, pool.AVG_POOL2X2_LAUNCHES - before[0],
+                pool.AVG_POOL2X2_COPIES - before[1]))
+  (dx, gg, gg_nchw, launched, copied), (dx_a, gg_a, gg_nchw_a, _, _) = out
+  assert _bits_equal(dx, dx_a) and _bits_equal(gg, gg_a)
+  assert _bits_equal(gg_nchw, gg_nchw_a)
+  assert launched == 2 and copied == 1
+
+
+def test_k4_inside_a_captured_graph(dev):
+  """K4's two kernels captured in a CUDA graph: each replay pools what
+  the static input holds then, bit for bit ATen's."""
+  from wcgan_tpu_torch.ops import pool
+  shape, dtype = (128, 128, 32, 32), torch.bfloat16
+  x = _k4_input(shape, dtype, dev, 5)
+  g = _k4_input((128, 128, 16, 16), dtype, dev, 6)
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    pool.AvgPool2x2Fn.apply(x)
+    pool.AvgPool2x2BackwardFn.apply(g)
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  before = pool.AVG_POOL2X2_LAUNCHES
+  with torch.cuda.graph(graph):
+    y = pool.AvgPool2x2Fn.apply(x)
+    dx = pool.AvgPool2x2BackwardFn.apply(g)
+  assert pool.AVG_POOL2X2_LAUNCHES == before + 2
+  for seed in (7, 8):
+    x.copy_(_k4_input(shape, dtype, dev, seed))
+    g.copy_(_k4_input((128, 128, 16, 16), dtype, dev, seed + 10))
+    graph.replay()
+    torch.cuda.synchronize()
+    xr = x.clone().requires_grad_(True)
+    y_a = F.avg_pool2d(xr, 2)
+    dx_a, = torch.autograd.grad(y_a, xr, g)
+    assert _bits_equal(y, y_a) and _bits_equal(dx, dx_a), seed
+
+
+def test_k4_refuses_what_it_does_not_take(dev):
+  from wcgan_tpu_torch.ops import pool
+  x = torch.randn((2, 8, 8, 8), device=dev)
+  with pytest.raises(ValueError, match="channels_last"):
+    pool.avg_pool2x2(x)
+  cl = x.contiguous(memory_format=torch.channels_last)
+  with pytest.raises(TypeError, match="float32 or bfloat16"):
+    pool.avg_pool2x2(cl.half())
+  with pytest.raises(ValueError, match="even"):
+    pool.avg_pool2x2(torch.randn((2, 8, 7, 8), device=dev).contiguous(
+        memory_format=torch.channels_last))
+
+
+def test_k4_on_d_passes_counts_and_never_copies(dev):
+  """A compiled chain of 3 outer steps (D 64x4, 32x32, ratio 2): each
+  step launches K4 22 times (a D forward pools 4 times; 2 D updates of 4
+  forwards and 3 backwards, the real and detached fake images taking no
+  gradient; the G update 4 and 4), in the warm-up, the capture and the
+  replay alike, and no gradient reaches K4's backward in another layout."""
+  from wcgan_tpu_torch.ops import pool
+  from wcgan_tpu_torch.train.step import make_jit_dataset_step
+  gan, (st, _), data = _jit_states(dev)
+  jit = make_jit_dataset_step(gan, 16, 3)
+  for _ in range(3):
+    before = pool.AVG_POOL2X2_LAUNCHES, pool.AVG_POOL2X2_COPIES
+    jit(st, *data)
+    torch.cuda.synchronize()
+    assert pool.AVG_POOL2X2_LAUNCHES - before[0] == 3 * 22, jit.last
+    assert pool.AVG_POOL2X2_COPIES == before[1], jit.last
+  assert jit.calls == {"warm-up": 1, "capture": 1, "replay": 1, "eager": 0}

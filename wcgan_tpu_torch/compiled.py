@@ -24,7 +24,8 @@ statistics, a device dataset). A call:
   not be captured (``capture_failure``); nothing falls back to eager;
 - the host-side counts a call advances (the kernels' launch counts
   ``cuda_wc.MOMENTS_LAUNCHES``, ``WC_APPLY_LAUNCHES``,
-  ``mm_bf16x3.MM_BF16X3_LAUNCHES`` and ``MM_BF16X3_NS_LAUNCHES``, the
+  ``mm_bf16x3.MM_BF16X3_LAUNCHES`` and ``MM_BF16X3_NS_LAUNCHES``,
+  ``pool.AVG_POOL2X2_LAUNCHES`` and ``AVG_POOL2X2_COPIES``, the
   collectives of ``mesh.STATS``, and a state's ``step`` and ``g_version``)
   are those of the captured call, added on each replay;
 - the outputs are new tensors on each call (clones of the graph's);
@@ -57,7 +58,7 @@ import numpy as np
 import torch
 
 from wcgan_tpu_torch import trace
-from wcgan_tpu_torch.ops import cuda_wc, mm_bf16x3, whiten
+from wcgan_tpu_torch.ops import cuda_wc, mm_bf16x3, pool, whiten
 from wcgan_tpu_torch.parallel import mesh
 
 KINDS = ("warm-up", "capture", "replay", "eager")
@@ -164,7 +165,9 @@ def _counts(state) -> Dict[Any, int]:
   out: Dict[Any, int] = {"moments": cuda_wc.MOMENTS_LAUNCHES,
                          "wc_apply": cuda_wc.WC_APPLY_LAUNCHES,
                          "mm_bf16x3": mm_bf16x3.MM_BF16X3_LAUNCHES,
-                         "mm_bf16x3_ns": mm_bf16x3.MM_BF16X3_NS_LAUNCHES}
+                         "mm_bf16x3_ns": mm_bf16x3.MM_BF16X3_NS_LAUNCHES,
+                         "avg_pool2x2": pool.AVG_POOL2X2_LAUNCHES,
+                         "avg_pool2x2_copies": pool.AVG_POOL2X2_COPIES}
   out.update({("calls", k): v for k, v in mesh.STATS.calls.items()})
   out.update({("bytes", k): v for k, v in mesh.STATS.bytes.items()})
   if state is not None:
@@ -177,6 +180,8 @@ def _put(counts: Dict[Any, int], state) -> None:
   cuda_wc.WC_APPLY_LAUNCHES = counts["wc_apply"]
   mm_bf16x3.MM_BF16X3_LAUNCHES = counts["mm_bf16x3"]
   mm_bf16x3.MM_BF16X3_NS_LAUNCHES = counts["mm_bf16x3_ns"]
+  pool.AVG_POOL2X2_LAUNCHES = counts["avg_pool2x2"]
+  pool.AVG_POOL2X2_COPIES = counts["avg_pool2x2_copies"]
   mesh.STATS.reset()
   for k, v in counts.items():
     if isinstance(k, tuple):

@@ -44,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 from wcgan_tpu_torch import trace
 from wcgan_tpu_torch.ops import coloring as coloring_ops
 from wcgan_tpu_torch.ops import cuda_wc
+from wcgan_tpu_torch.ops import pool as pool_ops
 from wcgan_tpu_torch.ops import sn as sn_ops
 from wcgan_tpu_torch.ops import whiten as whiten_ops
 from wcgan_tpu_torch.parallel import mesh
@@ -825,9 +826,10 @@ def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
   return F.interpolate(x, scale_factor=factor, mode="nearest")
 
 
-def downsample_avg(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
-  """``factor`` x ``factor`` average pool (the reference's down-resample)."""
-  return F.avg_pool2d(x, factor)
+def downsample_avg(x: torch.Tensor) -> torch.Tensor:
+  """2x2 average pool (the reference's down-resample): K4 on CUDA tensors,
+  ``F.avg_pool2d(x, 2)`` on the CPU (``ops/pool.py``)."""
+  return pool_ops.avg_pool2x2(x)
 
 
 def global_sum_pool(x: torch.Tensor) -> torch.Tensor:

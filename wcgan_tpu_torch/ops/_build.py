@@ -1,5 +1,5 @@
 """Build the package's CUDA sources (K1 ``moments``, K2 ``wc_apply``, K3
-``mm_bf16x3``) into shared libraries and load them.
+``mm_bf16x3``, K4 ``avg_pool2x2``) into shared libraries and load them.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface, so ``nvcc`` compiles it
 in seconds (no PyTorch headers) into ``build/kernels/`` at the repository
@@ -144,4 +144,17 @@ def load_mm_bf16x3() -> ctypes.CDLL:
       raise RuntimeError(f"mm_bf16x3: preparing the kernels failed: "
                          f"cudaError_t {err}")
     _LOADED["mm_bf16x3"] = lib
+  return lib
+
+
+def load_avg_pool2x2() -> ctypes.CDLL:
+  """The K4 library with its C signature declared (built on first use)."""
+  lib = _LOADED.get("avg_pool2x2")
+  if lib is None:
+    path, _, _ = compile_library("avg_pool2x2")
+    lib = ctypes.CDLL(str(path))
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.wcgan_avg_pool2x2.argtypes = [i32, p, i32, i32, i32, i32, p, p]
+    lib.wcgan_avg_pool2x2.restype = i32
+    _LOADED["avg_pool2x2"] = lib
   return lib
